@@ -1,0 +1,187 @@
+"""JAX parameter trees -> the port's state dicts: the inverse of
+avcer_tpu/core/convert.py.
+
+Input is a variable tree of numpy arrays as the JAX package holds it
+(``{"params": ..., "batch_stats": ...}``, e.g. ``jax.tree.map(np.asarray,
+variables)``). Output is a ``{name: torch.Tensor}`` state dict in the
+reference torch modules' names, which the port's modules load with
+``load_state_dict(strict=True)``. Layouts: flax conv kernels are HWIO (or
+LIO) and torch's OIHW (OIL); a flax Dense kernel is the transpose of a torch
+Linear weight. The wav2vec2 positional conv arrives with its weight norm
+already fused (avcer_tpu/core/convert.py:167).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+Tree = Mapping[str, Any]
+StateDict = dict[str, torch.Tensor]
+
+
+def _t(a: Any) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, dtype=np.float32))
+
+
+class _SD:
+    """Accumulates torch-named tensors from a flax variable tree."""
+
+    def __init__(self, variables: Tree):
+        self.params = variables["params"]
+        self.stats = variables.get("batch_stats", {})
+        self.sd: StateDict = {}
+
+    @staticmethod
+    def _get(root: Tree, path: str) -> Any:
+        for part in path.split("/"):
+            root = root[part]
+        return root
+
+    def p(self, path: str) -> Tree:
+        return self._get(self.params, path)
+
+    def conv2d(self, path: str, name: str, bias: bool = False) -> None:
+        node = self.p(path)
+        self.sd[f"{name}.weight"] = _t(np.transpose(node["kernel"], (3, 2, 0, 1)))
+        if bias:
+            self.sd[f"{name}.bias"] = _t(node["bias"])
+
+    def conv1d(self, path: str, name: str) -> None:
+        node = self.p(path)
+        self.sd[f"{name}.weight"] = _t(np.transpose(node["kernel"], (2, 1, 0)))
+        if "bias" in node:
+            self.sd[f"{name}.bias"] = _t(node["bias"])
+
+    def dense(self, path: str, name: str) -> None:
+        node = self.p(path)
+        self.sd[f"{name}.weight"] = _t(np.transpose(node["kernel"]))
+        if "bias" in node:
+            self.sd[f"{name}.bias"] = _t(node["bias"])
+
+    def norm(self, path: str, name: str) -> None:
+        """LayerNorm (params only) or BatchNorm (params + running stats)."""
+        node = self.p(path)
+        self.sd[f"{name}.weight"] = _t(node["scale"])
+        self.sd[f"{name}.bias"] = _t(node["bias"])
+        try:
+            stats = self._get(self.stats, path)
+        except KeyError:
+            return
+        self.sd[f"{name}.running_mean"] = _t(stats["mean"])
+        self.sd[f"{name}.running_var"] = _t(stats["var"])
+        self.sd[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+def emotion_resnet50(variables: Tree) -> StateDict:
+    c = _SD(variables)
+    c.conv2d("conv_stem", "conv_layer_s2_same")
+    c.norm("batch_norm1", "batch_norm1")
+    for li, blocks in enumerate((3, 4, 6, 3)):
+        for bi in range(blocks):
+            fp, tp = f"layer{li + 1}_{bi}", f"layer{li + 1}.{bi}"
+            for ci in (1, 2, 3):
+                c.conv2d(f"{fp}/conv{ci}", f"{tp}.conv{ci}")
+                c.norm(f"{fp}/batch_norm{ci}", f"{tp}.batch_norm{ci}")
+            if "downsample_conv" in c.p(fp):
+                c.conv2d(f"{fp}/downsample_conv", f"{tp}.i_downsample.0")
+                c.norm(f"{fp}/downsample_bn", f"{tp}.i_downsample.1")
+    c.dense("fc1", "fc1")
+    c.dense("fc2", "fc2")
+    return c.sd
+
+
+def temporal_lstm(variables: Tree) -> StateDict:
+    c = _SD(variables)
+    for name in ("lstm1", "lstm2"):
+        for gate in ("ih", "hh"):
+            node = c.p(f"{name}/cell/{gate}")
+            c.sd[f"{name}.weight_{gate}_l0"] = _t(np.transpose(node["kernel"]))
+            c.sd[f"{name}.bias_{gate}_l0"] = _t(node["bias"])
+    c.dense("fc", "fc")
+    return c.sd
+
+
+def retinaface(variables: Tree) -> StateDict:
+    """RetinaFace-r50 (the mobilenet backbone is not ported yet)."""
+    c = _SD(variables)
+    c.conv2d("body/conv1", "body.conv1")
+    c.norm("body/bn1", "body.bn1")
+    for li, blocks in enumerate((3, 4, 6, 3)):
+        for bi in range(blocks):
+            fp, tp = f"body/layer{li + 1}_{bi}", f"body.layer{li + 1}.{bi}"
+            for ci in (1, 2, 3):
+                c.conv2d(f"{fp}/conv{ci}", f"{tp}.conv{ci}")
+                c.norm(f"{fp}/bn{ci}", f"{tp}.bn{ci}")
+            if "downsample_conv" in c.p(fp):
+                c.conv2d(f"{fp}/downsample_conv", f"{tp}.downsample.0")
+                c.norm(f"{fp}/downsample_bn", f"{tp}.downsample.1")
+    convbns = [f"fpn/output{i}" for i in (1, 2, 3)] + [f"fpn/merge{i}" for i in (1, 2)]
+    convbns += [f"ssh{s}/{n}" for s in (1, 2, 3) for n in
+                ("conv3X3", "conv5X5_1", "conv5X5_2", "conv7X7_2", "conv7x7_3")]
+    for path in convbns:
+        name = path.replace("/", ".")
+        c.conv2d(f"{path}/conv", f"{name}.0")
+        c.norm(f"{path}/bn", f"{name}.1")
+    for i in range(3):
+        for head in ("ClassHead", "BboxHead", "LandmarkHead"):
+            c.conv2d(f"{head}_{i}", f"{head}.{i}.conv1x1", bias=True)
+    return c.sd
+
+
+def _wav2vec2(c: _SD, fp: str, tp: str) -> None:
+    fe = c.p(f"{fp}/feature_extractor")
+    i = 0
+    while f"conv_layers_{i}_conv" in fe:
+        c.conv1d(f"{fp}/feature_extractor/conv_layers_{i}_conv",
+                 f"{tp}.feature_extractor.conv_layers.{i}.conv")
+        c.norm(f"{fp}/feature_extractor/conv_layers_{i}_layer_norm",
+               f"{tp}.feature_extractor.conv_layers.{i}.layer_norm")
+        i += 1
+    c.norm(f"{fp}/feature_projection/layer_norm", f"{tp}.feature_projection.layer_norm")
+    c.dense(f"{fp}/feature_projection/projection", f"{tp}.feature_projection.projection")
+    c.conv1d(f"{fp}/pos_conv_embed/conv", f"{tp}.encoder.pos_conv_embed.conv")
+    li = 0
+    while f"layers_{li}" in c.p(fp):
+        lf, lt = f"{fp}/layers_{li}", f"{tp}.encoder.layers.{li}"
+        c.norm(f"{lf}/layer_norm", f"{lt}.layer_norm")
+        for proj in ("q", "k", "v", "out"):
+            c.dense(f"{lf}/attention_{proj}_proj", f"{lt}.attention.{proj}_proj")
+        c.norm(f"{lf}/final_layer_norm", f"{lt}.final_layer_norm")
+        c.dense(f"{lf}/intermediate_dense", f"{lt}.feed_forward.intermediate_dense")
+        c.dense(f"{lf}/output_dense", f"{lt}.feed_forward.output_dense")
+        li += 1
+    c.norm(f"{fp}/layer_norm", f"{tp}.encoder.layer_norm")
+
+
+def _transformer_layer(c: _SD, fp: str, tp: str) -> None:
+    for w in ("query_w", "keys_w", "values_w", "ff_layer_after_concat"):
+        c.dense(f"{fp}/self_attention/{w}", f"{tp}.self_attention.{w}")
+    for n in ("add_norm_after_attention", "add_norm_after_ff"):
+        c.norm(f"{fp}/{n}/layer_norm", f"{tp}.{n}.layer_norm")
+    for n in ("layer_1", "layer_2"):
+        c.dense(f"{fp}/feed_forward/{n}", f"{tp}.feed_forward.{n}")
+
+
+def expr_model(variables: Tree) -> StateDict:
+    """ExprModel V3 with its wav2vec2 (V1's GRU is not ported yet)."""
+    c = _SD(variables)
+    _wav2vec2(c, "wav2vec2", "wav2vec2")
+    _transformer_layer(c, "tl1", "tl1")
+    _transformer_layer(c, "tl2", "tl2")
+    c.conv1d("time_downsample/conv1", "time_downsample.0")
+    c.norm("time_downsample/bn1", "time_downsample.1")
+    c.conv1d("time_downsample/conv2", "time_downsample.4")
+    c.norm("time_downsample/bn2", "time_downsample.5")
+    c.dense("feature_downsample", "feature_downsample")
+    return c.sd
+
+
+CONVERTERS = {
+    "retinaface": retinaface,
+    "emotion_resnet50": emotion_resnet50,
+    "temporal_lstm": temporal_lstm,
+    "expr_model": expr_model,
+}

@@ -1,0 +1,84 @@
+"""Static emotion CNN (avcer_tpu/models/emotion_resnet.py): the reference's
+TF-flavoured ResNet50.
+
+- TF 'same' stem padding (asymmetric), 7x7/s2, then a VALID 3x3/2 max pool;
+- bottlenecks with the stride on the first 1x1 conv and on the projection
+  (TF v1), 3x3 'same', BN eps ``BN_EPS``;
+- head: spatial mean -> fc1 (2048 -> 512) -> ReLU -> fc2; the ReLU'd fc1
+  output (512) is the LSTM's feature.
+
+Parameter names follow ``TwinEmotionResNet50`` in tests/torch_twins.py.
+Public layout is NHWC; the fused and int8 variants are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from avcer_tpu_torch.models.layers import BatchNorm
+
+BN_EPS = 1e-3
+
+
+def same_pad(i: int, k: int, s: int, d: int = 1) -> tuple[int, int]:
+    """TF 'same' padding (lo, hi) for one spatial dim."""
+    total = max((-(-i // s) - 1) * s + (k - 1) * d + 1 - i, 0)
+    return total // 2, total - total // 2
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, in_ch: int, planes: int, stride: int = 1, downsample: bool = False):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_ch, planes, 1, stride=stride, bias=False)
+        self.batch_norm1 = BatchNorm(planes, BN_EPS)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.batch_norm2 = BatchNorm(planes, BN_EPS)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.batch_norm3 = BatchNorm(planes * 4, BN_EPS)
+        self.i_downsample = (
+            nn.Sequential(nn.Conv2d(in_ch, planes * 4, 1, stride=stride, bias=False),
+                          BatchNorm(planes * 4, BN_EPS))
+            if downsample else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        idn = x if self.i_downsample is None else self.i_downsample(x)
+        h = F.relu(self.batch_norm1(self.conv1(x)))
+        h = F.relu(self.batch_norm2(self.conv2(h)))
+        return F.relu(self.batch_norm3(self.conv3(h)) + idn)
+
+
+class EmotionResNet50(nn.Module):
+    """Normalised BGR crops [B, H, W, 3] -> (logits [B, C], features [B, 512])
+    with features = relu(fc1)."""
+
+    def __init__(self, num_classes: int = 7):
+        super().__init__()
+        self.conv_layer_s2_same = nn.Conv2d(3, 64, 7, stride=2, bias=False)
+        self.batch_norm1 = BatchNorm(64, BN_EPS)
+        in_ch = 64
+        for li, (blocks, planes) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512))):
+            stride = 1 if li == 0 else 2
+            layer = []
+            for bi in range(blocks):
+                s = stride if bi == 0 else 1
+                layer.append(Bottleneck(in_ch, planes, s,
+                                        bi == 0 and (s != 1 or in_ch != planes * 4)))
+                in_ch = planes * 4
+            setattr(self, f"layer{li + 1}", nn.Sequential(*layer))
+        self.fc1 = nn.Linear(2048, 512)
+        self.fc2 = nn.Linear(512, num_classes)
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        x = x.permute(0, 3, 1, 2).to(self.conv_layer_s2_same.weight.dtype)
+        ph = same_pad(x.shape[2], 7, 2)
+        pw = same_pad(x.shape[3], 7, 2)
+        x = F.pad(x, [pw[0], pw[1], ph[0], ph[1]])
+        x = F.relu(self.batch_norm1(self.conv_layer_s2_same(x)))
+        x = F.max_pool2d(x, 3, stride=2)
+        for li in range(1, 5):
+            x = getattr(self, f"layer{li}")(x)
+        features = F.relu(self.fc1(x.mean(dim=(2, 3))))
+        return self.fc2(features), features

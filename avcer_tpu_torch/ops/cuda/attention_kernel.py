@@ -1,0 +1,70 @@
+"""Wrapper of the CUDA self-attention kernel (``csrc/attention.cu``), the
+counterpart of avcer_tpu/ops/pallas/attention_kernel.py ``pallas_mha``.
+
+Dispatch rule, with no fallback: a CPU tensor goes to the plain version in
+this module (``mha_plain``); a CUDA tensor launches the kernel or raises. The
+port has no ``use_pallas_attention`` option: on the card the wav2vec2 encoder
+layers always run this kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from avcer_tpu_torch import _build
+
+MAX_T = 1024
+MAX_D = 128
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's math in plain PyTorch: Q, K, V upcast to f32, logits
+    divided by sqrt(d) in f32, f32 softmax (max, exp, sum, divide), P V in
+    f32, output in q's dtype. [B, H, T, D] -> [B, H, T, D]."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    sqrt_d = torch.tensor(float(q.shape[-1]), dtype=torch.float32).sqrt()
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) / sqrt_d.to(q.device)
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    return torch.matmul(p, vf).to(q.dtype)
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Unmasked softmax(Q K^T / sqrt(d)) V over [B, H, T, D] operands (f32
+    or bf16, T <= 1024, D <= 128). ``mha.launches`` counts kernel launches."""
+    if q.device.type == "cpu":
+        return mha_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"mha: unsupported device {q.device}")
+    for name, x in (("k", k), ("v", v)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(
+                f"mha: {name} is {tuple(x.shape)} {x.dtype} on {x.device}, "
+                f"q is {tuple(q.shape)} {q.dtype} on {q.device}")
+    if q.dim() != 4:
+        raise ValueError(f"mha: operands must be [B, H, T, D], got {tuple(q.shape)}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"mha: dtype {q.dtype} not supported (f32 or bf16)")
+    b, h, t, d = q.shape
+    if t > MAX_T or d > MAX_D:
+        raise ValueError(f"mha: T = {t}, D = {d} outside T <= {MAX_T}, D <= {MAX_D}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("mha: q, k and v must be contiguous")
+    out = torch.empty_like(q)
+    fn = _build.library("attention").avcer_mha
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b * h, t, d, _DTYPE_CODE[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"attention kernel launch failed: CUDA error {rc}")
+    mha.launches += 1
+    return out
+
+
+mha.launches = 0

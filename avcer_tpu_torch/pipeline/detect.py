@@ -1,0 +1,115 @@
+"""Face detection stage (avcer_tpu/pipeline/detect.py): letterbox ->
+normalise -> RetinaFace -> decode -> top-64 candidates -> greedy NMS, on the
+device and batched over frames. Only the tracker stays on the host.
+
+The letterbox runs on the device (bilinear, half-pixel centres, rounded to
+uint8), the stand-in for the JAX package's host ``cv2.resize(INTER_LINEAR)``
+on a card with no OpenCV; it is within 1 LSB of cv2. Greedy NMS on the card
+is the CUDA kernel (``ops.cuda.nms_kernel``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from avcer_tpu.core.config import DetectorConfig
+from avcer_tpu_torch.ops import boxes as box_ops
+from avcer_tpu_torch.ops import nms as nms_ops
+from avcer_tpu_torch.ops.cuda.nms_kernel import nms_mask
+from avcer_tpu_torch.ops.image import (letterbox_params, resize_bilinear_uint8,
+                                       retinaface_normalize)
+
+
+@dataclass
+class Detections:
+    """Fixed-shape per-batch detections (native-resolution pixel coords)."""
+
+    boxes: np.ndarray  # [B, K, 4] float32 xyxy
+    scores: np.ndarray  # [B, K]
+    keep: np.ndarray  # [B, K] bool
+    landmarks: np.ndarray  # [B, K, 10]
+
+
+class DetectStage:
+    def __init__(self, cfg: DetectorConfig, model: torch.nn.Module,
+                 device: torch.device | str = "cuda"):
+        if cfg.transfer_format != "bgr":
+            raise ValueError(
+                f"transfer_format={cfg.transfer_format!r}: the I420 wire format "
+                "is not ported (ROADMAP queue 1, 'Not ported': I420 wire "
+                "format); use transfer_format='bgr'")
+        if cfg.stride != 1:
+            raise ValueError(
+                f"detector stride {cfg.stride}: detect stride is not ported "
+                "(ROADMAP queue 1, serving presets)")
+        if cfg.backbone != "resnet50" or cfg.quant != "none":
+            raise ValueError(
+                f"backbone={cfg.backbone!r} quant={cfg.quant!r}: only the "
+                "resnet50 bf16/f32 detector is ported (ROADMAP queue 1, int8 "
+                "serving and serving presets)")
+        self.cfg = cfg
+        self.model = model
+        self.device = torch.device(device)
+        self._priors: dict[tuple[int, int], torch.Tensor] = {}
+
+    def prepare_batch(self, frames: np.ndarray) -> tuple[torch.Tensor, float]:
+        """Upload [B, H, W, 3] uint8 BGR and letterbox it on the device to the
+        configured bucket (or pad to a multiple of 32 when long_side is 0).
+        Returns (frames on the device, scale bucket -> native)."""
+        x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+        b, h, w = frames.shape[:3]
+        if self.cfg.long_side > 0:
+            nh, nw, scale = letterbox_params(h, w, self.cfg.long_side)
+            if (nh, nw) != (h, w):
+                x = resize_bilinear_uint8(x, nh, nw)
+            return x, scale
+        pad_h, pad_w = (-h) % 32, (-w) % 32
+        if pad_h or pad_w:
+            x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
+        return x, 1.0
+
+    def _priors_for(self, h: int, w: int) -> torch.Tensor:
+        if (h, w) not in self._priors:
+            self._priors[(h, w)] = torch.from_numpy(
+                box_ops.prior_boxes((h, w)).copy()).to(self.device)
+        return self._priors[(h, w)]
+
+    @torch.inference_mode()
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames: [B, H, W, 3] uint8 BGR on the device, letterboxed.
+        Returns packed [B, K, 16] f32: boxes 0:4, score 4, keep 5,
+        landmarks 6:16, in bucket pixel coordinates."""
+        h, w = frames.shape[1], frames.shape[2]
+        loc, conf, landms = self.model(retinaface_normalize(frames))
+        priors = self._priors_for(h, w)
+        scale = torch.tensor([w, h, w, h], dtype=torch.float32, device=self.device)
+        boxes = box_ops.decode_boxes(loc.float(), priors) * scale
+        lscale = torch.tensor([w, h] * 5, dtype=torch.float32, device=self.device)
+        landms = box_ops.decode_landmarks(landms.float(), priors) * lscale
+        k = min(self.cfg.nms_candidates, 64)
+        cand_boxes, cand_scores, valid, idx = nms_ops.topk_candidates(
+            boxes, conf[..., 1], k, self.cfg.threshold)
+        keep = nms_mask(cand_boxes.contiguous(), valid.contiguous(), self.cfg.nms_thresh)
+        cand_landms = torch.gather(landms, 1, idx[..., None].expand(-1, -1, 10))
+        return torch.cat([cand_boxes, cand_scores[..., None],
+                          keep.float()[..., None], cand_landms], dim=-1)
+
+    def dispatch(self, frames: np.ndarray) -> tuple[torch.Tensor, float, torch.Tensor]:
+        """Enqueue detection for a batch: (packed on the device, scale,
+        letterboxed frames on the device for the crop stage)."""
+        frames_dev, scale = self.prepare_batch(frames)
+        return self.forward(frames_dev), scale, frames_dev
+
+    @staticmethod
+    def unpack(packed_np: np.ndarray, scale: float) -> Detections:
+        inv = 1.0 / scale
+        return Detections(
+            boxes=packed_np[..., 0:4] * inv,
+            scores=packed_np[..., 4],
+            keep=packed_np[..., 5] > 0.5,
+            landmarks=packed_np[..., 6:16] * inv,
+        )

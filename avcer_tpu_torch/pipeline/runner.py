@@ -1,0 +1,316 @@
+"""End-to-end clip inference (avcer_tpu/pipeline/runner.py): detect ->
+track -> crop + CNN -> LSTM, with the audio stage on a worker thread, then
+fusion and the reference's output tree.
+
+Frames stay on the device from upload to crop: detection of batch N+1 is
+enqueued before batch N's result is fetched for the host tracker, and the
+crops for the CNN are gathered from the device frame buffer. The audio
+thread runs on its own CUDA stream; its outputs reach the main thread as
+host arrays after a synchronising copy.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import subprocess
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from avcer_tpu.core import registry
+from avcer_tpu.core.config import PipelineConfig
+from avcer_tpu.pipeline.tracker import IoUTracker
+from avcer_tpu_torch.fusion import compound as compound_mod
+from avcer_tpu_torch.ops import image as image_ops
+from avcer_tpu_torch.pipeline import media
+from avcer_tpu_torch.pipeline.audio_stage import AudioStage, AudioWindows
+from avcer_tpu_torch.pipeline.detect import DetectStage
+from avcer_tpu_torch.pipeline.visual import VisualStage, build_temporal_plan
+
+log = logging.getLogger("avcer_tpu_torch")
+
+
+@dataclass
+class ClipResult:
+    name_video: str
+    fps: int
+    total_frames: int
+    stat_probs: np.ndarray  # [T, 7] video order
+    dyn_logits: np.ndarray  # [T, 7] video order
+    audio_window_logits: np.ndarray  # [W, C] fusion order
+    audio_frame_ids: np.ndarray
+    audio_window_of_row: np.ndarray
+    compound: Optional[compound_mod.CompoundResult] = None
+    timings: dict[str, float] = field(default_factory=dict)
+    face_boxes: Optional[np.ndarray] = None  # [T, 4] int32, -1 rows where no face
+
+    @property
+    def rtf(self) -> float:
+        return self.timings["wall"] / (self.total_frames / max(self.fps, 1))
+
+
+def check_supported(cfg: PipelineConfig) -> None:
+    """Raise for configuration the port does not run yet, naming the ROADMAP
+    item that ports it. Nothing is quietly ignored."""
+    unsupported = {
+        "mesh.data > 1 (data parallel; ROADMAP queue 1, parallelism)": cfg.mesh.data > 1,
+        "heatmaps (ROADMAP queue 1, other modules: Grad-CAM)": bool(cfg.heatmaps),
+        "save_face_crops (ROADMAP queue 1, other modules)": cfg.save_face_crops,
+        "visual.cnn_stride != 1 (ROADMAP queue 1, serving presets)": cfg.visual.cnn_stride != 1,
+        "visual int8 (ROADMAP queue 1, int8 serving)": cfg.visual.quant != "none",
+        "fused kernels K3/K4 (ROADMAP queue 2)": (
+            cfg.visual.fused or cfg.detector.fused_layer1 or cfg.detector.fused_tails
+            or cfg.detector.fused_ssh),
+        "calibrate (not ported: batch sizes are measured with bench.py)": cfg.calibrate,
+    }
+    bad = [name for name, hit in unsupported.items() if hit]
+    if bad:
+        raise ValueError("not ported yet: " + "; ".join(bad))
+
+
+class Pipeline:
+    """Holds the three model stages; reusable across clips."""
+
+    def __init__(self, cfg: PipelineConfig, detect: DetectStage, visual: VisualStage,
+                 audio: AudioStage, device: torch.device | str = "cuda"):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.detect = detect
+        self.visual = visual
+        self.audio = audio
+        self.device = torch.device(device)
+        # one stream for every clip's audio: the caching allocator reuses
+        # memory only on the stream it was allocated on
+        self._audio_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                              else None)
+        self._save_lock = threading.Lock()  # pyplot state is global
+
+    def _new_tracker(self) -> IoUTracker:
+        return IoUTracker(iou_threshold=self.cfg.detector.tracker_iou,
+                          minimum_face_size=self.cfg.detector.min_face_size, gap_frames=1)
+
+    def detect_track_device(self, reader) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Detection batches on the device, the host tracker per frame, the
+        target face (tracklet 1) cropped from the device frame buffer into
+        the CNN once per chunk of up to 512 frames. Returns (present [T],
+        stat_probs [P, C], feats [P, 512], face_boxes [T, 4] int32 native
+        int-cast+clamp coords, -1 rows where no face)."""
+        cfg = self.cfg.detector
+        tracker = self._new_tracker()
+        w_native, h_native = reader.meta.width, reader.meta.height
+        present_all: list[bool] = []
+        boxes_nat_all: list[np.ndarray] = []
+        stat_list, feats_list = [], []
+        pending: list[tuple[Any, int, torch.Tensor, float]] = []
+        det_boxes_nat: list[Optional[np.ndarray]] = []
+        drained = 0
+        chunk_cap = max(cfg.batch_size, 512)
+
+        def drain_one() -> None:
+            # the per-frame tracker is sequential in frame order
+            nonlocal drained
+            packed, n_valid, _, scale = pending[drained]
+            det = self.detect.unpack(packed.cpu().numpy(), scale)
+            for r in range(n_valid):
+                kept = det.keep[r]
+                frame_dets = np.concatenate(
+                    [det.boxes[r][kept], det.scores[r][kept][:, None]], axis=1)
+                tbox = None
+                for det_row, tid in zip(frame_dets, tracker(frame_dets)):
+                    if tid != 1:
+                        continue
+                    _, ok = image_ops.clamp_boxes_valid(det_row[None], w_native, h_native)
+                    if ok[0]:
+                        tbox = det_row[:4].astype(np.float64)
+                    break  # tracker ids are unique
+                det_boxes_nat.append(tbox)
+            drained += 1
+
+        def flush_chunk() -> None:
+            nonlocal pending, det_boxes_nat, drained
+            if not pending:
+                return
+            while drained < len(pending):
+                drain_one()
+            frames_dev = torch.cat([f for _, _, f, _ in pending])
+            scale = pending[0][3]
+            bsz = pending[0][2].shape[0]
+            lb_h, lb_w = frames_dev.shape[1], frames_dev.shape[2]
+            frame_ids = np.concatenate(
+                [np.arange(n) + bi * bsz for bi, (_, n, _, _) in enumerate(pending)])
+            ok = np.array([b is not None for b in det_boxes_nat], bool)
+            box_f = np.stack([b if b is not None else np.zeros(4) for b in det_boxes_nat])
+            # the reference's int cast (truncation) + clamp
+            bi_, box_ok = image_ops.clamp_boxes_valid(box_f, w_native, h_native)
+            present = ok & box_ok
+            # clamp in native coordinates, then map into the letterboxed frame
+            b = np.round(bi_.astype(np.float64) * scale).astype(np.int32)
+            b[:, 0] = np.minimum(b[:, 0], lb_w - 2)
+            b[:, 1] = np.minimum(b[:, 1], lb_h - 2)
+            b[:, 2] = np.maximum(b[:, 2], b[:, 0] + 1)
+            b[:, 3] = np.maximum(b[:, 3], b[:, 1] + 1)
+            present_all.extend(present.tolist())
+            boxes_nat_all.append(np.where(present[:, None], bi_.astype(np.int32), -1))
+            if present.any():
+                stat, feats = self.visual.run_static_from_frames(
+                    frames_dev, frame_ids[present].astype(np.int32), b[present])
+                stat_list.append(stat)
+                feats_list.append(feats)
+            pending, det_boxes_nat, drained = [], [], 0
+
+        frames_in_pending = 0
+        for frames_np, n_valid in media.prefetch_iter(reader.batches(cfg.batch_size)):
+            packed, scale, frames_dev = self.detect.dispatch(frames_np)
+            pending.append((packed, n_valid, frames_dev, scale))
+            frames_in_pending += frames_np.shape[0]
+            while len(pending) - drained > 2:  # keep 2 batches in flight
+                drain_one()
+            if frames_in_pending >= chunk_cap:
+                flush_chunk()
+                frames_in_pending = 0
+        flush_chunk()
+
+        nc = self.cfg.visual.num_classes
+        stat = np.concatenate(stat_list) if stat_list else np.zeros((0, nc), np.float32)
+        feats = np.concatenate(feats_list) if feats_list else np.zeros((0, 512), np.float32)
+        face_boxes = (np.concatenate(boxes_nat_all) if boxes_nat_all
+                      else np.zeros((0, 4), np.int32))
+        return np.asarray(present_all, bool), stat, feats, face_boxes
+
+    def _audio_task(self, path_video: str, wav: Optional[np.ndarray], fps: float,
+                    duration_frames: int
+                    ) -> tuple[Optional[np.ndarray], Optional[AudioWindows], float]:
+        """Audio half of a clip, on a worker thread with its own CUDA stream
+        (wav2vec2 overlaps detect/visual on the card)."""
+        t0 = time.perf_counter()
+        if wav is None:
+            try:
+                wav = media.extract_audio(path_video, self.cfg.audio.sample_rate)
+            except (RuntimeError, FileNotFoundError, subprocess.CalledProcessError) as e:
+                log.warning("audio unavailable for %s: %s", path_video, e)
+                if duration_frames <= 0:
+                    return None, None, time.perf_counter() - t0
+                wav = np.zeros(int(duration_frames / max(fps, 1) * self.cfg.audio.sample_rate),
+                               np.float32)
+        if self._audio_stream is not None:
+            self._audio_stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self._audio_stream):
+                logits, windows = self.audio.run_from_wav(wav, fps)
+        else:
+            logits, windows = self.audio.run_from_wav(wav, fps)
+        return logits, windows, time.perf_counter() - t0
+
+    def run(self, video, path_save: str = "", wav: Optional[np.ndarray] = None) -> ClipResult:
+        """``video``: a path (decoded with OpenCV) or a reader with the
+        ``VideoReader`` interface (``media.ArrayReader``). Audio comes from
+        ``wav`` (mono float32 at the configured rate) or the video's wav
+        sidecar."""
+        reader = media.VideoReader(video) if isinstance(video, str) else video
+        meta = reader.meta
+        name_video = os.path.basename(meta.path)
+        name_video = name_video[: name_video.rfind(".")] if "." in name_video else name_video
+
+        timings: dict[str, float] = {}
+        wall0 = time.perf_counter()
+        executor = ThreadPoolExecutor(max_workers=1)
+        audio_future = executor.submit(self._audio_task, meta.path, wav, meta.fps,
+                                       meta.total_frames)
+        executor.shutdown(wait=False)  # the queued task still runs
+
+        t0 = time.perf_counter()
+        step = registry.dynamic_step(meta.fps)
+        try:
+            present, stat_probs_p, feats_p, face_boxes = self.detect_track_device(reader)
+        finally:
+            reader.release()
+        total_frames = meta.total_frames or len(present)
+        total_frames = min(total_frames, len(present))
+        timings["detect"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        plan = build_temporal_plan(present[:total_frames], step)
+        dyn_logits_s = self.visual.run_dynamic(feats_p, plan)
+        stat_probs, dyn_logits = self.visual.expand_to_frames(
+            stat_probs_p, dyn_logits_s, plan, self.cfg.visual.num_classes)
+        timings["visual"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        audio_logits, audio_windows, audio_thread_sec = audio_future.result()
+        if audio_logits is None:  # the silent track needed the frame count
+            silent = np.zeros(
+                int(total_frames / max(meta.fps, 1) * self.cfg.audio.sample_rate), np.float32)
+            audio_logits, audio_windows = self.audio.run_from_wav(silent, meta.fps)
+        timings["audio"] = time.perf_counter() - t0  # wall time added past the overlap
+        timings["audio_concurrent"] = audio_thread_sec
+
+        t0 = time.perf_counter()
+        audio_frame_logits = compound_mod.align_audio_to_frames(
+            audio_logits, audio_windows.frame_ids, audio_windows.window_of_row, total_frames)
+        result = compound_mod.decide(stat_probs, dyn_logits, audio_frame_logits, name_video,
+                                     self.cfg.fusion, device=self.device)
+        timings["fusion"] = time.perf_counter() - t0
+        timings["wall"] = time.perf_counter() - wall0
+
+        clip = ClipResult(
+            name_video=name_video, fps=meta.fps, total_frames=total_frames,
+            stat_probs=stat_probs, dyn_logits=dyn_logits,
+            audio_window_logits=audio_logits,
+            audio_frame_ids=audio_windows.frame_ids,
+            audio_window_of_row=audio_windows.window_of_row,
+            compound=result, timings=timings, face_boxes=face_boxes[:total_frames],
+        )
+        if path_save:
+            with self._save_lock:
+                self.save_outputs(clip, path_save)
+        return clip
+
+    def save_outputs(self, clip: ClipResult, path_save: str) -> None:
+        """static/dynamic/audio CSVs, the compound txt and the plot, named as
+        the reference names them (pandas and matplotlib imported here)."""
+        import pandas as pd
+
+        with pd.option_context("mode.string_storage", "python"):
+            self._save_outputs_impl(clip, path_save, pd)
+
+    def _save_outputs_impl(self, clip: ClipResult, path_save: str, pd) -> None:
+        # python string storage + object-dtype column indexes: an
+        # arrow-backed string array built on a worker thread can crash pyarrow
+        def cols(names) -> "pd.Index":
+            return pd.Index(list(names), dtype=object)
+
+        os.makedirs(path_save, exist_ok=True)
+        emo_video = cols(registry.VIDEO_EMOTIONS)
+        pd.DataFrame(clip.dyn_logits, columns=emo_video).to_csv(
+            os.path.join(path_save, f"dynamic__{clip.name_video}.csv"), index=False)
+        pd.DataFrame(clip.stat_probs, columns=emo_video).to_csv(
+            os.path.join(path_save, f"static__{clip.name_video}.csv"), index=False)
+        adf = pd.DataFrame(clip.audio_window_logits[clip.audio_window_of_row],
+                           columns=cols(registry.AUDIO_EMOTIONS_8))
+        adf["frames"] = [str(i).zfill(6) + ".jpg" for i in clip.audio_frame_ids]
+        adf.to_csv(os.path.join(path_save, f"audio__{clip.name_video}.csv"), index=False)
+
+        fcfg = self.cfg.fusion
+        if self.cfg.save_probs and clip.compound is not None:
+            ce_dir = os.path.join(path_save, "DF_C_EXPR_DB")
+            os.makedirs(ce_dir, exist_ok=True)
+            compound_mod.save_compound_txt(
+                os.path.join(ce_dir, f"C_EXPR_DB_av_{fcfg.ce_weights_type}_"
+                                     f"{fcfg.ce_mask}_{clip.name_video}.txt"),
+                clip.compound.image_locations, clip.compound.av)
+        if self.cfg.save_plot and clip.compound is not None:
+            from avcer_tpu.utils import viz
+
+            # "pedicted" typo kept for output-name parity (run.py:286)
+            rule = "Rule 2" if fcfg.ce_weights_type else ("Rule 1" if fcfg.ce_mask else "none")
+            viz.plot_compound_expression_prediction(
+                {"VS": clip.compound.vs, "VD": clip.compound.vd,
+                 "A": clip.compound.a, "AV": clip.compound.av},
+                save_path=os.path.join(path_save, f"pedicted_CEs_{rule}.jpg"),
+                title="Сompound expressions predicted by models",
+            )

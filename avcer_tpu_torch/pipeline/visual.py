@@ -1,0 +1,131 @@
+"""Visual emotion stage (avcer_tpu/pipeline/visual.py): the static CNN over
+device-cropped faces, the LSTM over step-frame windows, and the host
+temporal plan that reproduces the reference's per-frame loop
+(get_prob_video.py:67-204):
+
+- dynamic cadence ``step = round(5 * fps / 25)``; features pushed on step
+  frames only; the first step frame after a reset fills the whole window;
+- a missing-face frame clears the window but not the last output;
+- non-step present frames repeat the last step output (zeros before one);
+- missing frames repeat the previous rows once a step output exists.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from avcer_tpu_torch.ops.image import crop_and_resize, vggface_normalize
+
+
+@dataclass
+class TemporalPlan:
+    """Host index plan for one clip."""
+
+    present: np.ndarray  # [T] bool
+    present_index: np.ndarray  # [T] index into present-frame arrays, -1 if absent
+    step_frames: np.ndarray  # [S] present-array indices of step frames
+    window_idx: np.ndarray  # [S, 10] indices into the step-feature array
+    stat_src: np.ndarray  # [T] present static row, -1 => zeros
+    dyn_src: np.ndarray  # [T] step output row, -1 => zeros
+
+
+def build_temporal_plan(present: np.ndarray, step: int, window: int = 10) -> TemporalPlan:
+    t_total = len(present)
+    present_index = np.full(t_total, -1, np.int64)
+    present_index[present] = np.arange(int(present.sum()))
+    step_frames: list[int] = []
+    window_rows: list[list[int]] = []
+    stat_src = np.full(t_total, -1, np.int64)
+    dyn_src = np.full(t_total, -1, np.int64)
+    seg_start = 0  # step_frames index where the current reset segment starts
+    last_step_out = -1
+    last_stat = -1
+    for t in range(t_total):
+        if present[t]:
+            stat_src[t] = present_index[t]
+            last_stat = present_index[t]
+            if t % step == 0:
+                k = len(step_frames)
+                window_rows.append([max(seg_start, k - (window - 1) + j) for j in range(window)])
+                step_frames.append(present_index[t])
+                last_step_out = k
+            dyn_src[t] = last_step_out
+        else:
+            seg_start = len(step_frames)
+            if last_step_out >= 0:
+                stat_src[t] = last_stat
+                dyn_src[t] = last_step_out
+            else:
+                last_stat = -1
+    return TemporalPlan(
+        present=present,
+        present_index=present_index,
+        step_frames=np.asarray(step_frames, np.int64),
+        window_idx=np.asarray(window_rows, np.int64).reshape(-1, window),
+        stat_src=stat_src,
+        dyn_src=dyn_src,
+    )
+
+
+class VisualStage:
+    def __init__(self, static_model: torch.nn.Module, lstm_model: torch.nn.Module,
+                 num_classes: int = 7, batch_size: int = 256,
+                 device: torch.device | str = "cuda"):
+        self.static_model = static_model
+        self.lstm_model = lstm_model
+        self.num_classes = num_classes
+        self.batch_size = batch_size
+        self.device = torch.device(device)
+
+    @torch.inference_mode()
+    def run_static_from_frames(
+        self,
+        frames_dev: torch.Tensor,  # [N, H, W, 3] uint8 on the device
+        present_idx: np.ndarray,  # [P] frame indices with a target face
+        boxes: np.ndarray,  # [P, 4] int crop boxes in frame coordinates
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Crop + CNN on the device in sub-batches, one fetch at the end.
+        Returns (probs [P, C] softmaxed in f32, features [P, 512])."""
+        p = present_idx.shape[0]
+        if p == 0:
+            return (np.zeros((0, self.num_classes), np.float32),
+                    np.zeros((0, 512), np.float32))
+        idx_all = torch.from_numpy(present_idx.astype(np.int64)).to(self.device)
+        boxes_all = torch.from_numpy(boxes.astype(np.int64)).to(self.device)
+        outs = []
+        for s in range(0, p, self.batch_size):
+            crops = crop_and_resize(frames_dev, idx_all[s:s + self.batch_size],
+                                    boxes_all[s:s + self.batch_size], 224)
+            logits, feats = self.static_model(vggface_normalize(crops))
+            outs.append(torch.cat([torch.softmax(logits.float(), dim=-1), feats.float()], -1))
+        packed = torch.cat(outs).cpu().numpy()
+        return packed[:, :self.num_classes], packed[:, self.num_classes:]
+
+    @torch.inference_mode()
+    def run_dynamic(self, feats: np.ndarray, plan: TemporalPlan) -> np.ndarray:
+        """Step-frame features -> [S, C] raw logits from the LSTM."""
+        if plan.step_frames.size == 0:
+            return np.zeros((0, self.num_classes), np.float32)
+        windows = feats[plan.step_frames][plan.window_idx]  # [S, 10, 512]
+        x = torch.from_numpy(np.ascontiguousarray(windows, np.float32)).to(self.device)
+        return self.lstm_model(x).float().cpu().numpy()
+
+    @staticmethod
+    def expand_to_frames(stat_probs: np.ndarray, dyn_logits: np.ndarray,
+                         plan: TemporalPlan, num_classes: int = 7
+                         ) -> tuple[np.ndarray, np.ndarray]:
+        """Per-frame [T, C] static probs and dynamic logits with the
+        reference's forward-fill / zeros semantics."""
+        t_total = plan.stat_src.shape[0]
+        stat = np.zeros((t_total, num_classes), np.float32)
+        dyn = np.zeros((t_total, num_classes), np.float32)
+        m = plan.stat_src >= 0
+        if stat_probs.size:
+            stat[m] = stat_probs[plan.stat_src[m]]
+        md = plan.dyn_src >= 0
+        if dyn_logits.size:
+            dyn[md] = dyn_logits[plan.dyn_src[md]]
+        return stat, dyn
