@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels at first use and bind them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers), so
-``nvcc`` compiles it into a shared library in seconds. Libraries go to
+``nvcc`` compiles it into a shared library in seconds (the two fused
+convolution kernels, templates over a shared header, in about a minute). Libraries go to
 ``build/avcer_tpu_torch/`` at the root of the checkout, named by a hash of the
 source and the flags: an edited source rebuilds, an unchanged one loads the
 existing library. A failed build raises with the compiler's output; nothing
@@ -17,16 +18,21 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "avcer_tpu_torch"
-KERNELS = ("nms", "attention")
+KERNELS = ("nms", "attention", "fused_resnet", "fused_ssh")
+#: headers under csrc/ that a kernel's source includes: part of its hash
+HEADERS = {"fused_resnet": ("conv_tile.cuh",), "fused_ssh": ("conv_tile.cuh",)}
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: the NMS keep set must match the JAX reference bit for bit: no contraction
-#: of a multiply and an add into an FMA anywhere in that file
-_EXTRA_FLAGS = {"nms": ("--fmad=false",), "attention": ()}
+#: of a multiply and an add into an FMA anywhere in that file. (The fused
+#: convolution kernels keep their FMAs in the products and use rounding
+#: intrinsics where a multiply and an add must stay apart.)
+_EXTRA_FLAGS = {"nms": ("--fmad=false",)}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -45,8 +51,9 @@ def nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the built library for kernel ``name`` lives (it may not exist
     yet)."""
-    flags = _FLAGS + _EXTRA_FLAGS[name]
-    src = (CSRC / f"{name}.cu").read_bytes()
+    flags = _FLAGS + _EXTRA_FLAGS.get(name, ())
+    src = b"".join((CSRC / f).read_bytes()
+                   for f in (f"{name}.cu", *HEADERS.get(name, ())))
     digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -57,7 +64,7 @@ def _compile(name: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc(), *_FLAGS, *_EXTRA_FLAGS[name], "-o", str(tmp),
+    cmd = [nvcc(), *_FLAGS, *_EXTRA_FLAGS.get(name, ()), "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -82,13 +89,21 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> dict[str, float]:
-    """Build and load every kernel; returns the seconds each one took."""
-    took = {}
-    for name in KERNELS:
+    """Build every kernel, one nvcc per source and all at once, then load
+    them; returns the seconds each build took."""
+    took: dict[str, float] = {}
+
+    def timed(name: str) -> None:
         t0 = time.perf_counter()
-        library(name)
+        _compile(name)
         took[name] = time.perf_counter() - t0
-    return took
+
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        for job in [pool.submit(timed, name) for name in KERNELS]:
+            job.result()  # a failed build raises here
+    for name in KERNELS:
+        library(name)
+    return {name: took[name] for name in KERNELS}
 
 
 def ptxas_log(name: str) -> str:

@@ -4,8 +4,11 @@
 The surface of ``avcer_tpu.cli.run`` (same core flags, same output tree, same
 final real-time-factor and throughput lines) for the parity profile: the
 RetinaFace-r50 detector at the 640 bucket, the emotion CNN and LSTM, and
-wav2vec2 + ExprModel V3. Flags for what the port does not run yet exit with
-an error that names the ROADMAP item porting it. ``--device`` defaults to
+wav2vec2 + ExprModel V3. ``--fused`` runs the detector's and the emotion
+CNN's bottleneck chains and the detector's FPN, SSH modules and heads
+through the fused CUDA kernels (same weights, same outputs up to rounding).
+Flags for what the port does not run yet exit with an error that names the
+ROADMAP item porting it. ``--device`` defaults to
 cuda and never falls back to the CPU on its own.
 """
 
@@ -18,12 +21,11 @@ import os
 import sys
 import time
 
-from avcer_tpu.core.config import (AudioConfig, DetectorConfig, FusionConfig,
-                                   PipelineConfig)
+from avcer_tpu_torch.core.config import (AudioConfig, DetectorConfig, FusionConfig,
+                                         PipelineConfig, VisualConfig)
 
 NOT_PORTED = {
     "serving_profile": "ROADMAP queue 1, serving presets (only 'parity' is ported)",
-    "fused": "ROADMAP queue 2, K3 fused_chain and K4 fused_ssh_heads",
     "data_parallel": "ROADMAP queue 1, parallelism",
     "heatmaps": "ROADMAP queue 1, other modules: Grad-CAM heatmaps",
 }
@@ -46,11 +48,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--serving_profile", default="parity",
                    choices=["parity", "balanced", "int8", "int8_s2", "int8_448",
                             "int8_448_s2", "fast", "turbo", "max"])
-    p.add_argument("--fused", action="store_true")
+    p.add_argument("--fused", action="store_true",
+                   help="run the r50 detector's and the emotion CNN's bottleneck chains, and "
+                        "the detector's FPN + SSH + heads, as fused CUDA kernels")
     p.add_argument("--data_parallel", type=int, default=1)
     p.add_argument("--heatmaps", choices=["", "static", "dynamic"], default="")
     a = p.parse_args(argv)
-    asked = {"serving_profile": a.serving_profile != "parity", "fused": a.fused,
+    asked = {"serving_profile": a.serving_profile != "parity",
              "data_parallel": a.data_parallel > 1, "heatmaps": bool(a.heatmaps)}
     for flag, hit in asked.items():
         if hit:
@@ -60,7 +64,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def config_from_args(a: argparse.Namespace) -> PipelineConfig:
     return PipelineConfig(
-        detector=DetectorConfig(long_side=a.long_side, batch_size=32, transfer_format="bgr"),
+        detector=DetectorConfig(
+            long_side=a.long_side, batch_size=32, transfer_format="bgr",
+            fused_layer1=a.fused, fused_tails=a.fused, fused_entries=a.fused,
+            fused_ssh=a.fused, fused_fpn=a.fused),
+        visual=VisualConfig(fused=a.fused, fused_entries=a.fused),
         audio=AudioConfig(padding=a.audio_padding, step_sec=a.audio_step),
         fusion=FusionConfig(use_published_weights=not a.no_published_weights,
                             ce_weights_type=a.ce_weights_type, ce_mask=not a.no_ce_mask),

@@ -12,8 +12,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from avcer_tpu.core import registry
-from avcer_tpu.core.config import FusionConfig
+from avcer_tpu_torch.core import registry
+from avcer_tpu_torch.core.config import FusionConfig
 from avcer_tpu_torch.ops import fusion as fusion_ops
 
 

@@ -8,7 +8,13 @@ TF-flavoured ResNet50.
   output (512) is the LSTM's feature.
 
 Parameter names follow ``TwinEmotionResNet50`` in tests/torch_twins.py.
-Public layout is NHWC; the fused and int8 variants are not ported yet.
+Public layout is NHWC. ``fused`` runs the bottleneck chains through
+``ops.cuda.fused_resnet_kernel.fused_chain`` over the same state dict: chunks
+of three blocks, of one where planes >= 512; the stride-2 entries stay cuDNN
+sections unless ``fused_entries`` fuses those of layers 2 and 3 ("s2pre");
+layer4's entry is never fused. Tensors keep the NCHW shape between sections
+(see ``models.retinaface.fused_section``). The int8 variant is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -17,7 +23,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from avcer_tpu_torch.models.layers import BatchNorm
+from avcer_tpu_torch.models.layers import BatchNorm, FoldCache, fold_bn
+from avcer_tpu_torch.models.retinaface import fused_section
 
 BN_EPS = 1e-3
 
@@ -49,13 +56,24 @@ class Bottleneck(nn.Module):
         h = F.relu(self.batch_norm2(self.conv2(h)))
         return F.relu(self.batch_norm3(self.conv3(h)) + idn)
 
+    def folded(self, dtype: torch.dtype) -> list[torch.Tensor]:
+        """Flat ``(w, inv, shift)`` of conv1, conv2, conv3 and the projection
+        (BN eps ``BN_EPS``, carried by each BatchNorm)."""
+        pairs = [(self.conv1, self.batch_norm1), (self.conv2, self.batch_norm2),
+                 (self.conv3, self.batch_norm3)]
+        if self.i_downsample is not None:
+            pairs.append((self.i_downsample[0], self.i_downsample[1]))
+        return [t for conv, bn in pairs for t in fold_bn(conv.weight, bn, dtype)]
 
-class EmotionResNet50(nn.Module):
+
+class EmotionResNet50(FoldCache):
     """Normalised BGR crops [B, H, W, 3] -> (logits [B, C], features [B, 512])
     with features = relu(fc1)."""
 
-    def __init__(self, num_classes: int = 7):
+    def __init__(self, num_classes: int = 7, fused: bool = False, fused_entries: bool = False):
         super().__init__()
+        self.fused = fused
+        self.fused_entries = fused_entries
         self.conv_layer_s2_same = nn.Conv2d(3, 64, 7, stride=2, bias=False)
         self.batch_norm1 = BatchNorm(64, BN_EPS)
         in_ch = 64
@@ -78,7 +96,20 @@ class EmotionResNet50(nn.Module):
         x = F.pad(x, [pw[0], pw[1], ph[0], ph[1]])
         x = F.relu(self.batch_norm1(self.conv_layer_s2_same(x)))
         x = F.max_pool2d(x, 3, stride=2)
-        for li in range(1, 5):
-            x = getattr(self, f"layer{li}")(x)
+        for li in range(4):
+            layer = getattr(self, f"layer{li + 1}")
+            if not self.fused:
+                x = layer(x)
+                continue
+            start = 0
+            if li > 0 and not (self.fused_entries and li < 3):
+                x = layer[0](x)  # the stride-2 entry stays a cuDNN section
+                start = 1
+            tail = list(range(start, len(layer)))
+            chunk_n = 1 if layer[0].conv1.out_channels >= 512 else 3
+            while tail:
+                chunk, tail = tail[:chunk_n], tail[chunk_n:]
+                kinds = tuple(("s2pre" if li > 0 else "ds") if bi == 0 else "id" for bi in chunk)
+                x = fused_section(self, x, layer, li, chunk, kinds)
         features = F.relu(self.fc1(x.mean(dim=(2, 3))))
         return self.fc2(features), features

@@ -4,6 +4,8 @@ ported path uses.
 - ``BatchNorm``: inference BatchNorm with torch's state names, computed like
   avcer_tpu's ``TorchBatchNorm``: scale and shift folded in f32, applied in
   the activation's dtype. Each model passes its own eps.
+- ``fold_bn`` and ``FoldCache``: a convolution and its inference BatchNorm
+  folded to ``(w, inv, shift)`` for the fused kernels, folded once and kept.
 - ``LayerNorm``: computed in f32 and cast back to the input's dtype, the
   rounding points of the JAX package's ``nn.LayerNorm(dtype=float32)``.
 - ``gelu_exact`` and ``scaled_dot_attention`` (the plain attention of the
@@ -38,6 +40,48 @@ class BatchNorm(nn.Module):
         shift = self.bias.float() - self.running_mean.float() * inv
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
+
+
+@torch.no_grad()
+def fold_bn(conv_weight: torch.Tensor, bn: BatchNorm, dtype: torch.dtype
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(w, inv, shift)`` of a conv followed by an inference BatchNorm, as the
+    JAX package's ``TVBottleneckFolded.bn_fold`` and ``_ConvBNFolded`` fold
+    them: ``inv = scale * rsqrt(var + eps)`` and ``shift = bias - mean * inv``
+    in f32, then cast to ``dtype`` and shaped ``[1, C]``; the weight from
+    torch's ``[co, ci, kh, kw]`` to ``[kh, kw, ci, co]``, ``[ci, co]`` for a
+    1x1."""
+    inv = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+    shift = bn.bias.float() - bn.running_mean.float() * inv
+    w = conv_weight.permute(2, 3, 1, 0)
+    if w.shape[0] == w.shape[1] == 1:
+        w = w[0, 0]
+    return (w.to(dtype).contiguous(), inv.reshape(1, -1).to(dtype),
+            shift.reshape(1, -1).to(dtype))
+
+
+class FoldCache(nn.Module):
+    """Base of a model with fused sections: folded weights are made at the
+    first fused forward and kept (folding on every call costs some nine
+    small launches per BatchNorm); they are dropped when the parameters move
+    (``.to``) or a state dict is loaded."""
+
+    def __init__(self):
+        super().__init__()
+        self._folds: dict = {}
+
+    def folded(self, key, make):
+        if key not in self._folds:
+            self._folds[key] = make()
+        return self._folds[key]
+
+    def _apply(self, fn, *args, **kwargs):
+        self._folds.clear()
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._folds.clear()
+        return super()._load_from_state_dict(*args, **kwargs)
 
 
 class LayerNorm(nn.LayerNorm):

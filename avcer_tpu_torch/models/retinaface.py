@@ -6,8 +6,18 @@ Parameter names follow the reference torch module (``TwinRetinaFace`` with
 state dict loads strictly. Public layout is the JAX package's: NHWC input,
 ``(loc [B, A, 4], conf [B, A, 2], landms [B, A, 10])`` with anchor rows in
 (level, h, w, anchor) order, conf softmaxed in f32. Inside, convolutions run
-NCHW in the weights' dtype. The mobilenet, space-to-depth, fused and int8
-variants are not ported yet.
+NCHW in the weights' dtype.
+
+The fused switches are the JAX package's, over the same state dict:
+``fused_layer1``, ``fused_tails`` and ``fused_entries`` run the body's
+bottleneck chains through ``ops.cuda.fused_resnet_kernel.fused_chain``;
+``fused_ssh`` and ``fused_fpn`` run each scale's FPN, SSH module and heads
+through ``ops.cuda.fused_ssh_kernel.fused_ssh_heads``. Tensors keep torch's
+NCHW shape between sections; a kernel section takes an NHWC-contiguous view
+(one copy where the tensor comes from a cuDNN section, none between two
+kernel sections) and hands back an NCHW-shaped view of its NHWC result, which
+cuDNN reads as channels-last. The mobilenet, space-to-depth and int8 variants
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,7 +26,18 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from avcer_tpu_torch.models.layers import BatchNorm
+from avcer_tpu_torch.models.layers import BatchNorm, FoldCache, fold_bn
+from avcer_tpu_torch.ops.cuda.fused_resnet_kernel import fused_chain
+from avcer_tpu_torch.ops.cuda.fused_ssh_kernel import fused_ssh_heads
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW-shaped -> NHWC contiguous (no copy if ``x`` is channels-last)."""
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def fold_conv_bn(m: "ConvBN", dtype: torch.dtype) -> tuple[torch.Tensor, ...]:
+    return fold_bn(m[0].weight, m[1], dtype)
 
 
 class ConvBN(nn.Sequential):
@@ -60,12 +81,40 @@ class TVBottleneck(nn.Module):
         h = F.relu(self.bn2(self.conv2(h)))
         return F.relu(self.bn3(self.conv3(h)) + idn)
 
+    def folded(self, dtype: torch.dtype) -> list[torch.Tensor]:
+        """Flat ``(w, inv, shift)`` of conv1, conv2, conv3 and the projection."""
+        pairs = [(self.conv1, self.bn1), (self.conv2, self.bn2), (self.conv3, self.bn3)]
+        if self.downsample is not None:
+            pairs.append((self.downsample[0], self.downsample[1]))
+        return [t for conv, bn in pairs for t in fold_bn(conv.weight, bn, dtype)]
 
-class ResNet50Body(nn.Module):
-    """torchvision-resnet50 backbone emitting layer2/3/4 features."""
 
-    def __init__(self):
+def fused_section(cache: FoldCache, h: torch.Tensor, layer: nn.Sequential, li: int,
+                  chunk: list[int], kinds: tuple[str, ...]) -> torch.Tensor:
+    """Blocks ``chunk`` of ``layer`` as one ``fused_chain`` call on NCHW-shaped
+    ``h``; the folded weights are made once per (chunk, dtype, device)."""
+    w = layer[chunk[0]].conv1.weight
+    folded = cache.folded(
+        (li, tuple(chunk), w.dtype, w.device),
+        lambda: tuple(t for bi in chunk for t in layer[bi].folded(w.dtype)))
+    return fused_chain(nhwc(h.to(w.dtype)), folded, kinds).permute(0, 3, 1, 2)
+
+
+class ResNet50Body(FoldCache):
+    """torchvision-resnet50 backbone emitting layer2/3/4 features.
+
+    ``fused_layer1``: layer1 as one chain ("ds", "id", "id"). ``fused_tails``:
+    the stride-1 tails of layers 2-3 in chunks of three, their stride-2 entry
+    unfused. ``fused_entries`` (with ``fused_tails``): the entries fused too
+    ("s2ds"), layer2 as one chain and layer3 as entry + 1, then chunks of
+    three. layer4 is never fused."""
+
+    def __init__(self, fused_layer1: bool = False, fused_tails: bool = False,
+                 fused_entries: bool = False):
         super().__init__()
+        self.fused_layer1 = fused_layer1
+        self.fused_tails = fused_tails
+        self.fused_entries = fused_entries
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm(64)
         in_ch = 64
@@ -82,10 +131,31 @@ class ResNet50Body(nn.Module):
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         h = F.relu(self.bn1(self.conv1(x)))
         h = F.max_pool2d(h, 3, stride=2, padding=1)
-        h = self.layer1(h)
-        c2 = self.layer2(h)
-        c3 = self.layer3(c2)
-        return c2, c3, self.layer4(c3)
+        outs = []
+        for li in range(4):
+            layer = getattr(self, f"layer{li + 1}")
+            blocks = len(layer)
+            if li == 0 and self.fused_layer1:
+                h = fused_section(self, h, layer, li, list(range(blocks)), ("ds", "id", "id"))
+            elif li in (1, 2) and self.fused_tails:
+                if self.fused_entries:
+                    # layer3 takes one "id" with its entry, then chunks of three
+                    first = blocks if li == 1 else 2
+                    chunks, tail = [list(range(first))], list(range(first, blocks))
+                else:
+                    h = layer[0](h)  # the stride-2 entry stays a cuDNN section
+                    chunks, tail = [], list(range(1, blocks))
+                while tail:
+                    chunks.append(tail[:3])
+                    tail = tail[3:]
+                for chunk in chunks:
+                    kinds = tuple("s2ds" if bi == 0 else "id" for bi in chunk)
+                    h = fused_section(self, h, layer, li, chunk, kinds)
+            else:
+                h = layer(h)
+            if li >= 1:
+                outs.append(h)
+        return tuple(outs)
 
 
 def upsample_nearest_to(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
@@ -143,13 +213,22 @@ class Head(nn.Module):
         return out.reshape(out.shape[0], -1, self.width)
 
 
-class RetinaFace(nn.Module):
+class RetinaFace(FoldCache):
     """Normalised BGR frames [B, H, W, 3] -> (loc [B, A, 4], conf [B, A, 2]
-    softmaxed in f32, landms [B, A, 10])."""
+    softmaxed in f32, landms [B, A, 10]).
 
-    def __init__(self, num_anchors: int = 2):
+    ``fused_ssh``: each scale's SSH module and heads as one kernel call after
+    the unfused FPN. With ``fused_fpn`` too, the FPN goes into the same calls:
+    scales 3, 2, 1 in that order, scale 3 emitting its lateral and scale 2 its
+    merged feature for the next finer scale's top-down add."""
+
+    def __init__(self, num_anchors: int = 2, fused_layer1: bool = False,
+                 fused_tails: bool = False, fused_entries: bool = False,
+                 fused_ssh: bool = False, fused_fpn: bool = False):
         super().__init__()
-        self.body = ResNet50Body()
+        self.fused_ssh = fused_ssh
+        self.fused_fpn = fused_fpn
+        self.body = ResNet50Body(fused_layer1, fused_tails, fused_entries)
         self.fpn = FPN((512, 1024, 2048), 256)
         self.ssh1 = SSH(256, 256)
         self.ssh2 = SSH(256, 256)
@@ -158,9 +237,53 @@ class RetinaFace(nn.Module):
         self.BboxHead = nn.ModuleList(Head(256, num_anchors, 4) for _ in range(3))
         self.LandmarkHead = nn.ModuleList(Head(256, num_anchors, 10) for _ in range(3))
 
+    def _scale_folded(self, i: int, dtype: torch.dtype):
+        """(5 SSH convs, 3 heads, lateral, merge or None) of scale ``i``."""
+        ssh = getattr(self, f"ssh{i + 1}")
+        convs = tuple(t for name in ("conv3X3", "conv5X5_1", "conv5X5_2", "conv7X7_2",
+                                     "conv7x7_3")
+                      for t in fold_conv_bn(getattr(ssh, name), dtype))
+        heads = tuple(t for head in (self.BboxHead[i], self.ClassHead[i], self.LandmarkHead[i])
+                      for t in (head.conv1x1.weight[:, :, 0, 0].t().to(dtype).contiguous(),
+                                head.conv1x1.bias.to(dtype)))
+        lat = fold_conv_bn(getattr(self.fpn, f"output{i + 1}"), dtype)
+        merge = fold_conv_bn(getattr(self.fpn, f"merge{i + 1}"), dtype) if i < 2 else None
+        return convs, heads, lat, merge
+
+    def _fused_heads(self, feats, dtype: torch.dtype):
+        """``feats`` NCHW-shaped: the body's (with ``fused_fpn``) or the
+        FPN's. Rows stay (h, w, anchor): the kernel writes NHWC."""
+        leaky = 0.0  # 0.1 belongs to the 64-channel mobilenet FPN
+        per_scale: list = [None, None, None]
+        feat_prev = None
+        for i in (2, 1, 0):
+            w = self.ssh1.conv3X3[0].weight
+            convs, heads, lat, merge = self.folded(
+                ("scale", i, w.dtype, w.device), lambda: self._scale_folded(i, dtype))
+            x = nhwc(feats[i].to(dtype))
+            if self.fused_fpn:
+                up = None
+                if feat_prev is not None:
+                    up = nhwc(upsample_nearest_to(feat_prev.permute(0, 3, 1, 2), x.shape[1:3]))
+                res = fused_ssh_heads(x, convs, heads, leaky, fpn_lat=lat, fpn_merge=merge,
+                                      up=up, emit_feature=i > 0)
+                if i > 0:
+                    feat_prev = res[3]
+            else:
+                res = fused_ssh_heads(x, convs, heads, leaky)
+            b = x.shape[0]
+            per_scale[i] = (res[0].reshape(b, -1, 4), res[1].reshape(b, -1, 2),
+                            res[2].reshape(b, -1, 10))
+        loc, conf, landms = (torch.cat([o[k] for o in per_scale], dim=1) for k in range(3))
+        return loc, torch.softmax(conf.float(), dim=-1), landms
+
     def forward(self, x: torch.Tensor):
-        x = x.permute(0, 3, 1, 2).to(self.body.conv1.weight.dtype)
-        fpn = self.fpn(self.body(x))
+        dtype = self.body.conv1.weight.dtype
+        x = x.permute(0, 3, 1, 2).to(dtype)
+        feats = self.body(x)
+        if self.fused_ssh:
+            return self._fused_heads(feats if self.fused_fpn else self.fpn(feats), dtype)
+        fpn = self.fpn(feats)
         feats = [self.ssh1(fpn[0]), self.ssh2(fpn[1]), self.ssh3(fpn[2])]
         loc = torch.cat([self.BboxHead[i](f) for i, f in enumerate(feats)], dim=1)
         conf = torch.cat([self.ClassHead[i](f) for i, f in enumerate(feats)], dim=1)

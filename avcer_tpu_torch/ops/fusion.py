@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from avcer_tpu.core import registry
+from avcer_tpu_torch.core import registry
 
 
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

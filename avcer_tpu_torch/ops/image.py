@@ -9,7 +9,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from avcer_tpu.core import registry
+from avcer_tpu_torch.core import registry
 
 
 def nearest_indices_np(out_size: int, in_size: int) -> np.ndarray:

@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from avcer_tpu.core.config import AudioConfig
+from avcer_tpu_torch.core.config import AudioConfig
 from avcer_tpu_torch.ops import audio as audio_ops
 
 

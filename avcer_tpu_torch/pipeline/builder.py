@@ -16,7 +16,7 @@ from typing import Any, Mapping, Optional
 
 import torch
 
-from avcer_tpu.core.config import PipelineConfig
+from avcer_tpu_torch.core.config import PipelineConfig
 from avcer_tpu_torch.core import convert
 from avcer_tpu_torch.models.audio_heads import ExprModel
 from avcer_tpu_torch.models.emotion_resnet import EmotionResNet50
@@ -77,8 +77,13 @@ def build_pipeline(
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
     models = {
-        "retinaface": RetinaFace(),
-        "emotion_resnet50": EmotionResNet50(cfg.visual.num_classes),
+        # the fused switches select the CUDA kernels K3 / K4 inside the models
+        "retinaface": RetinaFace(
+            fused_layer1=cfg.detector.fused_layer1, fused_tails=cfg.detector.fused_tails,
+            fused_entries=cfg.detector.fused_entries, fused_ssh=cfg.detector.fused_ssh,
+            fused_fpn=cfg.detector.fused_fpn),
+        "emotion_resnet50": EmotionResNet50(cfg.visual.num_classes, fused=cfg.visual.fused,
+                                            fused_entries=cfg.visual.fused_entries),
         "temporal_lstm": TemporalLSTM(cfg.visual.num_classes),
         "expr_model": ExprModel(cfg.audio.num_classes, wav2vec2_config or Wav2Vec2Config()),
     }

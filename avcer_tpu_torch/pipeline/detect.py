@@ -5,7 +5,9 @@ device and batched over frames. Only the tracker stays on the host.
 The letterbox runs on the device (bilinear, half-pixel centres, rounded to
 uint8), the stand-in for the JAX package's host ``cv2.resize(INTER_LINEAR)``
 on a card with no OpenCV; it is within 1 LSB of cv2. Greedy NMS on the card
-is the CUDA kernel (``ops.cuda.nms_kernel``).
+is the CUDA kernel (``ops.cuda.nms_kernel``). The detector's fused switches
+(``DetectorConfig.fused_*``) are the model's: ``pipeline.builder`` hands them
+to ``RetinaFace``, and the stage runs whichever model it is given.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from avcer_tpu.core.config import DetectorConfig
+from avcer_tpu_torch.core.config import DetectorConfig
 from avcer_tpu_torch.ops import boxes as box_ops
 from avcer_tpu_torch.ops import nms as nms_ops
 from avcer_tpu_torch.ops.cuda.nms_kernel import nms_mask

@@ -23,9 +23,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from avcer_tpu.core import registry
-from avcer_tpu.core.config import PipelineConfig
-from avcer_tpu.pipeline.tracker import IoUTracker
+from avcer_tpu_torch.core import registry
+from avcer_tpu_torch.core.config import PipelineConfig
+from avcer_tpu_torch.pipeline.tracker import IoUTracker
 from avcer_tpu_torch.fusion import compound as compound_mod
 from avcer_tpu_torch.ops import image as image_ops
 from avcer_tpu_torch.pipeline import media
@@ -64,9 +64,6 @@ def check_supported(cfg: PipelineConfig) -> None:
         "save_face_crops (ROADMAP queue 1, other modules)": cfg.save_face_crops,
         "visual.cnn_stride != 1 (ROADMAP queue 1, serving presets)": cfg.visual.cnn_stride != 1,
         "visual int8 (ROADMAP queue 1, int8 serving)": cfg.visual.quant != "none",
-        "fused kernels K3/K4 (ROADMAP queue 2)": (
-            cfg.visual.fused or cfg.detector.fused_layer1 or cfg.detector.fused_tails
-            or cfg.detector.fused_ssh),
         "calibrate (not ported: batch sizes are measured with bench.py)": cfg.calibrate,
     }
     bad = [name for name, hit in unsupported.items() if hit]
@@ -304,7 +301,14 @@ class Pipeline:
                                      f"{fcfg.ce_mask}_{clip.name_video}.txt"),
                 clip.compound.image_locations, clip.compound.av)
         if self.cfg.save_plot and clip.compound is not None:
-            from avcer_tpu.utils import viz
+            try:
+                import matplotlib  # noqa: F401
+            except ImportError:
+                # the CSVs and the compound txt are written; only the picture needs it
+                log.warning("matplotlib is not installed: the compound-expression plot "
+                            "is not written")
+                return
+            from avcer_tpu_torch.utils import viz
 
             # "pedicted" typo kept for output-name parity (run.py:286)
             rule = "Rule 2" if fcfg.ce_weights_type else ("Rule 1" if fcfg.ce_mask else "none")

@@ -8,6 +8,9 @@ temporal plan that reproduces the reference's per-frame loop
 - a missing-face frame clears the window but not the last output;
 - non-step present frames repeat the last step output (zeros before one);
 - missing frames repeat the previous rows once a step output exists.
+
+``VisualConfig.fused`` and ``fused_entries`` are the static model's switches:
+``pipeline.builder`` hands them to ``EmotionResNet50``.
 """
 
 from __future__ import annotations

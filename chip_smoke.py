@@ -6,20 +6,28 @@
 Phases, each of which raises on failure (the exit code is then non-zero):
 
 1. device: requires CUDA, prints the card's name and power limit;
-2. build: compiles every CUDA kernel from csrc/ with nvcc (sm_90a);
-3. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes (NMS keep masks equal; attention within the stated
-   tolerance), with median times over 50 runs;
-4. reference: each model's output on the card (bf16, kernels) against the
-   same seeded weights in f32 on the CPU (plain versions), on a small input;
-5. main path: the full-width audio-visual pipeline (RetinaFace-r50 @640,
-   EmotionResNet50, LSTM, wav2vec2-large 12 layers + ExprModel V3) over an
+2. build: compiles the four CUDA kernels from csrc/ with nvcc (sm_90a), all
+   at once, and prints each one's build time, registers and spills;
+3. pipelines: the full-width audio-visual pipeline (RetinaFace-r50 @640,
+   EmotionResNet50, LSTM, wav2vec2-large 12 layers + ExprModel V3, bf16,
+   seeded weights) built twice: unfused, and with the seven fused switches;
+4. kernels: each kernel against its plain PyTorch version at the main
+   path's shapes (NMS keep masks equal; attention, fused_chain and
+   fused_ssh_heads within the stated tolerances, f32 and bf16), with median
+   times over 50 runs of the kernel, its plain version and, where there is
+   one, a library yardstick (scaled_dot_product_attention; the port's own
+   unfused cuDNN section for the fused kernels), and the roofline bound
+   computed from the inputs;
+5. reference: each model's output on the card (bf16, kernels), unfused and
+   fused, against the same seeded weights in f32 on the CPU (plain
+   versions), on a small input;
+6. main path, unfused, then fused (``cli.run --fused``'s configuration): an
    8 s synthetic 640x360 clip and a 16 kHz wav: one warm-up run, then three
-   timed runs, each with its outputs and the launch counts of both kernels
-   checked.
+   timed runs, each with its outputs and the launch counts of the kernels
+   checked; the fused run's compound decisions against the unfused run's.
 
 Prints a JSON line of kernel results, then, last, one JSON object with the
-device. Imports nothing of JAX.
+device. Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -36,10 +44,14 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from avcer_tpu.core.config import (AudioConfig, DetectorConfig,  # noqa: E402
-                                   PipelineConfig, VisualConfig)
+import torch.nn.functional as F  # noqa: E402
+
 from avcer_tpu_torch import _build  # noqa: E402
-from avcer_tpu_torch.ops.cuda import attention_kernel, nms_kernel  # noqa: E402
+from avcer_tpu_torch.core.config import (AudioConfig, DetectorConfig,  # noqa: E402
+                                         PipelineConfig, VisualConfig)
+from avcer_tpu_torch.models.retinaface import nhwc, upsample_nearest_to  # noqa: E402
+from avcer_tpu_torch.ops.cuda import (attention_kernel, fused_resnet_kernel,  # noqa: E402
+                                      fused_ssh_kernel, nms_kernel)
 from avcer_tpu_torch.pipeline.builder import build_pipeline  # noqa: E402
 from avcer_tpu_torch.pipeline.media import ArrayReader  # noqa: E402
 
@@ -47,6 +59,14 @@ CLIP_SECONDS, FPS, WIDTH, HEIGHT = 8, 25, 640, 360
 NMS_SHAPE = (32, 64)  # detector batch, candidates per frame
 ATTN_SHAPE = (16, 16, 199, 64)  # audio batch, heads, frames of a 4 s window, head dim
 TIMED_RUNS = 3  # after one warm-up run; the host's clock varies from run to run
+DETECT_BATCH, CNN_BATCH = 32, 256
+#: NVIDIA H100 SXM data sheet: dense bf16 on the tensor cores, f32 on the CUDA
+#: cores, HBM3 bandwidth
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_BYTES = 3.35e12
+WRAPPERS = {"nms_mask": nms_kernel.nms_mask, "mha": attention_kernel.mha,
+            "fused_chain": fused_resnet_kernel.fused_chain,
+            "fused_ssh_heads": fused_ssh_kernel.fused_ssh_heads}
 
 
 def log(msg: str) -> None:
@@ -70,7 +90,7 @@ def phase_device() -> str:
 def phase_build() -> None:
     t0 = time.perf_counter()
     took = _build.build_all()
-    log(f"build: {time.perf_counter() - t0:.2f} s "
+    log(f"build: {time.perf_counter() - t0:.2f} s wall, all sources at once "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in took.items())})")
     for name in _build.KERNELS:
         for line in _build.ptxas_log(name).splitlines():
@@ -109,7 +129,24 @@ def nms_case(seed: int, b: int, k: int) -> tuple[np.ndarray, np.ndarray]:
     return boxes, valid
 
 
-def phase_kernels(card: str) -> list[dict]:
+def bound_ms(nbytes: float, flops: float, kind: str) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes moved over
+    the memory rate and the operations over the peak rate for their type."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def entry(name: str, source: str, replaces: str, **numbers) -> dict:
+    return {"name": name, "route": "cuda", "source": f"avcer_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": 0, **numbers}
+
+
+def kernels_nms_attention(card: str) -> list[dict]:
     dev = torch.device("cuda")
     # NMS: keep masks must be equal, not close
     mismatches = 0
@@ -126,8 +163,13 @@ def phase_kernels(card: str) -> list[dict]:
         raise AssertionError(f"nms kernel: {mismatches} keep entries differ from the plain version")
     nms_ms = median_ms(lambda: nms_kernel.nms_mask(bt, vt, 0.4))
     nms_plain_ms = median_ms(lambda: nms_kernel.nms_mask_plain(bt, vt, 0.4))
+    # work of this run's data: row i is compared with the K - 1 - i rows after
+    # it only while it is kept: about 20 f32 operations a pair
+    pairs = float(((NMS_SHAPE[1] - 1 - torch.arange(NMS_SHAPE[1], device=dev)) * got).sum())
+    nms_bound, nms_by = bound_ms(tensor_bytes(bt, vt, got), 20 * pairs, "f32")
     log(f"kernel nms_mask [{NMS_SHAPE[0]}, {NMS_SHAPE[1]}, 4]: keep masks equal over 4 seeds; "
-        f"{nms_ms:.4f} ms vs plain {nms_plain_ms:.4f} ms (median of 50) on {card}")
+        f"{nms_ms:.4f} ms vs plain {nms_plain_ms:.4f} ms (median of 50), bound "
+        f"{nms_bound:.6f} ms ({nms_by}), no library call, on {card}")
 
     # attention, f32: the JAX package's bound for the Pallas kernel
     rng = np.random.default_rng(0)
@@ -146,23 +188,238 @@ def phase_kernels(card: str) -> list[dict]:
     torch.testing.assert_close(got, want, atol=1e-5, rtol=4e-3)
     attn_ms = median_ms(lambda: attention_kernel.mha(qb, kb, vb))
     attn_plain_ms = median_ms(lambda: attention_kernel.mha_plain(qb, kb, vb))
+    attn_lib_ms = median_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb))
+    b, h, t, d = ATTN_SHAPE
+    attn_bound, attn_by = bound_ms(4 * tensor_bytes(qb), 4.0 * b * h * t * t * d, "bf16")
     log(f"kernel mha {list(ATTN_SHAPE)}: f32 max abs err {err32:.3g} (atol 2e-5, rtol 1e-4); "
         f"bf16 max abs err {err16:.3g} vs f32 plain (atol 1e-5, rtol 4e-3); "
-        f"bf16 {attn_ms:.4f} ms vs plain {attn_plain_ms:.4f} ms (median of 50) on {card}")
+        f"bf16 {attn_ms:.4f} ms vs plain {attn_plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {attn_lib_ms:.4f} ms (median of 50), bound "
+        f"{attn_bound:.4f} ms ({attn_by}) on {card}")
     return [
-        {"name": "nms_mask", "route": "cuda", "source": "avcer_tpu_torch/csrc/nms.cu",
-         "replaces": "avcer_tpu/ops/pallas/nms_kernel.py:62", "launches": 0,
-         "max_abs_err": float(mismatches), "ms": nms_ms, "plain_ms": nms_plain_ms},
-        {"name": "mha", "route": "cuda", "source": "avcer_tpu_torch/csrc/attention.cu",
-         "replaces": "avcer_tpu/ops/pallas/attention_kernel.py:40", "launches": 0,
-         "max_abs_err": err16, "ms": attn_ms, "plain_ms": attn_plain_ms},
+        entry("nms_mask", "nms.cu", "avcer_tpu/ops/pallas/nms_kernel.py:62",
+              max_abs_err=float(mismatches), ms=nms_ms, plain_ms=nms_plain_ms,
+              bound_ms=nms_bound, bound_by=nms_by, library_ms=None),
+        entry("mha", "attention.cu", "avcer_tpu/ops/pallas/attention_kernel.py:40",
+              max_abs_err=err16, ms=attn_ms, plain_ms=attn_plain_ms, bound_ms=attn_bound,
+              bound_by=attn_by, library_ms=attn_lib_ms),
     ]
 
 
-def smoke_config(dtype: str) -> PipelineConfig:
+def randn(shape, seed: int, dtype=torch.bfloat16, relu: bool = True) -> torch.Tensor:
+    """Activations as a ReLU leaves them, made from a seed with numpy."""
+    x = np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
+    x = torch.from_numpy(x).to("cuda")
+    return (x.relu() if relu else x).to(dtype).contiguous()
+
+
+def chain_work(x: torch.Tensor, folded, blocks, out: torch.Tensor) -> tuple[float, float]:
+    """(bytes, operations) of one fused_chain call: the input and every weight
+    read once, the output written once; two operations per multiply-add."""
+    b, h, w, cin = x.shape
+    macs = 0
+    for kind, t in zip(blocks, fused_resnet_kernel.split_folded(folded, blocks)):
+        planes, cout = t[0].shape[1], t[6].shape[1]
+        s2 = kind in ("s2ds", "s2pre")
+        ho, wo = ((h + 1) // 2, (w + 1) // 2) if s2 else (h, w)
+        px1 = b * h * w if kind == "s2ds" else b * ho * wo  # conv1 at input resolution
+        px = b * ho * wo
+        macs += px1 * cin * planes + px * 9 * planes * planes + px * planes * cout
+        if kind != "id":
+            macs += px * cin * cout
+        h, w, cin = ho, wo, cout
+    return float(tensor_bytes(x, out, *folded)), 2.0 * macs
+
+
+def ssh_work(x, convs, heads, lat, merge, up, outs) -> tuple[float, float]:
+    b, h, w, ci = x.shape
+    c = convs[0].shape[2]
+    q = c // 4
+    macs = 9 * (c * c // 2 + c * q + 3 * q * q) + c * sum(t.shape[1] for t in heads[0::2])
+    if lat is not None:
+        macs += ci * c
+    if merge is not None:
+        macs += 9 * c * c
+    weights = list(convs) + list(heads) + list(lat or ()) + list(merge or ())
+    return float(tensor_bytes(x, up, *outs, *weights)), 2.0 * b * h * w * macs
+
+
+# bf16, kernel against plain from the same bf16 inputs with the same rounding
+# points: a sum on a rounding boundary may fall to either side after another
+# summation order, one bf16 ulp (2**-8 relative) per conv, carried through up
+# to 12 convs of a chain (7 of a scale): a few ulps
+BF16_TOL = dict(atol=2 ** -5, rtol=2 ** -5)
+
+
+def check_fused(name: str, run, run_plain, x, tol32, case: str) -> float:
+    """Kernel against plain: f32 on the first 4 frames (the f32 kernel
+    multiplies on the CUDA cores; 4 frames reach every tile position), bf16
+    at the full batch. ``run(x, dtype)`` and ``run_plain(x, dtype)`` return
+    tuples of tensors. Returns the bf16 max abs error."""
+    x32 = x[:4].float()
+    got, want = run(x32, torch.float32), run_plain(x32, torch.float32)
+    torch.cuda.synchronize()
+    err32 = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **tol32)
+    got, want = run(x, torch.bfloat16), run_plain(x, torch.bfloat16)
+    torch.cuda.synchronize()
+    err16 = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), **BF16_TOL)
+    log(f"kernel {name} {case}: f32 (first 4 frames) max abs err {err32:.3g} "
+        f"(atol {tol32['atol']}, rtol {tol32['rtol']}); bf16 (full batch) max abs err "
+        f"{err16:.3g} (atol 2^-5, rtol 2^-5)")
+    return err16
+
+
+def kernels_fused_chain(card: str, detector, emotion) -> dict:
+    """K3 at the block patterns and widths of the two models, with the models'
+    own (seeded) weights; the library yardstick is the same blocks through
+    cuDNN (channels-last bf16 convolutions and the port's BatchNorm)."""
+    body = detector.body
+    cases = [
+        ("detector layer1", body.layer1, [0, 1, 2], ("ds", "id", "id"), (DETECT_BATCH, 90, 160, 64)),
+        ("detector layer2", body.layer2, [0, 1, 2, 3], ("s2ds", "id", "id", "id"),
+         (DETECT_BATCH, 90, 160, 256)),
+        ("detector layer3 entry", body.layer3, [0, 1], ("s2ds", "id"), (DETECT_BATCH, 45, 80, 512)),
+        ("detector layer3 tail", body.layer3, [2, 3, 4], ("id", "id", "id"),
+         (DETECT_BATCH, 23, 40, 1024)),
+        ("emotion layer2", emotion.layer2, [0, 1, 2], ("s2pre", "id", "id"),
+         (CNN_BATCH, 55, 55, 256)),
+        ("emotion layer4 tail", emotion.layer4, [1], ("id",), (CNN_BATCH, 7, 7, 2048)),
+    ]
+    rows, worst = [], 0.0
+    for seed, (name, layer, chunk, blocks, shape) in enumerate(cases):
+        x = randn(shape, 100 + seed)
+        folded = {dt: [t for bi in chunk for t in layer[bi].folded(dt)]
+                  for dt in (torch.float32, torch.bfloat16)}
+        section = torch.nn.Sequential(*[layer[bi] for bi in chunk])
+        x_cl = x.permute(0, 3, 1, 2)  # NCHW-shaped, channels-last in memory
+        case = f"{name} {blocks} {list(shape)}"
+        worst = max(worst, check_fused(
+            "fused_chain", lambda a, dt: (fused_resnet_kernel.fused_chain(a, folded[dt], blocks),),
+            lambda a, dt: (fused_resnet_kernel.fused_chain_plain(a, folded[dt], blocks),),
+            x, dict(atol=2e-4, rtol=1e-3), case))
+        with torch.inference_mode():
+            lib = section(x_cl).permute(0, 2, 3, 1)
+            out = fused_resnet_kernel.fused_chain(x, folded[torch.bfloat16], blocks)
+            lib_rel = rel_l2(out, lib)
+            ms = median_ms(lambda: fused_resnet_kernel.fused_chain(x, folded[torch.bfloat16], blocks))
+            plain = median_ms(
+                lambda: fused_resnet_kernel.fused_chain_plain(x, folded[torch.bfloat16], blocks))
+            lib_ms = median_ms(lambda: section(x_cl))
+        b_ms, b_by = bound_ms(*chain_work(x, folded[torch.bfloat16], blocks, out), "bf16")
+        log(f"  {case} bf16: kernel {ms:.3f} ms, plain {plain:.3f} ms, unfused cuDNN section "
+            f"{lib_ms:.3f} ms (relative L2 to it {lib_rel:.4f}), bound {b_ms:.3f} ms ({b_by}) "
+            f"(median of 50) on {card}")
+        if not lib_rel < 0.02:
+            raise AssertionError(f"fused_chain {case}: relative L2 {lib_rel} to the cuDNN section")
+        rows.append({"case": name, "blocks": list(blocks), "shape": list(shape), "ms": ms,
+                     "plain_ms": plain, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
+    first = rows[0]
+    return entry("fused_chain", "fused_resnet.cu",
+                 "avcer_tpu/ops/pallas/fused_resnet_kernel.py:299", max_abs_err=worst,
+                 ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                 bound_by=first["bound_by"], library_ms=first["library_ms"],
+                 shape=first["shape"], cases=rows)
+
+
+def kernels_fused_ssh(card: str, detector) -> dict:
+    """K4 at the three scales in the fully fused order (scale 3 emits its
+    lateral, scale 2 its merged feature, ``up`` the nearest upsample of the
+    coarser one) and once with fused_ssh alone (scale 1 after the unfused
+    FPN). The library yardstick is the port's FPN lateral and merge, SSH
+    module and heads for that scale through cuDNN."""
+    shapes = [(DETECT_BATCH, 45, 80, 512), (DETECT_BATCH, 23, 40, 1024),
+              (DETECT_BATCH, 12, 20, 2048)]
+    folded = {dt: [detector._scale_folded(i, dt) for i in range(3)]
+              for dt in (torch.float32, torch.bfloat16)}
+    heads_of = [(detector.BboxHead[i], detector.ClassHead[i], detector.LandmarkHead[i])
+                for i in range(3)]
+    rows, worst = [], 0.0
+    feat_prev = None
+    for i in (2, 1, 0, "ssh alone"):
+        alone = i == "ssh alone"
+        i = 0 if alone else i
+        x = randn(shapes[i][:3] + (256,), 200, relu=True) if alone else randn(shapes[i], 200 + i)
+        up = None
+        if feat_prev is not None and not alone:
+            up = nhwc(upsample_nearest_to(feat_prev.permute(0, 3, 1, 2), x.shape[1:3]))
+        emit = i > 0 and not alone
+
+        def args(dt, n=None):
+            convs, heads, lat, merge = folded[dt][i]
+            u = None if up is None else up[:n].to(dt)
+            return dict(conv_folded=convs, head_folded=heads, leaky=0.0,
+                        fpn_lat=None if alone else lat, fpn_merge=None if alone else merge,
+                        up=u, emit_feature=emit)
+
+        def run(a, dt):
+            return fused_ssh_kernel.fused_ssh_heads(a, **args(dt, a.shape[0]))
+
+        def run_plain(a, dt):
+            return fused_ssh_kernel.fused_ssh_heads_plain(a, **args(dt, a.shape[0]))
+
+        ssh = getattr(detector, f"ssh{i + 1}")
+
+        def library(x_cl, up_cl):
+            f = x_cl
+            if not alone:
+                f = getattr(detector.fpn, f"output{i + 1}")(f)
+                if up_cl is not None:
+                    f = getattr(detector.fpn, f"merge{i + 1}")(f + up_cl)
+            s = ssh(f)
+            return tuple(h(s) for h in heads_of[i])
+
+        name = "scale 1 after the unfused FPN" if alone else f"scale {i + 1} with the FPN"
+        case = f"{name} {list(x.shape)}" + (" + up" if up is not None else "") + (
+            " -> feature" if emit else "")
+        # the sums run over up to 9 x 256 terms after a 2048-term lateral
+        worst = max(worst, check_fused("fused_ssh_heads", run, run_plain, x,
+                                       dict(atol=2e-5, rtol=1e-4), case))
+        with torch.inference_mode():
+            outs = run(x, torch.bfloat16)
+            x_cl = x.permute(0, 3, 1, 2)
+            up_cl = None if up is None else up.permute(0, 3, 1, 2)
+            lib = library(x_cl, up_cl)
+            lib_rel = max(rel_l2(o.reshape(lb.shape), lb) for o, lb in zip(outs, lib))
+            ms = median_ms(lambda: run(x, torch.bfloat16))
+            plain = median_ms(lambda: run_plain(x, torch.bfloat16))
+            lib_ms = median_ms(lambda: library(x_cl, up_cl))
+        a = args(torch.bfloat16)
+        b_ms, b_by = bound_ms(*ssh_work(x, a["conv_folded"], a["head_folded"], a["fpn_lat"],
+                                        a["fpn_merge"], up, outs), "bf16")
+        log(f"  {case} bf16: kernel {ms:.3f} ms, plain {plain:.3f} ms, unfused cuDNN section "
+            f"{lib_ms:.3f} ms (relative L2 to it {lib_rel:.4f}), bound {b_ms:.3f} ms ({b_by}) "
+            f"(median of 50) on {card}")
+        if not lib_rel < 0.02:
+            raise AssertionError(f"fused_ssh_heads {case}: relative L2 {lib_rel} to cuDNN")
+        if emit:
+            feat_prev = outs[3]
+        rows.append({"case": name, "shape": list(x.shape), "ms": ms, "plain_ms": plain,
+                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
+    main = rows[2]  # scale 1 with the FPN: the largest of the three calls
+    return entry("fused_ssh_heads", "fused_ssh.cu",
+                 "avcer_tpu/ops/pallas/fused_ssh_kernel.py:198", max_abs_err=worst,
+                 ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                 bound_by=main["bound_by"], library_ms=main["library_ms"],
+                 shape=main["shape"], cases=rows)
+
+
+def phase_kernels(card: str, fused_pipe) -> list[dict]:
+    detector = fused_pipe.detect.inner.model
+    emotion = fused_pipe.visual.static_model
+    return (kernels_nms_attention(card)
+            + [kernels_fused_chain(card, detector, emotion), kernels_fused_ssh(card, detector)])
+
+
+def smoke_config(dtype: str, fused: bool = False) -> PipelineConfig:
     return PipelineConfig(
-        detector=DetectorConfig(batch_size=32, long_side=640, transfer_format="bgr", dtype=dtype),
-        visual=VisualConfig(batch_size=256, dtype=dtype),
+        detector=DetectorConfig(batch_size=DETECT_BATCH, long_side=640, transfer_format="bgr",
+                                dtype=dtype, fused_layer1=fused, fused_tails=fused,
+                                fused_entries=fused, fused_ssh=fused, fused_fpn=fused),
+        visual=VisualConfig(batch_size=CNN_BATCH, dtype=dtype, fused=fused, fused_entries=fused),
         audio=AudioConfig(batch_size=16, dtype=dtype),
         weights_dir=os.path.join(ROOT, "build", "smoke_no_weights"),
         save_plot=False,
@@ -174,37 +431,42 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).norm() / want.norm().clamp_min(1e-12))
 
 
-def phase_reference(pipe, frames: np.ndarray, wav: np.ndarray) -> None:
-    """Each model on the card (bf16, CUDA kernels) against the same seeded
-    weights in f32 on the CPU (plain versions), one small input each. bf16
-    keeps 8 significant bits (2**-8 relative per rounding) and the errors of
-    some 60 layers add up; a relative L2 error under 5 % passes, while a
-    wrong kernel, layout or weight gives errors of order 100 %."""
+def phase_reference(pipe, fused_pipe, frames: np.ndarray, wav: np.ndarray) -> None:
+    """Each model on the card (bf16, CUDA kernels), unfused and fused, against
+    the same seeded weights in f32 on the CPU (plain versions, unfused), one
+    small input each. bf16 keeps 8 significant bits (2**-8 relative per
+    rounding) and the errors of some 60 layers add up; a relative L2 error
+    under 5 % passes, while a wrong kernel, layout or weight gives errors of
+    order 100 %."""
+    from avcer_tpu_torch.ops.audio import feature_extractor_normalize
+    from avcer_tpu_torch.ops.image import retinaface_normalize, vggface_normalize
+
     ref = build_pipeline(smoke_config("float32"), device="cpu", seed=0)
     dev = torch.device("cuda")
     with torch.inference_mode():
         x = torch.from_numpy(frames[:1])
         lb, _ = pipe.detect.inner.prepare_batch(frames[:1])
-        from avcer_tpu_torch.ops.image import retinaface_normalize, vggface_normalize
-        det_card = pipe.detect.inner.model(retinaface_normalize(lb))
         det_cpu = ref.detect.model(retinaface_normalize(lb.cpu()))
+        det_card = pipe.detect.inner.model(retinaface_normalize(lb))
+        det_fused = fused_pipe.detect.inner.model(retinaface_normalize(lb))
         crop = x[:, 60:284, 200:424]  # a 224 x 224 crop
-        emo_card = pipe.visual.static_model(vggface_normalize(crop.to(dev)))
         emo_cpu = ref.visual.static_model(vggface_normalize(crop))
+        emo_card = pipe.visual.static_model(vggface_normalize(crop.to(dev)))
+        emo_fused = fused_pipe.visual.static_model(vggface_normalize(crop.to(dev)))
         win = torch.from_numpy(wav[None, :64000])
-        from avcer_tpu_torch.ops.audio import feature_extractor_normalize
         aud_card = pipe.audio.model(feature_extractor_normalize(win.to(dev)))
         aud_cpu = ref.audio.model(feature_extractor_normalize(win))
-    errs = {
-        "detector loc": rel_l2(det_card[0], det_cpu[0]),
-        "detector conf": rel_l2(det_card[1], det_cpu[1]),
-        "detector landmarks": rel_l2(det_card[2], det_cpu[2]),
-        "emotion logits": rel_l2(emo_card[0], emo_cpu[0]),
-        "emotion features": rel_l2(emo_card[1], emo_cpu[1]),
-        "audio logits": rel_l2(aud_card, aud_cpu),
-    }
+    names = ("detector loc", "detector conf", "detector landmarks", "emotion logits",
+             "emotion features")
+    cpu = (*det_cpu, *emo_cpu)
+    errs = {n: rel_l2(g, w) for n, g, w in zip(names, (*det_card, *emo_card), cpu)}
+    errs["audio logits"] = rel_l2(aud_card, aud_cpu)
+    errs.update({f"fused {n}": rel_l2(g, w) for n, g, w in zip(names, (*det_fused, *emo_fused), cpu)})
     log("reference (card bf16 vs CPU f32, relative L2): "
         + ", ".join(f"{k} {v:.4f}" for k, v in errs.items()))
+    log("fused vs unfused on the card (bf16, relative L2): " + ", ".join(
+        f"{n} {rel_l2(g, w):.4f}" for n, g, w in zip(names, (*det_fused, *emo_fused),
+                                                     (*det_card, *emo_card))))
     bad = {k: v for k, v in errs.items() if not v < 0.05}
     if bad:
         raise AssertionError(f"card outputs disagree with the f32 CPU reference: {bad}")
@@ -255,48 +517,64 @@ def make_clip() -> tuple[np.ndarray, np.ndarray]:
     return frames, wav
 
 
-def phase_main(card: str, kernels: list[dict]) -> None:
+def build(card: str, fused: bool):
     t0 = time.perf_counter()
-    pipe = build_pipeline(smoke_config("bfloat16"), device="cuda", seed=0)
+    pipe = build_pipeline(smoke_config("bfloat16", fused), device="cuda", seed=0)
     pipe.detect = ForceTopFace(pipe.detect, HEIGHT, WIDTH)
-    log(f"build_pipeline (full width, seeded init, bf16): {time.perf_counter() - t0:.2f} s")
-    frames, wav = make_clip()
-    phase_reference(pipe, frames, wav)
+    log(f"build_pipeline (full width, seeded init, bf16, fused={fused}): "
+        f"{time.perf_counter() - t0:.2f} s")
+    return pipe
 
+
+def phase_main(card: str, pipe, fused: bool, frames: np.ndarray, wav: np.ndarray):
+    """One warm-up run and TIMED_RUNS timed runs of one pipeline. Every count
+    is set to 0 just before a timed run and read just after it. Returns the
+    last run's result and launch counts."""
+    label = "fused main path" if fused else "main path"
+    cnn_calls = [0]
+    hook = pipe.visual.static_model.register_forward_hook(
+        lambda *_: cnn_calls.__setitem__(0, cnn_calls[0] + 1))
     t0 = time.perf_counter()
     pipe.run(ArrayReader(frames, FPS, "smoke.avi"), "", wav=wav)
     torch.cuda.synchronize()
-    log(f"main path warm-up run: {time.perf_counter() - t0:.2f} s")
+    log(f"{label} warm-up run: {time.perf_counter() - t0:.2f} s")
 
     walls = []
     for run in range(1, TIMED_RUNS + 1):
-        nms_kernel.nms_mask.launches = 0
-        attention_kernel.mha.launches = 0
+        for wrapper in WRAPPERS.values():
+            wrapper.launches = 0
+        cnn_calls[0] = 0
         pipe.detect.raw_kept = pipe.detect.frames = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         clip = pipe.run(ArrayReader(frames, FPS, "smoke.avi"), "", wav=wav)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        launches = {"nms_mask": nms_kernel.nms_mask.launches, "mha": attention_kernel.mha.launches}
-        check_main_path(clip, frames.shape[0], launches)
+        launches = {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+        check_main_path(clip, frames.shape[0], launches, fused, cnn_calls[0])
         stages = ", ".join(f"{k} {v:.3f} s" for k, v in clip.timings.items())
-        log(f"main path timed run {run}: {stages} on {card}")
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+        log(f"{label} timed run {run}: {stages} on {card}")
+    hook.remove()
     log(f"detector kept {pipe.detect.raw_kept / max(pipe.detect.frames, 1):.1f} candidates "
         "per frame before the top one was forced to be the only face")
     wall = float(np.median(walls))
-    log(f"main path: {frames.shape[0]} frames ({CLIP_SECONDS} s of video), wall per run "
+    log(f"{label}: {frames.shape[0]} frames ({CLIP_SECONDS} s of video), wall per run "
         f"{', '.join(f'{w:.3f}' for w in walls)} s, median {wall:.3f} s = "
-        f"{CLIP_SECONDS / wall:.3f} video-sec/sec on {card}; launches per run {launches}")
+        f"{CLIP_SECONDS / wall:.3f} video-sec/sec on {card}; launches per run {launches}, "
+        f"emotion CNN forward calls {cnn_calls[0]}")
+    return clip, launches
 
 
-def check_main_path(clip, n: int, launches: dict[str, int]) -> None:
+def check_main_path(clip, n: int, launches: dict[str, int], fused: bool, cnn_calls: int) -> None:
     """Shapes and values of one run's outputs, and each kernel's launches in
-    that run."""
-    detect_batches = -(-n // 32)
+    that run: per detect batch one NMS call and, fused, 5 fused_chain calls
+    (layer1, layer2, three chunks of layer3) and 3 fused_ssh_heads calls; per
+    emotion-CNN forward, fused, 7 fused_chain calls (1 + 2 + 2 + 2 over the
+    four layers); 12 attention calls per audio batch."""
+    detect_batches = -(-n // DETECT_BATCH)
     audio_batches = -(-len(clip.audio_window_logits) // 16)
+    want_chain = (5 * detect_batches + 7 * cnn_calls) if fused else 0
+    want_ssh = 3 * detect_batches if fused else 0
     checks = {
         "stat_probs is [T, 7]": clip.stat_probs.shape == (n, 7),
         "stat_probs rows sum to 1": bool(np.allclose(clip.stat_probs.sum(1), 1.0, atol=1e-3)),
@@ -305,9 +583,13 @@ def check_main_path(clip, n: int, launches: dict[str, int]) -> None:
         "audio logits are [17, 8]": clip.audio_window_logits.shape == (17, 8),
         "compound.av in 0..6": bool(clip.compound is not None
                                     and set(np.unique(clip.compound.av)) <= set(range(7))),
+        "the emotion CNN ran": cnn_calls > 0,
         f"nms launches == {detect_batches} detect batches": launches["nms_mask"] == detect_batches,
         f"attention launches == 12 x {audio_batches} audio batches":
             launches["mha"] == 12 * audio_batches,
+        f"fused_chain launches == {want_chain} (5 x {detect_batches} detect batches + "
+        f"7 x {cnn_calls} CNN calls, fused only)": launches["fused_chain"] == want_chain,
+        f"fused_ssh_heads launches == {want_ssh}": launches["fused_ssh_heads"] == want_ssh,
     }
     for name, ok in checks.items():
         log(f"  check {name}: {'ok' if ok else 'FAILED'}")
@@ -319,8 +601,19 @@ def check_main_path(clip, n: int, launches: dict[str, int]) -> None:
 def main() -> int:
     card = phase_device()
     phase_build()
-    kernels = phase_kernels(card)
-    phase_main(card, kernels)
+    pipe, fused_pipe = build(card, False), build(card, True)
+    kernels = phase_kernels(card, fused_pipe)
+    frames, wav = make_clip()
+    phase_reference(pipe, fused_pipe, frames, wav)
+    clip, _ = phase_main(card, pipe, False, frames, wav)
+    fused_clip, launches = phase_main(card, fused_pipe, True, frames, wav)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    agree = float((fused_clip.compound.av == clip.compound.av).mean())
+    log(f"fused vs unfused compound decisions: {int(round(agree * len(clip.compound.av)))} of "
+        f"{len(clip.compound.av)} frames agree (random weights give near-ties; 95 % required)")
+    if agree < 0.95:
+        raise AssertionError(f"fused and unfused decisions agree on only {agree:.1%} of frames")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

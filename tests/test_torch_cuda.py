@@ -9,7 +9,10 @@ import numpy as np
 import pytest
 import torch
 
-from avcer_tpu_torch.ops.cuda import attention_kernel, nms_kernel
+from avcer_tpu_torch.ops.cuda import (attention_kernel, fused_resnet_kernel, fused_ssh_kernel,
+                                      nms_kernel)
+
+from torch_fused_cases import chain_weights, ssh_weights, tensors
 
 pytestmark = pytest.mark.cuda
 
@@ -99,3 +102,97 @@ def test_kernels_raise_on_bad_input(cuda_device):
     boxes = torch.zeros((1, 8, 4), device=cuda_device)
     with pytest.raises(ValueError):
         nms_kernel.nms_mask(boxes, torch.ones((1, 8), device=cuda_device), 0.4)
+
+
+# Frames smaller and larger than a tile (one tile up to 32, else tiles of at
+# most 24: every frame edge falls inside some tile's halo), odd sizes for the
+# stride-2 entries, batches that do not fill a work item's frame group.
+CHAIN_CASES = [
+    ((2, 24, 16, 16), 16, ("ds", "id", "id")), ((2, 23, 17, 64), 16, ("id", "id")),
+    ((2, 23, 17, 32), 16, ("s2ds", "id")), ((2, 24, 16, 32), 16, ("s2pre", "id", "id")),
+    ((5, 7, 7, 64), 16, ("id",)), ((2, 45, 40, 32), 16, ("s2ds", "id", "id", "id")),
+    ((2, 55, 55, 32), 16, ("s2pre", "id", "id")), ((1, 90, 37, 16), 16, ("ds", "id", "id")),
+    ((3, 33, 50, 64), 16, ("id", "id", "id")), ((2, 49, 67, 16), 8, ("s2ds",)),
+]
+
+
+@pytest.mark.parametrize("shape,planes,blocks", CHAIN_CASES)
+def test_fused_chain_kernel_f32(cuda_device, shape, planes, blocks):
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
+    folded = tensors(chain_weights(rng, shape[-1], planes, blocks), torch.float32, cuda_device)
+    want = fused_resnet_kernel.fused_chain_plain(x, folded, blocks)
+    before = fused_resnet_kernel.fused_chain.launches
+    got = fused_resnet_kernel.fused_chain(x, folded, blocks)
+    torch.cuda.synchronize()
+    assert fused_resnet_kernel.fused_chain.launches == before + 1
+    # the JAX package's bound for the Pallas kernel (test_fused_layer1_matches_xla)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("shape,planes,blocks", CHAIN_CASES[:7])
+def test_fused_chain_kernel_bf16(cuda_device, shape, planes, blocks):
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    folded = tensors(chain_weights(rng, shape[-1], planes, blocks), torch.bfloat16, cuda_device)
+    want = fused_resnet_kernel.fused_chain_plain(x, folded, blocks)
+    got = fused_resnet_kernel.fused_chain(x, folded, blocks)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    # same bf16 inputs and rounding points; a sum on a rounding boundary may
+    # fall to either side after another summation order: a few bf16 ulps
+    # (2**-8 relative each) through up to 12 convs
+    torch.testing.assert_close(got.float(), want.float(), atol=2 ** -5, rtol=2 ** -5)
+
+
+# shape, C, leaky, lateral, merge, up, emit_feature
+SSH_CASES = [
+    ((2, 12, 9, 32), 32, 0.0, False, False, False, False),
+    ((2, 7, 5, 48), 32, 0.0, True, False, False, True),
+    ((2, 23, 17, 48), 32, 0.0, True, True, True, True),
+    ((2, 40, 37, 64), 64, 0.1, True, True, True, False),
+    ((3, 9, 9, 64), 64, 0.1, False, False, False, False),
+    ((1, 45, 80, 32), 32, 0.0, True, True, True, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,c,leaky,lat,merge,has_up,emit", SSH_CASES)
+def test_fused_ssh_heads_kernel(cuda_device, shape, c, leaky, lat, merge, has_up, emit, dtype):
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device, dtype)
+    up = (torch.from_numpy(rng.normal(size=shape[:3] + (c,)).astype(np.float32))
+          .to(cuda_device, dtype) if has_up else None)
+    convs, heads, fl, fm = (tensors(t, dtype, cuda_device)
+                            for t in ssh_weights(rng, shape[-1], c, lat, merge))
+    want = fused_ssh_kernel.fused_ssh_heads_plain(x, convs, heads, leaky, fl, fm, up, emit)
+    before = fused_ssh_kernel.fused_ssh_heads.launches
+    got = fused_ssh_kernel.fused_ssh_heads(x, convs, heads, leaky, fl, fm, up, emit)
+    torch.cuda.synchronize()
+    assert fused_ssh_kernel.fused_ssh_heads.launches == before + 1
+    assert len(got) == len(want) == 3 + emit
+    # f32: the JAX package's bound (test_fused_ssh_heads_match_xla); bf16: a
+    # few ulps through up to 7 convs, as for the chain kernel
+    atol, rtol = (2e-5, 1e-4) if dtype == torch.float32 else (2 ** -5, 2 ** -5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol)
+
+
+def test_fused_kernels_raise_on_bad_input(cuda_device):
+    rng = np.random.default_rng(3)
+    x = torch.zeros((1, 8, 8, 16), device=cuda_device)
+    folded = tensors(chain_weights(rng, 16, 8, ("ds",)), device=cuda_device)
+    with pytest.raises(ValueError):
+        fused_resnet_kernel.fused_chain(x.half(), folded, ("ds",))
+    with pytest.raises(ValueError):  # weights of another dtype
+        fused_resnet_kernel.fused_chain(x.bfloat16(), folded, ("ds",))
+    with pytest.raises(ValueError):  # 10 channels: not a multiple of 16 bytes
+        fused_resnet_kernel.fused_chain(
+            x[..., :10].contiguous(),
+            tensors(chain_weights(rng, 10, 8, ("ds",)), device=cuda_device), ("ds",))
+    with pytest.raises(NotImplementedError):
+        fused_resnet_kernel.fused_chain(x, folded, ("ds",), act_s=torch.ones(4))
+    convs, heads = (tensors(t, device=cuda_device)
+                    for t in ssh_weights(rng, 16, 16, False, False)[:2])
+    with pytest.raises(ValueError):  # x has 8 channels, the convs read 16
+        fused_ssh_kernel.fused_ssh_heads(x[..., :8].contiguous(), convs, heads)

@@ -1,0 +1,294 @@
+"""The fused path of avcer_tpu_torch against the JAX package on the CPU: the
+plain versions of the two fused kernels against the Pallas kernels in
+interpret mode, the BatchNorm fold, the fused models against the unfused
+port and against the JAX models under the same switches, the clip run with
+the visual switches on, and the wrappers' dispatch rules.
+
+Inputs and weights come from numpy generators and go to both sides."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from avcer_tpu.core.checkpoint import init_variables
+from avcer_tpu.models.emotion_resnet import EmotionResNet50 as JaxEmotionResNet50
+from avcer_tpu.models.retinaface import RetinaFace as JaxRetinaFace
+from avcer_tpu.models.retinaface import TVBottleneckFolded, _ConvBNFolded
+from avcer_tpu.ops.pallas.fused_resnet_kernel import fused_chain as jax_fused_chain
+from avcer_tpu.ops.pallas.fused_ssh_kernel import fused_ssh_heads as jax_fused_ssh_heads
+
+import avcer_tpu_torch.cli.run as cli
+from avcer_tpu_torch.core import convert
+from avcer_tpu_torch.models.emotion_resnet import EmotionResNet50
+from avcer_tpu_torch.models.layers import fold_bn
+from avcer_tpu_torch.models.retinaface import RetinaFace
+from avcer_tpu_torch.ops.cuda import fused_resnet_kernel as frk
+from avcer_tpu_torch.ops.cuda import fused_ssh_kernel as fsk
+
+from test_torch_models import port, randomize_stats
+from torch_fused_cases import chain_weights, ssh_weights, tensors
+
+torch.set_num_threads(2)
+
+
+# An "id" first block needs 128 input channels on the JAX side: its wrapper
+# pads the input channels to the TPU's lane width and cannot pad an identity.
+CHAINS = [(("ds", "id", "id"), 16, 8), (("id", "id"), 128, 32), (("s2ds", "id"), 32, 8),
+          (("s2pre", "id", "id"), 32, 8), (("id",), 128, 32)]
+
+
+@pytest.mark.parametrize("hw", [(24, 16), (23, 17)])
+@pytest.mark.parametrize("blocks,cin,planes", CHAINS)
+def test_fused_chain_plain_matches_jax(blocks, cin, planes, hw):
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2, *hw, cin)).astype(np.float32)
+    folded = chain_weights(rng, cin, planes, blocks)
+    want = jax_fused_chain(jnp.asarray(x), tuple(jnp.asarray(a) for a in folded), blocks,
+                           interpret=True, band=8)
+    got = frk.fused_chain(torch.from_numpy(x), tensors(folded), blocks)
+    assert tuple(got.shape) == want.shape
+    # f32 on both sides: only the order of the f32 sums differs
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+
+
+def test_fused_chain_plain_matches_jax_bf16():
+    """bf16 operands on both sides, the same rounding points: a sum that
+    lands on a rounding boundary may fall to either side after another
+    summation order, one bf16 ulp (2**-8 relative) per conv, and three
+    blocks carry that through nine convs; measured 1 ulp at most."""
+    blocks, cin, planes = ("ds", "id", "id"), 16, 8
+    rng = np.random.default_rng(12)
+    x = jnp.asarray(rng.normal(size=(2, 24, 16, cin)).astype(np.float32), jnp.bfloat16)
+    folded = chain_weights(rng, cin, planes, blocks)
+    want = jax_fused_chain(x, tuple(jnp.asarray(a, jnp.bfloat16) for a in folded), blocks,
+                           interpret=True, band=8)
+    got = frk.fused_chain(torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16(),
+                          tensors(folded, torch.bfloat16), blocks)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               atol=2 ** -6, rtol=2 ** -6)
+
+
+# name, ci, C, leaky, lateral, merge, up, emit_feature
+SSH_CASES = [("ssh_heads", 32, 32, 0.0, False, False, False, False),
+             ("lateral_emit", 48, 32, 0.0, True, False, False, True),
+             ("lateral_up_merge_emit", 48, 32, 0.0, True, True, True, True),
+             ("lateral_up_merge", 24, 32, 0.0, True, True, True, False),
+             ("leaky_c64", 64, 64, 0.1, False, False, False, False),
+             ("leaky_c64_fpn", 32, 64, 0.1, True, True, True, True)]
+
+
+@pytest.mark.parametrize("name,ci,c,leaky,lat,merge,has_up,emit", SSH_CASES)
+def test_fused_ssh_heads_plain_matches_jax(name, ci, c, leaky, lat, merge, has_up, emit):
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(2, 13, 11, ci)).astype(np.float32)
+    up = rng.normal(size=(2, 13, 11, c)).astype(np.float32) if has_up else None
+    convs, heads, fl, fm = ssh_weights(rng, ci, c, lat, merge)
+
+    def j(arrays):
+        return None if arrays is None else tuple(jnp.asarray(a) for a in arrays)
+
+    want = jax_fused_ssh_heads(jnp.asarray(x), j(convs), j(heads), leaky=leaky, interpret=True,
+                               band=8, fpn_lat=j(fl), fpn_merge=j(fm),
+                               up=None if up is None else jnp.asarray(up), emit_feature=emit)
+    got = fsk.fused_ssh_heads(
+        torch.from_numpy(x), tensors(convs), tensors(heads), leaky,
+        fpn_lat=tensors(fl), fpn_merge=tensors(fm),
+        up=None if up is None else torch.from_numpy(up), emit_feature=emit)
+    assert len(got) == len(want) == 3 + emit
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5, rtol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def retinaface_weights():
+    variables = randomize_stats(init_variables(
+        JaxRetinaFace(backbone="resnet50"), (jnp.zeros((1, 64, 64, 3)),), seed=1), 1)
+    x = (np.random.default_rng(0).normal(size=(1, 64, 48, 3)) * 20).astype(np.float32)
+    base = port(RetinaFace(), convert.retinaface(variables))
+    with torch.no_grad():
+        unfused = base(torch.from_numpy(x))
+    return variables, x, unfused
+
+
+def test_fold_bn_matches_jax_folds(retinaface_weights):
+    """``fold_bn`` on the converted state dict against TVBottleneckFolded and
+    _ConvBNFolded on the same tree. Weights are equal; inv and shift agree to
+    a few f32 ulps (5e-7 at values around 1): XLA's and torch's rsqrt differ
+    in the last bit on a third of the inputs."""
+    variables, _, _ = retinaface_weights
+    model = port(RetinaFace(), convert.retinaface(variables))
+
+    def sub(path):
+        out = {}
+        for kind, tree in variables.items():
+            for part in path.split("/"):
+                tree = tree.get(part, {})
+            out[kind] = tree
+        return out
+
+    want = TVBottleneckFolded(64, downsample=True).apply(sub("body/layer1_0"), 64)
+    got = model.body.layer1[0].folded(torch.float32)
+    assert len(got) == 12
+    for g, w in zip(got, [t for triple in want for t in triple]):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-7, rtol=0)
+    for path, conv_bn, k, cin in (("ssh2/conv5X5_1", model.ssh2.conv5X5_1, 3, 256),
+                                  ("fpn/output3", model.fpn.output3, 1, 2048)):
+        want = _ConvBNFolded(conv_bn[0].out_channels, kernel=k).apply(sub(path), cin)
+        got = fold_bn(conv_bn[0].weight, conv_bn[1], torch.float32)
+        for g, w in zip(got, want):
+            assert tuple(g.shape) == w.shape
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-7, rtol=0)
+
+
+class CallCount:
+    """Counts calls of a wrapper's plain version: the fused sections run."""
+
+    def __init__(self, monkeypatch, module, name):
+        self.n = 0
+        inner = getattr(module, name)
+
+        def counted(*args, **kwargs):
+            self.n += 1
+            return inner(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, counted)
+
+
+# switches, fused_chain calls, fused_ssh_heads calls, (atol, rtol) against the
+# unfused port: the bounds of test_fused_entries_match_xla for the body's
+# switches and of test_fused_ssh_heads_match_xla for the heads'
+RETINAFACE_SWITCHES = [
+    (dict(fused_layer1=True), 1, 0, (2e-4, 1e-3)),
+    (dict(fused_layer1=True, fused_tails=True), 4, 0, (2e-4, 1e-3)),
+    (dict(fused_layer1=True, fused_tails=True, fused_entries=True), 5, 0, (2e-4, 1e-3)),
+    (dict(fused_ssh=True), 0, 3, (2e-5, 1e-4)),
+    (dict(fused_ssh=True, fused_fpn=True), 0, 3, (2e-5, 1e-4)),
+]
+
+
+@pytest.mark.parametrize("switches,n_chain,n_ssh,tol", RETINAFACE_SWITCHES)
+def test_retinaface_fused_matches_unfused_and_jax(retinaface_weights, monkeypatch, switches,
+                                                  n_chain, n_ssh, tol):
+    variables, x, unfused = retinaface_weights
+    chains = CallCount(monkeypatch, frk, "fused_chain_plain")
+    sshs = CallCount(monkeypatch, fsk, "fused_ssh_heads_plain")
+    model = port(RetinaFace(**switches), convert.retinaface(variables))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x))
+        again = model(torch.from_numpy(x))  # the kept folds give the same result
+    assert (chains.n, sshs.n) == (2 * n_chain, 2 * n_ssh)
+    for g, a, u in zip(got, again, unfused):
+        assert torch.equal(g, a)
+        np.testing.assert_allclose(g.numpy(), u.numpy(), atol=tol[0], rtol=tol[1])
+    want = JaxRetinaFace(backbone="resnet50", **switches).apply(variables, jnp.asarray(x))
+    # the bounds of test_retinaface_matches_jax (conv sums in another order)
+    for g, w, atol in zip(got, want, (1e-3, 1e-4, 1e-3)):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=atol, rtol=1e-2)
+
+
+@pytest.mark.parametrize("switches,n_chain", [(dict(fused=True), 6),
+                                              (dict(fused=True, fused_entries=True), 7)])
+def test_emotion_resnet50_fused_matches_unfused_and_jax(monkeypatch, switches, n_chain):
+    variables = randomize_stats(init_variables(
+        JaxEmotionResNet50(num_classes=7), (jnp.zeros((1, 64, 64, 3)),), seed=2), 2)
+    x = (np.random.default_rng(1).normal(size=(2, 64, 48, 3)) * 50).astype(np.float32)
+    chains = CallCount(monkeypatch, frk, "fused_chain_plain")
+    state = convert.emotion_resnet50(variables)
+    with torch.no_grad():
+        unfused = port(EmotionResNet50(7), state)(torch.from_numpy(x))
+        got = port(EmotionResNet50(7, **switches), state)(torch.from_numpy(x))
+    assert chains.n == n_chain
+    want = JaxEmotionResNet50(num_classes=7, **switches).apply(variables, jnp.asarray(x))
+    # the bounds of test_fused_emotion_cnn_matches_xla on inputs scaled by 50
+    for g, u, w in zip(got, unfused, want):
+        np.testing.assert_allclose(g.numpy(), u.numpy(), atol=2e-3, rtol=1e-3)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-3, rtol=1e-3)
+
+
+def test_fold_cache_dropped_on_load():
+    """Loading other weights after a fused forward must not serve the old
+    folds."""
+    rng = np.random.default_rng(3)
+    model = EmotionResNet50(7, fused=True).eval()
+    x = torch.from_numpy(rng.normal(size=(1, 64, 48, 3)).astype(np.float32))
+    with torch.no_grad():
+        first = model(x)[0]
+        state = {k: v * 0.5 if k.endswith("conv1.weight") else v
+                 for k, v in model.state_dict().items()}
+        model.load_state_dict(state)
+        second = model(x)[0]
+        want = port(EmotionResNet50(7), state)(x)[0]
+    assert not torch.allclose(first, second)
+    torch.testing.assert_close(second, want, atol=1e-5, rtol=1e-5)
+
+
+def test_wrappers_cpu_takes_plain_and_counts_no_launch():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(1, 6, 5, 16)).astype(np.float32))
+    folded = tensors(chain_weights(rng, 16, 8, ("ds",)))
+    before = frk.fused_chain.launches, fsk.fused_ssh_heads.launches
+    out = frk.fused_layer1(x, tensors(chain_weights(rng, 16, 8, ("ds", "id", "id"))))
+    assert tuple(out.shape) == (1, 6, 5, 32)
+    torch.testing.assert_close(frk.fused_chain(x, folded, ("ds",), band=4),
+                               frk.fused_chain_plain(x, folded, ("ds",)))
+    convs, heads, _, _ = ssh_weights(rng, 16, 16, False, False)
+    lo, co, ld = fsk.fused_ssh_heads(x, tensors(convs), tensors(heads))
+    assert (lo.shape[-1], co.shape[-1], ld.shape[-1]) == (8, 4, 20)
+    assert (frk.fused_chain.launches, fsk.fused_ssh_heads.launches) == before
+
+
+def test_wrappers_raise_on_what_is_not_ported():
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(1, 6, 5, 16)).astype(np.float32))
+    folded = tensors(chain_weights(rng, 16, 8, ("ds",)))
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        frk.fused_chain(x, folded, ("ds",), act_s=torch.ones(4))
+    convs, heads, fl, fm = ssh_weights(rng, 16, 16, True, True)
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        fsk.fused_ssh_heads(x, tensors(convs), tensors(heads), act_s=torch.ones(5))
+    with pytest.raises(ValueError, match="fpn_merge requires fpn_lat"):
+        fsk.fused_ssh_heads(x, tensors(convs), tensors(heads), fpn_merge=tensors(fm))
+    # a stride-2 entry is the first block and is followed by "id" blocks only
+    for blocks in (("id", "s2ds"), ("ds", "s2pre"), ("s2ds", "ds"), ("s2pre", "id", "ds")):
+        with pytest.raises(ValueError, match="stride-2 entry"):
+            frk.fused_chain(x, folded, blocks)
+    with pytest.raises(ValueError):
+        frk.fused_chain(x, folded, ("ds", "id"))  # too few weights
+
+
+def test_chain_plan_geometry():
+    """The tiling the wrapper hands to the kernel: tile edges, halo, frames
+    per work item and scratch at the detector's and the emotion CNN's
+    shapes."""
+    p = frk.chain_plan(32, 90, 160, 256, 64, ("ds", "id", "id"), 2, 132)
+    assert (p["ho"], p["wo"], p["th"], p["tw"], p["halo"], p["g"]) == (90, 160, 23, 23, 3, 1)
+    assert p["nwork"] == 32 * 4 * 7 and p["grid"] == 264
+    assert p["scratch_bytes"] == 264 * 2 * 29 * 29 * (256 + 64 + 64)
+    p = frk.chain_plan(32, 45, 80, 1024, 256, ("s2ds", "id"), 2, 132)
+    assert (p["ho"], p["wo"], p["th"], p["tw"], p["halo"]) == (23, 40, 23, 20, 1)
+    p = frk.chain_plan(256, 7, 7, 2048, 512, ("id",), 2, 132)
+    assert (p["th"], p["tw"], p["halo"], p["g"], p["nwork"]) == (7, 7, 1, 3, 86)
+    p = frk.chain_plan(5, 55, 55, 512, 128, ("s2pre", "id", "id"), 4, 132)
+    assert (p["ho"], p["wo"], p["th"], p["g"], p["nwork"], p["grid"]) == (28, 28, 28, 1, 5, 5)
+    s = fsk.ssh_plan(32, 12, 20, 256, False, 2, 132)
+    assert (s["th"], s["tw"], s["halo"], s["nwork"]) == (12, 20, 3, 32)
+    s = fsk.ssh_plan(32, 45, 80, 256, True, 2, 132)
+    assert (s["th"], s["tw"], s["halo"], s["nwork"]) == (23, 20, 4, 32 * 2 * 4)
+
+
+def test_cli_fused_sets_all_seven_switches():
+    cfg = cli.config_from_args(cli.parse_args(["--fused"]))
+    d, v = cfg.detector, cfg.visual
+    assert all((d.fused_layer1, d.fused_tails, d.fused_entries, d.fused_ssh, d.fused_fpn,
+                v.fused, v.fused_entries))
+    cfg = cli.config_from_args(cli.parse_args([]))
+    d, v = cfg.detector, cfg.visual
+    assert not any((d.fused_layer1, d.fused_tails, d.fused_entries, d.fused_ssh, d.fused_fpn,
+                    v.fused, v.fused_entries))

@@ -270,3 +270,93 @@ def test_align_audio_and_decide_equal_jax(tmp_path):
     compound.save_compound_txt(str(tmp_path / "a.txt"), got.image_locations, want.av)
     jax_compound.save_compound_txt(str(tmp_path / "b.txt"), want.image_locations, want.av)
     assert (tmp_path / "a.txt").read_text() == (tmp_path / "b.txt").read_text()
+
+
+# --- the port's own copies of jax-free modules, pinned against the originals
+
+COPIED_CONFIGS = ["DetectorConfig", "VisualConfig", "AudioConfig", "FusionConfig", "MeshConfig",
+                  "PipelineConfig"]
+
+
+@pytest.mark.parametrize("name", COPIED_CONFIGS)
+def test_config_copy_equals_original(name):
+    """Same field names, types and defaults, so that one side's values can be
+    handed to the other."""
+    import dataclasses
+
+    from avcer_tpu.core import config as jax_config
+    from avcer_tpu_torch.core import config as port_config
+
+    want, got = getattr(jax_config, name), getattr(port_config, name)
+    assert [(f.name, f.type) for f in dataclasses.fields(got)] == \
+        [(f.name, f.type) for f in dataclasses.fields(want)]
+    assert port_config._asdict(got()) == jax_config._asdict(want())
+    if name == "PipelineConfig":
+        assert got().to_json() == want().to_json()
+        values = jax_config._asdict(want(save_plot=False, weights_dir="w"))
+        rebuilt = got(**{k: getattr(port_config, type(getattr(want(), k)).__name__)(**v)
+                         if isinstance(v, dict) else v for k, v in values.items()})
+        assert port_config._asdict(rebuilt) == values
+        with pytest.raises(ValueError):
+            got(visual=port_config.VisualConfig(cnn_stride=-1))
+
+
+def test_registry_copy_equals_original():
+    from avcer_tpu.core import registry as want
+    from avcer_tpu_torch.core import registry as got
+
+    def public(mod):
+        return sorted(n for n in vars(mod) if not n.startswith("_") and n not in ("np", "annotations"))
+
+    assert public(got) == public(want)
+    checked = 0
+    for name in public(want):
+        a, b = getattr(want, name), getattr(got, name)
+        if callable(a):
+            continue
+        if isinstance(a, dict):
+            assert a.keys() == b.keys()
+            for k in a:
+                np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]), err_msg=name)
+        else:
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=name)
+        checked += 1
+    assert checked >= 15
+    for fps in (5, 12, 24, 25, 30, 50, 60):
+        assert got.dynamic_step(fps) == want.dynamic_step(fps)
+
+
+@pytest.mark.parametrize("gap_frames", [1, 2])
+def test_tracker_copy_gives_same_ids(gap_frames):
+    """One seeded sequence of drifting, appearing and vanishing boxes through
+    both trackers: equal ids on every frame."""
+    from avcer_tpu.pipeline.tracker import IoUTracker as Want
+    from avcer_tpu_torch.pipeline.tracker import IoUTracker as Got
+
+    rng = np.random.default_rng(21)
+    want = Want(iou_threshold=0.4, minimum_face_size=10.0, gap_frames=gap_frames)
+    got = Got(iou_threshold=0.4, minimum_face_size=10.0, gap_frames=gap_frames)
+    centres = rng.uniform(50, 250, (5, 2))
+    sizes = rng.uniform(8, 60, 5)
+    seen = set()
+    for t in range(60):
+        centres += rng.normal(0, 6, centres.shape)
+        alive = rng.random(5) > 0.2
+        if t % 17 == 16:
+            alive[:] = False  # an empty frame clears every tracklet
+        boxes = np.array([[cx - s / 2, cy - s / 2, cx + s / 2, cy + s / 2, 0.9]
+                          for (cx, cy), s in zip(centres[alive], sizes[alive])]).reshape(-1, 5)
+        a, b = want(boxes.copy()), got(boxes.copy())
+        assert a == b, t
+        seen.update(i for i in b if i is not None)
+    assert len(seen) > 5
+
+
+def test_viz_copy_writes_the_plot(tmp_path):
+    pytest.importorskip("matplotlib")
+    from avcer_tpu_torch.utils import viz
+
+    series = {"AV": np.arange(20) % 7, "A": np.zeros(20, np.int64)}
+    out = tmp_path / "plot.jpg"
+    assert viz.plot_compound_expression_prediction(series, save_path=str(out)) is None
+    assert out.stat().st_size > 1000

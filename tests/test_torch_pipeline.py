@@ -29,7 +29,7 @@ from avcer_tpu.pipeline.runner import Pipeline as JaxPipeline
 from avcer_tpu_torch.core import convert
 from avcer_tpu_torch.models.retinaface import RetinaFace
 from avcer_tpu_torch.models.wav2vec2 import Wav2Vec2Config
-from avcer_tpu_torch.ops.cuda import nms_kernel
+from avcer_tpu_torch.ops.cuda import fused_resnet_kernel, nms_kernel
 from avcer_tpu_torch.pipeline.builder import build_pipeline
 from avcer_tpu_torch.pipeline.detect import DetectStage
 
@@ -113,11 +113,26 @@ def clip_runs(tmp_path_factory):
                           jax_variables=variables)
     pipe.detect = PortStubDetect()
     got = pipe.run(video, str(tmp / "out_port"))
-    return want, got, tmp
+
+    # the same clip with the visual fused switches on (the stub detector stays)
+    import dataclasses
+    fused_cfg = dataclasses.replace(
+        cfg, visual=dataclasses.replace(cfg.visual, fused=True, fused_entries=True))
+    fused_pipe = build_pipeline(fused_cfg, Wav2Vec2Config(**TINY_W2V2), device="cpu",
+                                jax_variables=variables)
+    fused_pipe.detect = PortStubDetect()
+    calls = []
+    inner = fused_resnet_kernel.fused_chain_plain
+    fused_resnet_kernel.fused_chain_plain = lambda *a, **k: (calls.append(1), inner(*a, **k))[1]
+    try:
+        fused = fused_pipe.run(video, str(tmp / "out_port_fused"))
+    finally:
+        fused_resnet_kernel.fused_chain_plain = inner
+    return want, got, tmp, fused, len(calls)
 
 
 def test_slice_outputs_match_jax(clip_runs):
-    want, got, _ = clip_runs
+    want, got = clip_runs[:2]
     assert got.total_frames == want.total_frames == N_FRAMES
     # f32 on both sides; bounds of the emotion CNN / LSTM / ExprModel parity tests
     np.testing.assert_allclose(got.stat_probs, want.stat_probs, atol=1e-4, rtol=1e-3)
@@ -133,7 +148,7 @@ def test_slice_compound_decisions_match_jax(clip_runs):
     compound probabilities lie within 1e-4 of each other without being equal:
     f32 rounding may pick either there. Exact ties (Rule 1 zeroes many pairs)
     resolve to the first index on both sides."""
-    want, got, _ = clip_runs
+    want, got = clip_runs[:2]
     top2 = np.sort(want.compound.av_prob[:, :7], axis=1)[:, -2:]
     gap = top2[:, 1] - top2[:, 0]
     decided = ~((gap > 0) & (gap <= 1e-4))
@@ -144,8 +159,35 @@ def test_slice_compound_decisions_match_jax(clip_runs):
     assert decided.mean() > 0.5
 
 
+def test_fused_slice_matches_unfused_and_jax(clip_runs):
+    """The clip with ``VisualConfig(fused=True, fused_entries=True)``: the
+    emotion CNN went through ``fused_chain`` (7 calls a forward, on the CPU
+    its plain version), and the outputs agree with the unfused port and with
+    the JAX run within the bounds of the unfused slice test; decisions are
+    equal except near-ties within 1e-4."""
+    want, got, tmp, fused, chain_calls = clip_runs
+    assert chain_calls > 0 and chain_calls % 7 == 0
+    for ref in (got, want):
+        np.testing.assert_allclose(fused.stat_probs, ref.stat_probs, atol=1e-4, rtol=1e-3)
+        np.testing.assert_allclose(fused.dyn_logits, ref.dyn_logits, atol=1e-3, rtol=1e-2)
+        np.testing.assert_allclose(fused.audio_window_logits, ref.audio_window_logits,
+                                   atol=5e-4, rtol=1e-3)
+        np.testing.assert_array_equal(fused.face_boxes, ref.face_boxes)
+        top2 = np.sort(ref.compound.av_prob[:, :7], axis=1)[:, -2:]
+        gap = top2[:, 1] - top2[:, 0]
+        decided = ~((gap > 0) & (gap <= 1e-4))
+        np.testing.assert_allclose(fused.compound.av_prob, ref.compound.av_prob, atol=1e-4)
+        for key in ("av", "vs", "vd", "a"):
+            np.testing.assert_array_equal(getattr(fused.compound, key)[decided],
+                                          getattr(ref.compound, key)[decided], err_msg=key)
+    files = sorted(str(p.relative_to(tmp / "out_port")) for p in (tmp / "out_port").rglob("*")
+                   if p.is_file())
+    assert files == sorted(str(p.relative_to(tmp / "out_port_fused"))
+                           for p in (tmp / "out_port_fused").rglob("*") if p.is_file())
+
+
 def test_slice_output_tree_matches_jax(clip_runs):
-    _, _, tmp = clip_runs
+    tmp = clip_runs[2]
     jax_out, port_out = tmp / "out_jax", tmp / "out_port"
     files = sorted(str(p.relative_to(jax_out)) for p in jax_out.rglob("*") if p.is_file())
     assert files == sorted(str(p.relative_to(port_out)) for p in port_out.rglob("*")
@@ -163,6 +205,29 @@ def test_slice_output_tree_matches_jax(clip_runs):
             b = (port_out / name).read_text().splitlines()
             assert len(a) == len(b) and a[0] == b[0]
             assert [r.split(",")[0] for r in a] == [r.split(",")[0] for r in b]
+
+
+def test_outputs_without_matplotlib(clip_runs, tmp_path, monkeypatch, caplog):
+    """Where matplotlib is not installed the CSVs and the compound txt are
+    still written; the plot is left out with a warning."""
+    from types import SimpleNamespace
+
+    import dataclasses
+    from avcer_tpu_torch.pipeline.runner import Pipeline
+
+    got = clip_runs[1]
+    cfg = dataclasses.replace(slice_config(str(tmp_path / "no_weights")), save_plot=True)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)  # import raises ImportError
+    with caplog.at_level("WARNING", logger="avcer_tpu_torch"):
+        Pipeline._save_outputs_impl(SimpleNamespace(cfg=cfg), got, str(tmp_path / "out"), pd)
+    files = sorted(str(p.relative_to(tmp_path / "out")) for p in (tmp_path / "out").rglob("*")
+                   if p.is_file())
+    assert len(files) == 4 and not any(f.endswith(".jpg") for f in files)
+    assert "matplotlib is not installed" in caplog.text
+    monkeypatch.undo()
+    pytest.importorskip("matplotlib")
+    Pipeline._save_outputs_impl(SimpleNamespace(cfg=cfg), got, str(tmp_path / "out"), pd)
+    assert (tmp_path / "out" / "pedicted_CEs_Rule 1.jpg").exists()
 
 
 def test_detect_stage_matches_jax():
@@ -191,25 +256,28 @@ def test_detect_stage_matches_jax():
 
 
 def test_import_guard_no_jax(tmp_path):
-    """The port imports neither jax nor flax: with both blocked, the CLI
-    module imports and a tiny CPU pipeline builds and runs one clip."""
+    """The port imports neither jax, flax nor anything of avcer_tpu: with all
+    three blocked, the CLI module imports and a tiny CPU pipeline builds and
+    runs one clip, fused switches on."""
     code = f"""
 import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["avcer_tpu"] = None
 import numpy as np, torch
 torch.set_num_threads(2)
 import avcer_tpu_torch.cli.run as cli
 from avcer_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 from avcer_tpu_torch.pipeline.builder import build_pipeline
 from avcer_tpu_torch.pipeline.media import ArrayReader
-cfg = cli.config_from_args(cli.parse_args(["--weights_dir", {str(tmp_path)!r}, "--long_side", "64"]))
+cfg = cli.config_from_args(cli.parse_args(["--weights_dir", {str(tmp_path)!r}, "--long_side", "64",
+                                                "--fused"]))
 pipe = build_pipeline(cfg, Wav2Vec2Config(**{TINY_W2V2!r}), device="cpu")
 frames = np.random.default_rng(0).integers(0, 255, (3, 48, 64, 3), dtype=np.uint8)
 clip = pipe.run(ArrayReader(frames, fps=25), "", wav=np.zeros(16000, np.float32))
 assert clip.stat_probs.shape == (3, 7) and np.isfinite(clip.audio_window_logits).all()
-assert not any(m == "jax" or m.startswith(("jax.", "flax")) for m in sys.modules
-               if sys.modules[m] is not None)
+assert not any(m in ("jax", "avcer_tpu") or m.startswith(("jax.", "flax", "avcer_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
 print("IMPORT_GUARD_OK")
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -220,7 +288,7 @@ print("IMPORT_GUARD_OK")
 def test_cli_rejects_unported_flags():
     import avcer_tpu_torch.cli.run as cli
 
-    for argv in (["--serving_profile", "int8"], ["--fused"], ["--data_parallel", "2"],
+    for argv in (["--serving_profile", "int8"], ["--data_parallel", "2"],
                  ["--heatmaps", "static"]):
         with pytest.raises(SystemExit):
             cli.parse_args(argv)
