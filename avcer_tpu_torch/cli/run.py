@@ -4,7 +4,10 @@
 The surface of ``avcer_tpu.cli.run`` (same core flags, same output tree, same
 final real-time-factor and throughput lines) for the parity profile: the
 RetinaFace-r50 detector at the 640 bucket, the emotion CNN and LSTM, and
-wav2vec2 + ExprModel V3. ``--fused`` runs the detector's and the emotion
+wav2vec2 + ExprModel V3; and for ``--serving_profile int8``: the same models
+with calibrated int8 convs and projections in all three stages and the
+audio conv feature extractor shared across a clip's overlapping windows
+(``--exact_audio`` keeps the per-window extraction). ``--fused`` runs the detector's and the emotion
 CNN's bottleneck chains and the detector's FPN, SSH modules and heads
 through the fused CUDA kernels (same weights, same outputs up to rounding).
 Flags for what the port does not run yet exit with an error that names the
@@ -25,7 +28,9 @@ from avcer_tpu_torch.core.config import (AudioConfig, DetectorConfig, FusionConf
                                          PipelineConfig, VisualConfig)
 
 NOT_PORTED = {
-    "serving_profile": "ROADMAP queue 1, serving presets (only 'parity' is ported)",
+    "serving_profile": "ROADMAP queue 1 item 12, serving presets: detect stride, the 448 "
+                       "bucket, cnn_stride and the mobilenet0.25 backbone (only 'parity' and "
+                       "'int8' are ported)",
     "data_parallel": "ROADMAP queue 1, parallelism",
     "heatmaps": "ROADMAP queue 1, other modules: Grad-CAM heatmaps",
 }
@@ -48,13 +53,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--serving_profile", default="parity",
                    choices=["parity", "balanced", "int8", "int8_s2", "int8_448",
                             "int8_448_s2", "fast", "turbo", "max"])
+    p.add_argument("--exact_audio", action="store_true",
+                   help="keep the per-window audio feature extraction on the int8 profile "
+                        "(turns the shared extractor off)")
     p.add_argument("--fused", action="store_true",
                    help="run the r50 detector's and the emotion CNN's bottleneck chains, and "
                         "the detector's FPN + SSH + heads, as fused CUDA kernels")
     p.add_argument("--data_parallel", type=int, default=1)
     p.add_argument("--heatmaps", choices=["", "static", "dynamic"], default="")
     a = p.parse_args(argv)
-    asked = {"serving_profile": a.serving_profile != "parity",
+    asked = {"serving_profile": a.serving_profile not in ("parity", "int8"),
              "data_parallel": a.data_parallel > 1, "heatmaps": bool(a.heatmaps)}
     for flag, hit in asked.items():
         if hit:
@@ -63,13 +71,17 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def config_from_args(a: argparse.Namespace) -> PipelineConfig:
+    quant = "int8" if a.serving_profile == "int8" else "none"
     return PipelineConfig(
         detector=DetectorConfig(
-            long_side=a.long_side, batch_size=32, transfer_format="bgr",
+            long_side=a.long_side, batch_size=32, transfer_format="bgr", quant=quant,
             fused_layer1=a.fused, fused_tails=a.fused, fused_entries=a.fused,
             fused_ssh=a.fused, fused_fpn=a.fused),
-        visual=VisualConfig(fused=a.fused, fused_entries=a.fused),
-        audio=AudioConfig(padding=a.audio_padding, step_sec=a.audio_step),
+        visual=VisualConfig(quant=quant, fused=a.fused, fused_entries=a.fused),
+        # every quantised profile shares the conv feature extractor across the
+        # windows unless --exact_audio
+        audio=AudioConfig(padding=a.audio_padding, step_sec=a.audio_step, quant=quant,
+                          shared_extractor=quant == "int8" and not a.exact_audio),
         fusion=FusionConfig(use_published_weights=not a.no_published_weights,
                             ce_weights_type=a.ce_weights_type, ce_mask=not a.no_ce_mask),
         weights_dir=a.weights_dir,

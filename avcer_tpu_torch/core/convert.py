@@ -9,6 +9,12 @@ reference torch modules' names, which the port's modules load with
 LIO) and torch's OIHW (OIL); a flax Dense kernel is the transpose of a torch
 Linear weight. The wav2vec2 positional conv arrives with its weight norm
 already fused (avcer_tpu/core/convert.py:167).
+
+``act_scales`` carries the calibrated int8 activation scales of a variable
+tree (its ``"act_scales"`` collection, one ``amax`` per quantised conv or
+dense) into ``{module path: amax}`` for ``models.layers.load_act_scales``,
+under the same path-to-name mapping as the weights. A tree without that
+collection gives ``None``: the modules stay uncalibrated.
 """
 
 from __future__ import annotations
@@ -32,7 +38,9 @@ class _SD:
     def __init__(self, variables: Tree):
         self.params = variables["params"]
         self.stats = variables.get("batch_stats", {})
+        self.scales = variables.get("act_scales")
         self.sd: StateDict = {}
+        self.names: dict[str, str] = {}  # flax path of a conv or dense -> torch module path
 
     @staticmethod
     def _get(root: Tree, path: str) -> Any:
@@ -45,18 +53,21 @@ class _SD:
 
     def conv2d(self, path: str, name: str, bias: bool = False) -> None:
         node = self.p(path)
+        self.names[path] = name
         self.sd[f"{name}.weight"] = _t(np.transpose(node["kernel"], (3, 2, 0, 1)))
         if bias:
             self.sd[f"{name}.bias"] = _t(node["bias"])
 
     def conv1d(self, path: str, name: str) -> None:
         node = self.p(path)
+        self.names[path] = name
         self.sd[f"{name}.weight"] = _t(np.transpose(node["kernel"], (2, 1, 0)))
         if "bias" in node:
             self.sd[f"{name}.bias"] = _t(node["bias"])
 
     def dense(self, path: str, name: str) -> None:
         node = self.p(path)
+        self.names[path] = name
         self.sd[f"{name}.weight"] = _t(np.transpose(node["kernel"]))
         if "bias" in node:
             self.sd[f"{name}.bias"] = _t(node["bias"])
@@ -74,8 +85,25 @@ class _SD:
         self.sd[f"{name}.running_var"] = _t(stats["var"])
         self.sd[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
+    def act_scales(self) -> dict[str, torch.Tensor] | None:
+        """``{torch module path: amax}`` from the tree's ``act_scales``
+        collection (call after the weights were walked), or None."""
+        if self.scales is None:
+            return None
+        out: dict[str, torch.Tensor] = {}
 
-def emotion_resnet50(variables: Tree) -> StateDict:
+        def walk(node: Tree, path: str) -> None:
+            if "amax" in node:
+                out[self.names[path]] = _t(node["amax"]).reshape(())
+                return
+            for key, child in node.items():
+                walk(child, f"{path}/{key}" if path else key)
+
+        walk(self.scales, "")
+        return out
+
+
+def _emotion_resnet50(variables: Tree) -> _SD:
     c = _SD(variables)
     c.conv2d("conv_stem", "conv_layer_s2_same")
     c.norm("batch_norm1", "batch_norm1")
@@ -90,10 +118,10 @@ def emotion_resnet50(variables: Tree) -> StateDict:
                 c.norm(f"{fp}/downsample_bn", f"{tp}.i_downsample.1")
     c.dense("fc1", "fc1")
     c.dense("fc2", "fc2")
-    return c.sd
+    return c
 
 
-def temporal_lstm(variables: Tree) -> StateDict:
+def _temporal_lstm(variables: Tree) -> _SD:
     c = _SD(variables)
     for name in ("lstm1", "lstm2"):
         for gate in ("ih", "hh"):
@@ -101,10 +129,10 @@ def temporal_lstm(variables: Tree) -> StateDict:
             c.sd[f"{name}.weight_{gate}_l0"] = _t(np.transpose(node["kernel"]))
             c.sd[f"{name}.bias_{gate}_l0"] = _t(node["bias"])
     c.dense("fc", "fc")
-    return c.sd
+    return c
 
 
-def retinaface(variables: Tree) -> StateDict:
+def _retinaface(variables: Tree) -> _SD:
     """RetinaFace-r50 (the mobilenet backbone is not ported yet)."""
     c = _SD(variables)
     c.conv2d("body/conv1", "body.conv1")
@@ -128,7 +156,7 @@ def retinaface(variables: Tree) -> StateDict:
     for i in range(3):
         for head in ("ClassHead", "BboxHead", "LandmarkHead"):
             c.conv2d(f"{head}_{i}", f"{head}.{i}.conv1x1", bias=True)
-    return c.sd
+    return c
 
 
 def _wav2vec2(c: _SD, fp: str, tp: str) -> None:
@@ -165,7 +193,7 @@ def _transformer_layer(c: _SD, fp: str, tp: str) -> None:
         c.dense(f"{fp}/feed_forward/{n}", f"{tp}.feed_forward.{n}")
 
 
-def expr_model(variables: Tree) -> StateDict:
+def _expr_model(variables: Tree) -> _SD:
     """ExprModel V3 with its wav2vec2 (V1's GRU is not ported yet)."""
     c = _SD(variables)
     _wav2vec2(c, "wav2vec2", "wav2vec2")
@@ -176,7 +204,38 @@ def expr_model(variables: Tree) -> StateDict:
     c.conv1d("time_downsample/conv2", "time_downsample.4")
     c.norm("time_downsample/bn2", "time_downsample.5")
     c.dense("feature_downsample", "feature_downsample")
-    return c.sd
+    return c
+
+
+_WALKERS = {
+    "retinaface": _retinaface,
+    "emotion_resnet50": _emotion_resnet50,
+    "temporal_lstm": _temporal_lstm,
+    "expr_model": _expr_model,
+}
+
+
+def retinaface(variables: Tree) -> StateDict:
+    return _retinaface(variables).sd
+
+
+def emotion_resnet50(variables: Tree) -> StateDict:
+    return _emotion_resnet50(variables).sd
+
+
+def temporal_lstm(variables: Tree) -> StateDict:
+    return _temporal_lstm(variables).sd
+
+
+def expr_model(variables: Tree) -> StateDict:
+    return _expr_model(variables).sd
+
+
+def act_scales(family: str, variables: Tree) -> dict[str, torch.Tensor] | None:
+    """The calibrated int8 activation scales of ``variables`` for the port's
+    model of ``family`` (``models.layers.load_act_scales``), or None when the
+    tree has no ``act_scales`` collection."""
+    return _WALKERS[family](variables).act_scales()
 
 
 CONVERTERS = {

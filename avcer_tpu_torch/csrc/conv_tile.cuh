@@ -23,12 +23,26 @@
 // neighbouring output channels at a time into the stored values: round to
 // the compute type, times inv, plus shift (each rounded, no FMA across
 // them), activation, mask, residual.
+//
+// The int8 mode (Q): the weights arrive as int8 with per-channel scales
+// folded into `mult`, the activations stay in the compute type T in device
+// memory (one block input feeds convs with different scales, and the
+// residual, so it cannot be kept as int8). Before each conv the thread block
+// quantises that conv's input rows once, with the conv's static scale (true
+// f32 division, round half to even, clip to +-127), into an int8 plane of its
+// scratch; the product then reads int8 rows exactly as the other modes read
+// theirs. The eight warps multiply int8 x int8 -> int32 on the tensor cores
+// (wmma m16n16k16, signed char), the sums are exact, and the epilogue is one
+// f32 multiply by `mult` and one f32 add of `shift` (no FMA across them),
+// rounded once to T.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include <type_traits>
 
 namespace avcer {
 
@@ -79,19 +93,34 @@ __device__ __forceinline__ T activate(T v, int act, T leaky) {
   return f >= 0.0f ? v : Num<T>::mul(v, leaky);
 }
 
-template <typename T>
+// (w, inv, shift) of one folded conv; in the int8 mode (wq int8, mult f32,
+// shift f32).
+struct ConvW {
+  const void* w;
+  const void* inv;
+  const void* shift;
+};
+
+// Shared-memory layout of the product for operands of type Op (float, bf16
+// or, in the int8 mode, signed char).
+template <typename Op>
 struct Tile {
-  static constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte access
-  static constexpr int kBK = 128 / sizeof(T);  // input channels per shared-memory slab
-  static constexpr int kAS = kBK + kVec;       // padded row strides
+  static constexpr bool kInt8 = sizeof(Op) == 1;
+  static constexpr int kVec = 16 / sizeof(Op);  // elements per 16-byte access
+  static constexpr int kBK = kInt8 ? 64 : 128 / sizeof(Op);  // input channels per slab
+  static constexpr int kAS = kBK + kVec;        // padded row strides
   static constexpr int kBS = kBN + kVec;
   static constexpr int kCS = kBN + 4;
-  static constexpr size_t kABytes = 2 * sizeof(T) * kBM * kAS;  // two slabs in flight
-  static constexpr size_t kBBytes = 2 * sizeof(T) * kBK * kBS;
-  static constexpr size_t kCBytes = sizeof(float) * kBM * kCS;
+  static constexpr size_t kABytes = 2 * sizeof(Op) * kBM * kAS;  // two slabs in flight
+  static constexpr size_t kBBytes = 2 * sizeof(Op) * kBK * kBS;
+  static constexpr size_t kCBytes = sizeof(float) * kBM * kCS;  // f32 or int32 sums
   static constexpr size_t kRowBytes = sizeof(int) * (kMaxTaps + 1) * kBM;
   static constexpr size_t kBytes = kABytes + kBBytes + kCBytes + kRowBytes;
 };
+
+// The operand type of a kernel that computes in T.
+template <typename T, bool Q>
+using OpOf = std::conditional_t<Q, signed char, T>;
 
 // 16 bytes from device memory to shared memory without passing through
 // registers (cp.async, read through L2); zeros where `valid` is false.
@@ -138,7 +167,43 @@ __device__ __forceinline__ Vec<T> fold_bn_vec(const float* acc, const T* inv, co
   return out;
 }
 
-// The accumulators of one 128 x 64 tile, spread over the block.
+// layers.int8_conv's activation quantisation with a static scale.
+__device__ __forceinline__ signed char quantize(float x, float sx) {
+  const float q = rintf(__fdiv_rn(x, sx));  // round half to even
+  return static_cast<signed char>(static_cast<int>(fminf(fmaxf(q, -127.0f), 127.0f)));
+}
+
+// The int8 mode's epilogue for the channels n .. n + kVec: the int32 sums
+// (passed as the bits of `acc`) times mult plus shift in f32, rounded once to
+// T, then the activation.
+template <typename T>
+__device__ __forceinline__ Vec<T> fold_q_vec(const float* acc, const float* mult,
+                                             const float* shift, int act, T leaky, bool keep) {
+  const int* sums = reinterpret_cast<const int*>(acc);
+  Vec<T> out;
+#pragma unroll
+  for (int j = 0; j < Tile<T>::kVec; ++j) {
+    const float y = __fadd_rn(__fmul_rn(__int2float_rn(sums[j]), mult[j]), shift[j]);
+    out.v[j] = keep ? activate<T>(Num<T>::from_f32(y), act, leaky) : Num<T>::from_f32(0.0f);
+  }
+  return out;
+}
+
+// act(bn(acc)) for the channels n .. n + kVec of conv `cw`, in either mode.
+template <typename T, bool Q>
+__device__ __forceinline__ Vec<T> fold_vec(const float* acc, const ConvW& cw, int n, int act,
+                                           T leaky, bool keep = true) {
+  if constexpr (Q) {
+    return fold_q_vec<T>(acc, static_cast<const float*>(cw.inv) + n,
+                         static_cast<const float*>(cw.shift) + n, act, leaky, keep);
+  } else {
+    return fold_bn_vec<T>(acc, static_cast<const T*>(cw.inv) + n,
+                          static_cast<const T*>(cw.shift) + n, act, leaky, keep);
+  }
+}
+
+// The accumulators of one 128 x 64 tile, spread over the block. `Op` is the
+// operand type: float, bf16 or, in the int8 mode, signed char.
 template <typename T>
 struct Acc;
 
@@ -219,23 +284,69 @@ struct Acc<__nv_bfloat16> {
   }
 };
 
+template <>
+struct Acc<signed char> {
+  using L = Tile<signed char>;
+  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, int> c[2][2];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(c[i][j], 0);
+  }
+  __device__ __forceinline__ void step(const signed char* as, const signed char* bs) {
+    namespace w = nvcuda::wmma;
+    const int warp = threadIdx.x / 32;
+    const int wm = warp % 4, wn = warp / 4;
+#pragma unroll
+    for (int ks = 0; ks < L::kBK; ks += 16) {
+      w::fragment<w::matrix_a, 16, 16, 16, signed char, w::row_major> a[2];
+      w::fragment<w::matrix_b, 16, 16, 16, signed char, w::row_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        w::load_matrix_sync(a[i], as + (wm * 32 + i * 16) * L::kAS + ks, L::kAS);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        w::load_matrix_sync(b[j], bs + ks * L::kBS + wn * 32 + j * 16, L::kBS);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) w::mma_sync(c[i][j], a[i], b[j], c[i][j]);
+    }
+  }
+  __device__ __forceinline__ void store(float* cs) {
+    namespace w = nvcuda::wmma;
+    const int warp = threadIdx.x / 32;
+    const int wm = warp % 4, wn = warp / 4;
+    int* ci = reinterpret_cast<int*>(cs);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        w::store_matrix_sync(ci + (wm * 32 + i * 16) * L::kCS + wn * 32 + j * 16, c[i][j],
+                             L::kCS, w::mem_row_major);
+  }
+};
+
 // epi(m, n, acc, infofn(m)) for m < M and every n < N that is a multiple of
-// kVec, by the whole block, where acc[j] = sum_tap sum_k a[rowfn(m, tap), k] *
-// w[tap, k, n + j] for j < kVec: `epi` stores those kVec results; `infofn(m)`
-// is one int per pixel (a mask, a destination row), worked out once per
-// pixel and not once per output element. `a` holds rows of `lda` elements (K of
-// them used); it may be memory this block wrote before the call, so it is
-// read through L2 and never through the read-only path. `w` is [taps, K, N], read-only for the kernel. K, N
-// and lda are multiples of 16 bytes' worth of elements. Ends with a barrier:
-// what `epi` stored is visible to the whole block on return.
-template <typename T, typename RowFn, typename InfoFn, typename EpiFn>
-__device__ void block_gemm(const T* a, int lda, int K, const T* __restrict__ w, int N, int taps,
+// EV, by the whole block, where acc[j] = sum_tap sum_k a[rowfn(m, tap), k] *
+// w[tap, k, n + j] for j < EV: `epi` stores those EV results (EV: the compute
+// type's elements per 16 bytes); `infofn(m)` is one int per pixel (a mask, a
+// destination row), worked out once per pixel and not once per output
+// element. `a` holds rows of `lda` elements (K of them used); it may be
+// memory this block wrote before the call, so it is read through L2 and
+// never through the read-only path. `w` is [taps, K, N], read-only for the
+// kernel. K, N and lda are multiples of 16 bytes' worth of elements. For int8
+// operands `acc` holds the bits of int32 sums (fold_vec reads either). Ends
+// with a barrier: what `epi` stored is visible to the whole block on return.
+template <typename Op, int EV, typename RowFn, typename InfoFn, typename EpiFn>
+__device__ void block_gemm(const Op* a, int lda, int K, const Op* __restrict__ w, int N, int taps,
                            int M, unsigned char* smem, RowFn rowfn, InfoFn infofn, EpiFn epi) {
-  using L = Tile<T>;
+  using L = Tile<Op>;
   constexpr int V = L::kVec;
   constexpr int kBK = L::kBK;
-  T* as = reinterpret_cast<T*>(smem);
-  T* bs = reinterpret_cast<T*>(smem + L::kABytes);
+  Op* as = reinterpret_cast<Op*>(smem);
+  Op* bs = reinterpret_cast<Op*>(smem + L::kABytes);
   float* cs = reinterpret_cast<float*>(smem + L::kABytes + L::kBBytes);
   int* rows = reinterpret_cast<int*>(smem + L::kABytes + L::kBBytes + L::kCBytes);
   int* infos = rows + kMaxTaps * kBM;
@@ -249,7 +360,7 @@ __device__ void block_gemm(const T* a, int lda, int K, const T* __restrict__ w, 
     for (int i = tid; i < kBM; i += kThreads) infos[i] = m0 + i < M ? infofn(m0 + i) : 0;
     __syncthreads();
     for (int n0 = 0; n0 < N; n0 += kBN) {
-      Acc<T> acc;
+      Acc<Op> acc;
       acc.zero();
       // two operand slabs in flight: slab s + 1 is copied (cp.async, 16 bytes
       // a thread, zero-filled where the conv reads padding) while slab s is
@@ -258,8 +369,8 @@ __device__ void block_gemm(const T* a, int lda, int K, const T* __restrict__ w, 
       const int steps = taps * ksteps;
       auto fetch = [&](int step) {
         const int tap = step / ksteps, k0 = (step % ksteps) * kBK;
-        T* ad = as + (step & 1) * (kBM * L::kAS);
-        T* bd = bs + (step & 1) * (kBK * L::kBS);
+        Op* ad = as + (step & 1) * (kBM * L::kAS);
+        Op* bd = bs + (step & 1) * (kBK * L::kBS);
         constexpr int kAChunks = kBK / V;  // 16-byte chunks per A row
         for (int c = tid; c < kBM * kAChunks; c += kThreads) {
           const int i = c / kAChunks, kc = (c % kAChunks) * V;
@@ -290,12 +401,59 @@ __device__ void block_gemm(const T* a, int lda, int K, const T* __restrict__ w, 
       }
       acc.store(cs);
       __syncthreads();
-      for (int idx = tid; idx < kBM * (kBN / V); idx += kThreads) {
-        const int i = idx / (kBN / V), j = (idx % (kBN / V)) * V;
+      for (int idx = tid; idx < kBM * (kBN / EV); idx += kThreads) {
+        const int i = idx / (kBN / EV), j = (idx % (kBN / EV)) * EV;
         if (m0 + i < M && n0 + j < N) epi(m0 + i, n0 + j, cs + i * L::kCS + j, infos[i]);
       }
       __syncthreads();
     }
+  }
+}
+
+// One convolution of a fused kernel, in either mode. The conv's input is R
+// rows: row r is row `gather(r)` of `a` (rows of `lda` elements, K used), or
+// zeros where that is -1; output pixel m reads input row `rowfn(m, tap)`
+// (-1: zero padding); `w`, N, taps, M, `infofn` and `epi` as for block_gemm.
+// Exact mode: the product reads `a` through both maps. int8 mode: the block
+// first quantises the R input rows with the scale `sx` into `qbuf` (R x K
+// int8, K a multiple of 16), then the product reads those.
+template <typename T, bool Q, typename GatherFn, typename RowFn, typename InfoFn, typename EpiFn>
+__device__ void conv_gemm(const T* a, int lda, int K, int R, GatherFn gather, signed char* qbuf,
+                          float sx, const void* w, int N, int taps, int M, unsigned char* smem,
+                          RowFn rowfn, InfoFn infofn, EpiFn epi) {
+  constexpr int EV = 16 / sizeof(T);
+  if constexpr (Q) {
+    const int chunks = K / 16;
+    for (int idx = threadIdx.x; idx < R * chunks; idx += kThreads) {
+      const int r = idx / chunks, c = (idx % chunks) * 16;
+      const int row = gather(r);
+      union {
+        int4 bits;
+        signed char q[16];
+      } u;
+      u.bits = make_int4(0, 0, 0, 0);
+      if (row >= 0) {
+        const T* src = a + static_cast<size_t>(row) * lda + c;
+#pragma unroll
+        for (int v = 0; v < 16 / EV; ++v) {
+          const Vec<T> x = load_vec(src + v * EV);
+#pragma unroll
+          for (int j = 0; j < EV; ++j) u.q[v * EV + j] = quantize(Num<T>::to_f32(x.v[j]), sx);
+        }
+      }
+      *reinterpret_cast<int4*>(qbuf + static_cast<size_t>(r) * K + c) = u.bits;
+    }
+    __syncthreads();
+    block_gemm<signed char, EV>(qbuf, K, K, static_cast<const signed char*>(w), N, taps, M, smem,
+                                rowfn, infofn, epi);
+  } else {
+    block_gemm<T, EV>(
+        a, lda, K, static_cast<const T*>(w), N, taps, M, smem,
+        [=](int m, int tap) {
+          const int r = rowfn(m, tap);
+          return r < 0 ? -1 : gather(r);
+        },
+        infofn, epi);
   }
 }
 

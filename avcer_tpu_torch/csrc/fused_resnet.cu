@@ -47,6 +47,23 @@
 // PyTorch sees, and one call is one launch. Small frames (32 x 32 and
 // under) are one tile; G frames share a work item so that its pixels fill
 // the 128-row product tiles.
+//
+// The int8 mode (avcer_fused_chain_q; the TPU kernel's act_s): every conv
+// multiplies int8 weights with activations quantised by that conv's static
+// scale, sums in int32 and applies one f32 multiply and add (conv_tile.cuh).
+// Activations stay in the compute type between convs: the out-of-frame zeros,
+// the residual and both readers of a block's input (conv1 and the projection,
+// each with its own scale) need them so; each conv's input is quantised once
+// into an int8 plane of the thread block's scratch. The scales are consumed
+// in the TPU kernel's order: conv1, conv2, conv3, then the projection, per
+// block.
+//
+// avcer_fused_chain_flat replaces the TPU kernel fused_chain_flat (body
+// _kernel_flat) of the same file: the stride-1 chains over a band of whole
+// padded rows, flattened to (rows * pitch) pixels by the caller, with the 3x3
+// taps as row offsets into that flat band, the in-frame mask passed in, and
+// the output left flat for the caller to unflatten. It shares every device
+// routine with the kernel above, so in f32 the two agree bit for bit.
 
 #include "conv_tile.cuh"
 
@@ -57,15 +74,10 @@ using namespace avcer;
 constexpr int kMaxBlocks = 6;
 enum Kind { kId = 0, kDs = 1, kS2ds = 2, kS2pre = 3 };
 
-struct ConvW {
-  const void* w;
-  const void* inv;
-  const void* shift;
-};
-
 struct BlockW {
   ConvW c1, c2, c3, ds;
   int kind, cin, planes;
+  int s0;  // int8 mode: index of conv1's scale in act_s
 };
 
 struct ChainP {
@@ -74,7 +86,9 @@ struct ChainP {
   const void* x;
   void* out;
   void* scratch;
-  long long slab;  // elements of scratch per thread block
+  const float* act_s;  // int8 mode: one static activation scale per conv
+  long long slab;   // elements of scratch per thread block
+  long long qslab;  // int8 mode: bytes of the quantised plane per thread block
   int B, H, W, cout;
   int Ho, Wo;      // the chain's resolution (after a stride-2 entry)
   int TH, TW, tiles_y, tiles_x, G;
@@ -84,7 +98,7 @@ struct ChainP {
   int nwork;
 };
 
-template <typename T>
+template <typename T, bool Q>
 __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int V = Tile<T>::kVec;
@@ -96,8 +110,14 @@ __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
   T* cur = static_cast<T*>(p.scratch) + static_cast<size_t>(blockIdx.x) * p.slab;
   T* t1 = cur + static_cast<size_t>(p.G) * PR * cout;
   T* t2 = t1 + static_cast<size_t>(p.G) * PR1 * p.planes_max;
+  // the int8 planes follow the slabs of all thread blocks
+  signed char* qbuf = reinterpret_cast<signed char*>(static_cast<T*>(p.scratch) +
+                                                     static_cast<size_t>(gridDim.x) * p.slab) +
+                      static_cast<size_t>(blockIdx.x) * p.qslab;
   const T zero = Num<T>::from_f32(0.0f);
   const int tiles = p.tiles_y * p.tiles_x;
+  auto same = [](int r) { return r; };
+  auto same_tap = [](int m, int) { return m; };
 
   for (int work = blockIdx.x; work < p.nwork; work += gridDim.x) {
     const int b0 = (work / tiles) * p.G;
@@ -124,16 +144,14 @@ __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
       const BlockW& bw = p.blk[k];
       const int kind = bw.kind, cin = bw.cin, pl = bw.planes;
       const bool first = k == 0, last = k == p.nblocks - 1;
-      const T* w1 = static_cast<const T*>(bw.c1.w);
-      const T* i1 = static_cast<const T*>(bw.c1.inv);
-      const T* s1 = static_cast<const T*>(bw.c1.shift);
-      const T* w2 = static_cast<const T*>(bw.c2.w);
-      const T* i2 = static_cast<const T*>(bw.c2.inv);
-      const T* s2 = static_cast<const T*>(bw.c2.shift);
-      const T* w3 = static_cast<const T*>(bw.c3.w);
-      const T* i3 = static_cast<const T*>(bw.c3.inv);
-      const T* s3 = static_cast<const T*>(bw.c3.shift);
+      const ConvW c1 = bw.c1, c2 = bw.c2, c3 = bw.c3, cd = bw.ds;
       const int s = (kind == kS2ds || kind == kS2pre) ? 2 : 1;
+      // the static scale of the block's conv `i` (0 conv1, 1 conv2, 2 conv3,
+      // 3 the projection)
+      auto sx = [&](int i) -> float {
+        if constexpr (Q) return __ldg(p.act_s + bw.s0 + i);
+        return 0.0f;
+      };
 
       if (first && kind == kId) {
         // the chain's input region into `cur`, zero outside the frame
@@ -151,69 +169,65 @@ __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
 
       if (kind != kId) {
         // projection residual bn(conv1x1(x)) -> cur
-        const T* wd = static_cast<const T*>(bw.ds.w);
-        const T* id = static_cast<const T*>(bw.ds.inv);
-        const T* sd = static_cast<const T*>(bw.ds.shift);
-        block_gemm<T>(
-            x, cin, cin, wd, cout, 1, M, smem, [=](int m, int) { return xrow(m, s); },
-            [](int) { return 0; },
+        conv_gemm<T, Q>(
+            x, cin, cin, M, [=](int r) { return xrow(r, s); }, qbuf, sx(3), cd.w, cout, 1, M, smem,
+            same_tap, [](int) { return 0; },
             [=](int m, int n, const float* acc, int) {
               store_vec(cur + static_cast<size_t>(m) * cout + n,
-                        fold_bn_vec<T>(acc, id + n, sd + n, kLinear, zero));
+                        fold_vec<T, Q>(acc, cd, n, kLinear, zero));
             });
       }
 
       // conv1 (1x1) -> t1, zero outside the frame
       if (kind == kS2ds) {
-        auto row1 = [=](int m, int) -> int {
+        auto row1 = [=](int m) -> int {
           const int q = m % PR1;
           const int yi = 2 * y0 - 1 + q / RW1, xi = 2 * x0 - 1 + q % RW1;
           if (yi < 0 || yi >= H || xi < 0 || xi >= W) return -1;
           return ((b0 + m / PR1) * H + yi) * W + xi;
         };
-        block_gemm<T>(x, cin, cin, w1, pl, 1, gc * PR1, smem, row1,
-                      [=](int m) { return static_cast<int>(row1(m, 0) >= 0); },
-                      [=](int m, int n, const float* acc, int ok) {
-                        store_vec(t1 + static_cast<size_t>(m) * pl + n,
-                                  fold_bn_vec<T>(acc, i1 + n, s1 + n, kRelu, zero, ok));
-                      });
+        conv_gemm<T, Q>(x, cin, cin, gc * PR1, row1, qbuf, sx(0), c1.w, pl, 1, gc * PR1, smem,
+                        same_tap, [=](int m) { return static_cast<int>(row1(m) >= 0); },
+                         [=](int m, int n, const float* acc, int ok) {
+                           store_vec(t1 + static_cast<size_t>(m) * pl + n,
+                                     fold_vec<T, Q>(acc, c1, n, kRelu, zero, ok));
+                         });
       } else {
         auto ok1 = [=](int m) { return static_cast<int>(inframe(m)); };
         auto epi1 = [=](int m, int n, const float* acc, int ok) {
           store_vec(t1 + static_cast<size_t>(m) * pl + n,
-                    fold_bn_vec<T>(acc, i1 + n, s1 + n, kRelu, zero, ok));
+                    fold_vec<T, Q>(acc, c1, n, kRelu, zero, ok));
         };
         if (kind == kId)
-          block_gemm<T>(cur, cout, cin, w1, pl, 1, M, smem, [=](int m, int) { return m; }, ok1,
-                        epi1);
+          conv_gemm<T, Q>(cur, cout, cin, M, same, qbuf, sx(0), c1.w, pl, 1, M, smem, same_tap,
+                          ok1, epi1);
         else
-          block_gemm<T>(x, cin, cin, w1, pl, 1, M, smem,
-                        [=](int m, int) { return xrow(m, s); }, ok1, epi1);
+          conv_gemm<T, Q>(x, cin, cin, M, [=](int r) { return xrow(r, s); }, qbuf, sx(0), c1.w,
+                          pl, 1, M, smem, same_tap, ok1, epi1);
       }
 
       // conv2 (3x3) -> t2
       auto none = [](int) { return 0; };
       auto epi2 = [=](int m, int n, const float* acc, int) {
-        store_vec(t2 + static_cast<size_t>(m) * pl + n,
-                  fold_bn_vec<T>(acc, i2 + n, s2 + n, kRelu, zero));
+        store_vec(t2 + static_cast<size_t>(m) * pl + n, fold_vec<T, Q>(acc, c2, n, kRelu, zero));
       };
       if (kind == kS2ds) {
-        block_gemm<T>(t1, pl, pl, w2, pl, 9, M, smem,
-                      [=](int m, int tap) {
-                        const int q = m % PR;
-                        return (m / PR) * PR1 + (2 * (q / RW) + tap / 3) * RW1 + 2 * (q % RW) +
-                               tap % 3;
-                      },
-                      none, epi2);
+        conv_gemm<T, Q>(t1, pl, pl, gc * PR1, same, qbuf, sx(1), c2.w, pl, 9, M, smem,
+                        [=](int m, int tap) {
+                          const int q = m % PR;
+                          return (m / PR) * PR1 + (2 * (q / RW) + tap / 3) * RW1 +
+                                 2 * (q % RW) + tap % 3;
+                        },
+                        none, epi2);
       } else {
-        block_gemm<T>(t1, pl, pl, w2, pl, 9, M, smem,
-                      [=](int m, int tap) {
-                        const int q = m % PR;
-                        const int r = q / RW + tap / 3 - 1, c = q % RW + tap % 3 - 1;
-                        if (r < 0 || r >= RH || c < 0 || c >= RW) return -1;
-                        return m + (tap / 3 - 1) * RW + tap % 3 - 1;
-                      },
-                      none, epi2);
+        conv_gemm<T, Q>(t1, pl, pl, M, same, qbuf, sx(1), c2.w, pl, 9, M, smem,
+                        [=](int m, int tap) {
+                          const int q = m % PR;
+                          const int r = q / RW + tap / 3 - 1, c = q % RW + tap % 3 - 1;
+                          if (r < 0 || r >= RH || c < 0 || c >= RW) return -1;
+                          return m + (tap / 3 - 1) * RW + tap % 3 - 1;
+                        },
+                        none, epi2);
       }
 
       // conv3 (1x1) + residual -> cur, or the tile proper -> out
@@ -227,54 +241,147 @@ __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
         if (yo >= Ho || xo >= Wo) return -1;
         return ((b0 + m / PR) * Ho + yo) * Wo + xo;
       };
-      block_gemm<T>(t2, pl, pl, w3, cout, 1, M, smem, [=](int m, int) { return m; }, outrow,
-                    [=](int m, int n, const float* acc, int orow) {
-                      if (last && orow < 0) return;
-                      T* res = cur + static_cast<size_t>(m) * cout + n;
-                      Vec<T> v = fold_bn_vec<T>(acc, i3 + n, s3 + n, kLinear, zero);
-                      const Vec<T> r = load_vec(res);
+      conv_gemm<T, Q>(t2, pl, pl, M, same, qbuf, sx(2), c3.w, cout, 1, M, smem, same_tap,
+                      outrow, [=](int m, int n, const float* acc, int orow) {
+                         if (last && orow < 0) return;
+                         T* res = cur + static_cast<size_t>(m) * cout + n;
+                         Vec<T> v = fold_vec<T, Q>(acc, c3, n, kLinear, zero);
+                         const Vec<T> r = load_vec(res);
 #pragma unroll
-                      for (int j = 0; j < V; ++j)
-                        v.v[j] = activate<T>(Num<T>::add(v.v[j], r.v[j]), kRelu, zero);
-                      store_vec(last ? out + static_cast<size_t>(orow) * cout + n : res, v);
-                    });
+                         for (int j = 0; j < V; ++j)
+                           v.v[j] = activate<T>(Num<T>::add(v.v[j], r.v[j]), kRelu, zero);
+                         store_vec(last ? out + static_cast<size_t>(orow) * cout + n : res, v);
+                       });
     }
   }
 }
 
+struct FlatP {
+  BlockW blk[kMaxBlocks];
+  int nblocks;
+  const void* xp;     // [B, (hp + 2n) * pitch, cin]: the padded input, flat
+  const float* mask;  // [nb, rows * pitch]: 1 inside the frame, 0 outside
+  void* out;          // [B, hp * pitch, cout]: flat
+  void* scratch;
+  long long slab;
+  int B, nb, th, n, pitch, hp, cin, cout, planes_max;
+};
+
+// One work item is one band of one frame: M = (th + 2n) * pitch flat pixels.
 template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) chain_flat_kernel(const FlatP p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int V = Tile<T>::kVec;
+  const int pitch = p.pitch, cout = p.cout;
+  const int M = (p.th + 2 * p.n) * pitch;
+  T* cur = static_cast<T*>(p.scratch) + static_cast<size_t>(blockIdx.x) * p.slab;
+  T* t1 = cur + static_cast<size_t>(M) * cout;
+  T* t2 = t1 + static_cast<size_t>(M) * p.planes_max;
+  const T zero = Num<T>::from_f32(0.0f);
+
+  for (int work = blockIdx.x; work < p.B * p.nb; work += gridDim.x) {
+    const int b = work / p.nb, rb = work % p.nb;
+    // the band is one contiguous slice of the flat padded frame
+    const T* xb = static_cast<const T*>(p.xp) +
+                  (static_cast<size_t>(b) * (p.hp + 2 * p.n) + rb * p.th) * pitch * p.cin;
+    const float* mk = p.mask + static_cast<size_t>(rb) * M;
+    T* ob = static_cast<T*>(p.out) +
+            (static_cast<size_t>(b) * p.hp + rb * p.th) * pitch * cout;
+    auto same = [](int r) { return r; };
+    auto same_tap = [](int m, int) { return m; };
+    auto none = [](int) { return 0; };
+    // a conv of the exact mode over the band's M rows
+    auto conv = [&](const T* a, int lda, int K, const ConvW& cw, int N, int taps, auto rowfn,
+                    auto infofn, auto epi) {
+      conv_gemm<T, false>(a, lda, K, M, same, nullptr, 0.0f, cw.w, N, taps, M, smem, rowfn,
+                          infofn, epi);
+    };
+
+    for (int k = 0; k < p.nblocks; ++k) {
+      const BlockW& bw = p.blk[k];
+      const int kind = bw.kind, cin = bw.cin, pl = bw.planes;
+      const bool first = k == 0, last = k == p.nblocks - 1;
+      const ConvW c1 = bw.c1, c2 = bw.c2, c3 = bw.c3, cd = bw.ds;
+      const T* src = first ? xb : cur;
+      const int lds = first ? p.cin : cout;
+
+      if (first && kind == kId) {
+        for (int idx = threadIdx.x; idx < M * (cout / V); idx += kThreads)
+          reinterpret_cast<int4*>(cur)[idx] = reinterpret_cast<const int4*>(xb)[idx];
+        __syncthreads();
+      }
+      if (kind == kDs)
+        conv(src, lds, cin, cd, cout, 1, same_tap, none,
+             [=](int m, int n, const float* acc, int) {
+               store_vec(cur + static_cast<size_t>(m) * cout + n,
+                         fold_vec<T, false>(acc, cd, n, kLinear, zero));
+             });
+      // conv1, times the frame mask
+      conv(src, lds, cin, c1, pl, 1, same_tap,
+           [=](int m) { return static_cast<int>(mk[m] != 0.0f); },
+           [=](int m, int n, const float* acc, int ok) {
+             store_vec(t1 + static_cast<size_t>(m) * pl + n,
+                       fold_vec<T, false>(acc, c1, n, kRelu, zero, ok));
+           });
+      // conv2: tap (ky, kx) is the flat row m + (ky - 1) * pitch + (kx - 1) of
+      // the band extended with zeros at both ends
+      conv(t1, pl, pl, c2, pl, 9,
+           [=](int m, int tap) {
+             const int r = m + (tap / 3 - 1) * pitch + tap % 3 - 1;
+             return r >= 0 && r < M ? r : -1;
+           },
+           none, [=](int m, int n, const float* acc, int) {
+             store_vec(t2 + static_cast<size_t>(m) * pl + n,
+                       fold_vec<T, false>(acc, c2, n, kRelu, zero));
+           });
+      // conv3 + residual -> cur, or the central th rows -> out, still flat
+      const int lo = p.n * pitch, hi = (p.n + p.th) * pitch;
+      conv(t2, pl, pl, c3, cout, 1, same_tap,
+           [=](int m) { return m >= lo && m < hi ? m - lo : -1; },
+           [=](int m, int n, const float* acc, int orow) {
+             if (last && orow < 0) return;
+             T* res = cur + static_cast<size_t>(m) * cout + n;
+             Vec<T> v = fold_vec<T, false>(acc, c3, n, kLinear, zero);
+             const Vec<T> r = load_vec(res);
+#pragma unroll
+             for (int j = 0; j < V; ++j)
+               v.v[j] = activate<T>(Num<T>::add(v.v[j], r.v[j]), kRelu, zero);
+             store_vec(last ? ob + static_cast<size_t>(orow) * cout + n : res, v);
+           });
+    }
+  }
+}
+
+template <typename T, bool Q>
 int launch(const ChainP& p, int grid, cudaStream_t stream) {
-  const int smem = static_cast<int>(Tile<T>::kBytes);
-  cudaError_t err = cudaFuncSetAttribute(chain_kernel<T>,
+  const int smem = static_cast<int>(Tile<OpOf<T, Q>>::kBytes);
+  cudaError_t err = cudaFuncSetAttribute(chain_kernel<T, Q>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  chain_kernel<T><<<grid, kThreads, smem, stream>>>(p);
+  chain_kernel<T, Q><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+template <typename T>
+int launch_flat(const FlatP& p, int grid, cudaStream_t stream) {
+  const int smem = static_cast<int>(Tile<T>::kBytes);
+  cudaError_t err = cudaFuncSetAttribute(chain_flat_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  chain_flat_kernel<T><<<grid, kThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
 
-// x [B, H, W, cin] and out [B, Ho, Wo, cout] NHWC contiguous; dtype 0 =
-// float32, 1 = bfloat16. wptrs: 12 pointers per block (w, inv, shift of
-// conv1, conv2, conv3 and the projection; the last three null for "id"),
-// w matmul-shaped [ci, co] or [3, 3, ci, co]. kinds: 0 id, 1 ds, 2 s2ds,
-// 3 s2pre. TH, TW, G and grid are the caller's plan; scratch holds grid
-// slabs. Launches on `stream`; returns a CUDA error code (0 = success),
-// cudaErrorInvalidValue for what the kernel does not take.
-extern "C" int avcer_fused_chain(const void* x, void* out, void* scratch, long long scratch_bytes,
-                                 const void* const* wptrs, const int* kinds, const int* cins,
-                                 const int* planes, int nblocks, int B, int H, int W, int cout,
-                                 int TH, int TW, int G, int grid, int dtype, void* stream) {
-  const int bad = static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 0) return 0;
-  if (nblocks < 1 || nblocks > kMaxBlocks || (dtype != 0 && dtype != 1)) return bad;
-  if (H <= 0 || W <= 0 || TH <= 0 || TW <= 0 || G <= 0 || grid <= 0) return bad;
-  const int vec = dtype == 0 ? 4 : 8;
-  ChainP p{};
-  p.nblocks = nblocks;
-  p.planes_max = 0;
+// The blocks of a chain from the wrapper's arrays; false for what the kernels
+// do not take. `align`: channel counts must be multiples of it.
+bool fill_blocks(BlockW* blk, int* planes_max, const void* const* wptrs, const int* kinds,
+                 const int* cins, const int* planes, int nblocks, int cout, int align,
+                 int max_kind) {
+  if (nblocks < 1 || nblocks > kMaxBlocks || cout % align) return false;
+  *planes_max = 0;
+  int s0 = 0;
   for (int k = 0; k < nblocks; ++k) {
-    BlockW& b = p.blk[k];
+    BlockW& b = blk[k];
     const void* const* w = wptrs + 12 * k;
     b.c1 = {w[0], w[1], w[2]};
     b.c2 = {w[3], w[4], w[5]};
@@ -283,17 +390,37 @@ extern "C" int avcer_fused_chain(const void* x, void* out, void* scratch, long l
     b.kind = kinds[k];
     b.cin = cins[k];
     b.planes = planes[k];
-    if (b.kind < kId || b.kind > kS2pre) return bad;
-    if (b.kind != kId && k > 0) return bad;  // a projection block comes first
-    if (b.kind == kId && b.cin != cout) return bad;
-    if (b.cin % vec || b.planes % vec) return bad;
-    if (b.planes > p.planes_max) p.planes_max = b.planes;
+    b.s0 = s0;
+    s0 += b.kind == kId ? 3 : 4;
+    if (b.kind < kId || b.kind > max_kind) return false;
+    if (b.kind != kId && k > 0) return false;  // a projection block comes first
+    if (b.kind == kId && b.cin != cout) return false;
+    if (b.cin % align || b.planes % align) return false;
+    if (b.planes > *planes_max) *planes_max = b.planes;
   }
-  if (cout % vec) return bad;
+  return true;
+}
+
+int chain(const void* x, void* out, void* scratch, long long scratch_bytes,
+          const void* const* wptrs, const int* kinds, const int* cins, const int* planes,
+          int nblocks, int B, int H, int W, int cout, int TH, int TW, int G, int grid, int dtype,
+          const float* act_s, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0) return 0;
+  if (dtype != 0 && dtype != 1) return bad;
+  if (H <= 0 || W <= 0 || TH <= 0 || TW <= 0 || G <= 0 || grid <= 0) return bad;
+  // int8 weights are copied 16 channels at a time
+  const int align = act_s != nullptr ? 16 : (dtype == 0 ? 4 : 8);
+  ChainP p{};
+  p.nblocks = nblocks;
+  if (!fill_blocks(p.blk, &p.planes_max, wptrs, kinds, cins, planes, nblocks, cout, align,
+                   kS2pre))
+    return bad;
   const bool s2 = kinds[0] == kS2ds || kinds[0] == kS2pre;
   p.x = x;
   p.out = out;
   p.scratch = scratch;
+  p.act_s = act_s;
   p.B = B, p.H = H, p.W = W, p.cout = cout;
   p.Ho = s2 ? (H + 1) / 2 : H;
   p.Wo = s2 ? (W + 1) / 2 : W;
@@ -309,8 +436,77 @@ extern "C" int avcer_fused_chain(const void* x, void* out, void* scratch, long l
   const long long pr1 = static_cast<long long>(G) * p.RH1 * p.RW1;
   p.slab = pr * cout + pr1 * p.planes_max + pr * p.planes_max;
   p.nwork = ((B + G - 1) / G) * p.tiles_y * p.tiles_x;
-  const long long need = p.slab * grid * (dtype == 0 ? 4 : 2);
+  // the int8 plane holds the widest conv input: conv1's region by the most channels
+  int qch = cins[0] > cout ? cins[0] : cout;
+  if (p.planes_max > qch) qch = p.planes_max;
+  p.qslab = act_s != nullptr ? pr1 * qch : 0;
+  const long long need = (p.slab * (dtype == 0 ? 4 : 2) + p.qslab) * grid;
   if (scratch_bytes < need) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch<float>(p, grid, s) : launch<__nv_bfloat16>(p, grid, s);
+  if (act_s != nullptr)
+    return dtype == 0 ? launch<float, true>(p, grid, s) : launch<__nv_bfloat16, true>(p, grid, s);
+  return dtype == 0 ? launch<float, false>(p, grid, s) : launch<__nv_bfloat16, false>(p, grid, s);
+}
+
+}  // namespace
+
+// x [B, H, W, cin] and out [B, Ho, Wo, cout] NHWC contiguous; dtype 0 =
+// float32, 1 = bfloat16. wptrs: 12 pointers per block (w, inv, shift of
+// conv1, conv2, conv3 and the projection; the last three null for "id"),
+// w matmul-shaped [ci, co] or [3, 3, ci, co]. kinds: 0 id, 1 ds, 2 s2ds,
+// 3 s2pre. TH, TW, G and grid are the caller's plan; scratch holds grid
+// slabs. Launches on `stream`; returns a CUDA error code (0 = success),
+// cudaErrorInvalidValue for what the kernel does not take.
+extern "C" int avcer_fused_chain(const void* x, void* out, void* scratch, long long scratch_bytes,
+                                 const void* const* wptrs, const int* kinds, const int* cins,
+                                 const int* planes, int nblocks, int B, int H, int W, int cout,
+                                 int TH, int TW, int G, int grid, int dtype, void* stream) {
+  return chain(x, out, scratch, scratch_bytes, wptrs, kinds, cins, planes, nblocks, B, H, W, cout,
+               TH, TW, G, grid, dtype, nullptr, stream);
+}
+
+// The int8 mode: as above with w int8, inv (the merged multiply) and shift
+// float32 whatever `dtype`, and act_s [3 or 4 per block] float32 on the
+// device. Channel counts are multiples of 16.
+extern "C" int avcer_fused_chain_q(const void* x, void* out, void* scratch,
+                                   long long scratch_bytes, const void* const* wptrs,
+                                   const int* kinds, const int* cins, const int* planes,
+                                   int nblocks, int B, int H, int W, int cout, int TH, int TW,
+                                   int G, int grid, int dtype, const float* act_s, void* stream) {
+  if (act_s == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return chain(x, out, scratch, scratch_bytes, wptrs, kinds, cins, planes, nblocks, B, H, W, cout,
+               TH, TW, G, grid, dtype, act_s, stream);
+}
+
+// The flat kernel: xp [B, (hp + 2n) * pitch, cin] is the input padded by n =
+// nblocks rows and columns (and up to hp = nb * th rows and the pitch) and
+// flattened, mask [nb, (th + 2n) * pitch] float32 the in-frame flags of each
+// band, out [B, hp * pitch, cout] the flat result. kinds: 0 id, 1 ds.
+// scratch holds grid slabs of (th + 2n) * pitch * (cout + 2 * planes_max)
+// elements.
+extern "C" int avcer_fused_chain_flat(const void* xp, const float* mask, void* out, void* scratch,
+                                      long long scratch_bytes, const void* const* wptrs,
+                                      const int* kinds, const int* cins, const int* planes,
+                                      int nblocks, int B, int nb, int th, int pitch, int cin,
+                                      int cout, int grid, int dtype, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0) return 0;
+  if (dtype != 0 && dtype != 1) return bad;
+  if (nb <= 0 || th <= 0 || pitch <= 0 || grid <= 0) return bad;
+  const int align = dtype == 0 ? 4 : 8;
+  FlatP p{};
+  p.nblocks = nblocks;
+  if (!fill_blocks(p.blk, &p.planes_max, wptrs, kinds, cins, planes, nblocks, cout, align, kDs))
+    return bad;
+  if (cin != cins[0]) return bad;
+  p.xp = xp;
+  p.mask = mask;
+  p.out = out;
+  p.scratch = scratch;
+  p.B = B, p.nb = nb, p.th = th, p.n = nblocks, p.pitch = pitch, p.hp = nb * th;
+  p.cin = cin, p.cout = cout;
+  p.slab = static_cast<long long>(th + 2 * nblocks) * pitch * (cout + 2 * p.planes_max);
+  if (scratch_bytes < p.slab * grid * (dtype == 0 ? 4 : 2)) return bad;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? launch_flat<float>(p, grid, s) : launch_flat<__nv_bfloat16>(p, grid, s);
 }

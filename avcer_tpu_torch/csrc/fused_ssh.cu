@@ -32,18 +32,20 @@
 // the heads read that slab and write the narrow outputs, output channel
 // fastest, so a warp's stores are contiguous. The three scales are three
 // launches in sequence on one stream: scale 2 reads what scale 3 emitted.
+//
+// The int8 option (avcer_fused_ssh_q; the TPU kernel's act_s): the lateral,
+// the merge and the five SSH convs multiply int8 weights with activations
+// quantised by their static scales (once per conv, into an int8 plane of the
+// thread block's scratch) and sum in int32 (conv_tile.cuh), the
+// leaky ReLU acts on the value already rounded to the compute type, and the
+// three heads stay exact f32 sums over the ReLU'd segments. The scales come
+// in the TPU kernel's order: lateral, merge, then the five SSH convs.
 
 #include "conv_tile.cuh"
 
 namespace {
 
 using namespace avcer;
-
-struct ConvW {
-  const void* w;
-  const void* inv;
-  const void* shift;
-};
 
 struct SshP {
   const void* x;
@@ -55,21 +57,23 @@ struct SshP {
   void* out[3];
   void* feat;
   void* scratch;
+  const float* act_s;  // int8 option: lateral, merge (where present), five SSH convs
   long long slab;
+  long long qslab;  // int8 option: bytes of the quantised plane per thread block
   int B, H, W, Ci, C;
   int has_lat, has_merge, has_up, emit, act;
   float leaky;
   int TH, TW, tiles_y, tiles_x, G, halo, RH, RW, nwork;
 };
 
-template <typename T>
+template <typename T, bool Q>
 __global__ void __launch_bounds__(kThreads, 2) ssh_kernel(const SshP p) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int V = Tile<T>::kVec;
   const T* x = static_cast<const T*>(p.x);
   const T* up = static_cast<const T*>(p.up);
   const int RH = p.RH, RW = p.RW, PR = RH * RW;
-  const int H = p.H, W = p.W, C = p.C, Ci = p.Ci, Q = p.C / 4;
+  const int H = p.H, W = p.W, C = p.C, Ci = p.Ci, C4 = p.C / 4;
   const int act = p.act;
   const T leaky = Num<T>::from_f32(p.leaky);
   const T zero = Num<T>::from_f32(0.0f);
@@ -77,9 +81,20 @@ __global__ void __launch_bounds__(kThreads, 2) ssh_kernel(const SshP p) {
   T* f0 = static_cast<T*>(p.scratch) + static_cast<size_t>(blockIdx.x) * p.slab;
   T* f = p.has_merge ? f0 + region * C : f0;
   T* t51 = f + region * C;
-  T* t72 = t51 + region * Q;
-  T* cat = t72 + region * Q;  // relu(c3 | c5 | c7), C channels
+  T* t72 = t51 + region * C4;
+  T* cat = t72 + region * C4;  // relu(c3 | c5 | c7), C channels
+  // the int8 planes follow the slabs of all thread blocks
+  signed char* qbuf = reinterpret_cast<signed char*>(static_cast<T*>(p.scratch) +
+                                                     static_cast<size_t>(gridDim.x) * p.slab) +
+                      static_cast<size_t>(blockIdx.x) * p.qslab;
+  auto same = [](int r) { return r; };
   const int tiles = p.tiles_y * p.tiles_x;
+  // the static scale of conv `i` in act_s order
+  auto sx = [&](int i) -> float {
+    if constexpr (Q) return __ldg(p.act_s + i);
+    return 0.0f;
+  };
+  const int s_ssh = p.has_lat + p.has_merge;  // index of conv3X3's scale
 
   for (int work = blockIdx.x; work < p.nwork; work += gridDim.x) {
     const int b0 = (work / tiles) * p.G;
@@ -103,29 +118,24 @@ __global__ void __launch_bounds__(kThreads, 2) ssh_kernel(const SshP p) {
     };
     // a 3x3 ConvBN from `src` to `dst` (channel offset `off` of rows of `ldd`);
     // `a` its activation; `mask` zeroes the result outside the frame
-    auto conv3x3 = [&](const T* src, int k, const ConvW& cw, int n, T* dst, int ldd, int off,
-                       int a, bool mask) {
-      const T* w = static_cast<const T*>(cw.w);
-      const T* inv = static_cast<const T*>(cw.inv);
-      const T* shift = static_cast<const T*>(cw.shift);
-      block_gemm<T>(
-          src, k, k, w, n, 9, M, smem, tap3,
+    auto conv3x3 = [&](const T* src, int k, const ConvW& cw, float scale, int n, T* dst, int ldd,
+                       int off, int a, bool mask) {
+      conv_gemm<T, Q>(
+          src, k, k, M, same, qbuf, scale, cw.w, n, 9, M, smem, tap3,
           [=](int m) { return static_cast<int>(!mask || xrow(m) >= 0); },
           [=](int m, int j, const float* acc, int ok) {
             store_vec(dst + static_cast<size_t>(m) * ldd + off + j,
-                      fold_bn_vec<T>(acc, inv + j, shift + j, a, leaky, ok));
+                      fold_vec<T, Q>(acc, cw, j, a, leaky, ok));
           });
     };
 
     if (p.has_lat) {
-      const T* w = static_cast<const T*>(p.lat.w);
-      const T* inv = static_cast<const T*>(p.lat.inv);
-      const T* shift = static_cast<const T*>(p.lat.shift);
+      const ConvW lat = p.lat;
       const bool has_up = p.has_up;
-      block_gemm<T>(
-          x, Ci, Ci, w, C, 1, M, smem, [=](int m, int) { return xrow(m); }, xrow,
+      conv_gemm<T, Q>(
+          x, Ci, Ci, M, xrow, qbuf, sx(0), lat.w, C, 1, M, smem, [](int m, int) { return m; }, xrow,
           [=](int m, int j, const float* acc, int row) {
-            Vec<T> v = fold_bn_vec<T>(acc, inv + j, shift + j, act, leaky, row >= 0);
+            Vec<T> v = fold_vec<T, Q>(acc, lat, j, act, leaky, row >= 0);
             if (has_up && row >= 0) {
               const Vec<T> u = load_vec(up + static_cast<size_t>(row) * C + j);
 #pragma unroll
@@ -144,7 +154,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssh_kernel(const SshP p) {
       }
       __syncthreads();
     }
-    if (p.has_merge) conv3x3(f0, C, p.merge, C, f, C, 0, act, true);
+    if (p.has_merge) conv3x3(f0, C, p.merge, sx(1), C, f, C, 0, act, true);
 
     const int halo = p.halo, TH = p.TH, TW = p.TW;
     // the tile proper: pixel i of TH x TW x gc -> region pixel, frame pixel
@@ -168,11 +178,11 @@ __global__ void __launch_bounds__(kThreads, 2) ssh_kernel(const SshP p) {
       }
     }
 
-    conv3x3(f, C, p.conv[0], C / 2, cat, C, 0, kRelu, false);       // relu(c3)
-    conv3x3(f, C, p.conv[1], Q, t51, Q, 0, act, true);              // c5_1
-    conv3x3(t51, Q, p.conv[2], Q, cat, C, C / 2, kRelu, false);     // relu(c5)
-    conv3x3(t51, Q, p.conv[3], Q, t72, Q, 0, act, true);            // c7_2
-    conv3x3(t72, Q, p.conv[4], Q, cat, C, C / 2 + Q, kRelu, false); // relu(c7)
+    conv3x3(f, C, p.conv[0], sx(s_ssh), C / 2, cat, C, 0, kRelu, false);             // relu(c3)
+    conv3x3(f, C, p.conv[1], sx(s_ssh + 1), C4, t51, C4, 0, act, true);              // c5_1
+    conv3x3(t51, C4, p.conv[2], sx(s_ssh + 2), C4, cat, C, C / 2, kRelu, false);     // relu(c5)
+    conv3x3(t51, C4, p.conv[3], sx(s_ssh + 3), C4, t72, C4, 0, act, true);           // c7_2
+    conv3x3(t72, C4, p.conv[4], sx(s_ssh + 4), C4, cat, C, C / 2 + C4, kRelu, false);  // relu(c7)
 
     // the three heads over the tile proper, output channel fastest
     const int n_out = p.hn[0] + p.hn[1] + p.hn[2];
@@ -195,36 +205,28 @@ __global__ void __launch_bounds__(kThreads, 2) ssh_kernel(const SshP p) {
   }
 }
 
-template <typename T>
+template <typename T, bool Q>
 int launch(const SshP& p, int grid, cudaStream_t stream) {
-  const int smem = static_cast<int>(Tile<T>::kBytes);
-  cudaError_t err =
-      cudaFuncSetAttribute(ssh_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = static_cast<int>(Tile<OpOf<T, Q>>::kBytes);
+  cudaError_t err = cudaFuncSetAttribute(ssh_kernel<T, Q>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssh_kernel<T><<<grid, kThreads, smem, stream>>>(p);
+  ssh_kernel<T, Q><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// x [B, H, W, Ci], up [B, H, W, C] or null, outs: loc, conf, landmarks
-// [B, H, W, head_n[i]] and the feature [B, H, W, C] (null unless emitted); all
-// NHWC contiguous, dtype 0 = float32, 1 = bfloat16. wptrs: (w, inv, shift) of
-// the lateral [Ci, C], the merge [3, 3, C, C] (null triples where absent) and
-// the five SSH convs, then (w [C, n], bias [n]) of the three heads: 27
-// pointers. TH, TW, G and grid are the caller's plan; scratch holds grid
-// slabs. Launches on `stream`; returns a CUDA error code (0 = success).
-extern "C" int avcer_fused_ssh(const void* x, const void* up, const void* const* wptrs,
-                               const int* head_n, void* const* outs, void* scratch,
-                               long long scratch_bytes, int B, int H, int W, int Ci, int C,
-                               float leaky, int TH, int TW, int G, int grid, int dtype,
-                               void* stream) {
+int ssh(const void* x, const void* up, const void* const* wptrs, const int* head_n,
+        void* const* outs, void* scratch, long long scratch_bytes, int B, int H, int W, int Ci,
+        int C, float leaky, int TH, int TW, int G, int grid, int dtype, const float* act_s,
+        void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
   if (dtype != 0 && dtype != 1) return bad;
   if (H <= 0 || W <= 0 || TH <= 0 || TW <= 0 || G <= 0 || grid <= 0) return bad;
   const int vec = dtype == 0 ? 4 : 8;
-  if (C % (4 * vec) || Ci % vec) return bad;
+  // int8 weights are copied 16 channels at a time
+  const int align = act_s != nullptr ? 16 : vec;
+  if (C % (4 * align) || Ci % align) return bad;
   SshP p{};
   p.x = x;
   p.up = up;
@@ -248,6 +250,7 @@ extern "C" int avcer_fused_ssh(const void* x, const void* up, const void* const*
   p.act = leaky == 0.0f ? kRelu : kLeaky;
   p.leaky = leaky;
   p.scratch = scratch;
+  p.act_s = act_s;
   p.B = B, p.H = H, p.W = W, p.Ci = Ci, p.C = C;
   p.TH = TH, p.TW = TW, p.G = G;
   p.tiles_y = (H + TH - 1) / TH;
@@ -257,7 +260,43 @@ extern "C" int avcer_fused_ssh(const void* x, const void* up, const void* const*
   p.RW = TW + 2 * p.halo;
   p.slab = static_cast<long long>(G) * p.RH * p.RW * (C * (p.has_merge ? 3 : 2) + C / 2);
   p.nwork = ((B + G - 1) / G) * p.tiles_y * p.tiles_x;
-  if (scratch_bytes < p.slab * grid * (dtype == 0 ? 4 : 2)) return bad;
+  // the int8 plane holds the widest conv input: the lateral's, or C channels
+  p.qslab = act_s != nullptr ? static_cast<long long>(G) * p.RH * p.RW * (Ci > C ? Ci : C) : 0;
+  if (scratch_bytes < (p.slab * (dtype == 0 ? 4 : 2) + p.qslab) * grid) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch<float>(p, grid, s) : launch<__nv_bfloat16>(p, grid, s);
+  if (act_s != nullptr)
+    return dtype == 0 ? launch<float, true>(p, grid, s) : launch<__nv_bfloat16, true>(p, grid, s);
+  return dtype == 0 ? launch<float, false>(p, grid, s) : launch<__nv_bfloat16, false>(p, grid, s);
+}
+
+}  // namespace
+
+// x [B, H, W, Ci], up [B, H, W, C] or null, outs: loc, conf, landmarks
+// [B, H, W, head_n[i]] and the feature [B, H, W, C] (null unless emitted); all
+// NHWC contiguous, dtype 0 = float32, 1 = bfloat16. wptrs: (w, inv, shift) of
+// the lateral [Ci, C], the merge [3, 3, C, C] (null triples where absent) and
+// the five SSH convs, then (w [C, n], bias [n]) of the three heads: 27
+// pointers. TH, TW, G and grid are the caller's plan; scratch holds grid
+// slabs. Launches on `stream`; returns a CUDA error code (0 = success).
+extern "C" int avcer_fused_ssh(const void* x, const void* up, const void* const* wptrs,
+                               const int* head_n, void* const* outs, void* scratch,
+                               long long scratch_bytes, int B, int H, int W, int Ci, int C,
+                               float leaky, int TH, int TW, int G, int grid, int dtype,
+                               void* stream) {
+  return ssh(x, up, wptrs, head_n, outs, scratch, scratch_bytes, B, H, W, Ci, C, leaky, TH, TW, G,
+             grid, dtype, nullptr, stream);
+}
+
+// The int8 option: as above with the conv weights int8, their inv (the merged
+// multiply) and shift float32 whatever `dtype`, the heads in `dtype`, and
+// act_s [5 + the number of FPN convs] float32 on the device. C is a multiple
+// of 64.
+extern "C" int avcer_fused_ssh_q(const void* x, const void* up, const void* const* wptrs,
+                                 const int* head_n, void* const* outs, void* scratch,
+                                 long long scratch_bytes, int B, int H, int W, int Ci, int C,
+                                 float leaky, int TH, int TW, int G, int grid, int dtype,
+                                 const float* act_s, void* stream) {
+  if (act_s == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return ssh(x, up, wptrs, head_n, outs, scratch, scratch_bytes, B, H, W, Ci, C, leaky, TH, TW, G,
+             grid, dtype, act_s, stream);
 }

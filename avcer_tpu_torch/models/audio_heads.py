@@ -44,8 +44,14 @@ class ExprModel(nn.Module):
         )
         self.feature_downsample = nn.Linear(f, num_classes)
 
-    def forward(self, wav: torch.Tensor) -> torch.Tensor:
-        h = self.tl2(self.tl1(self.wav2vec2(wav)))
+    def forward(self, wav: torch.Tensor, w2v_mode: str = "full") -> torch.Tensor:
+        """``w2v_mode`` is ``Wav2Vec2Model.forward``'s ``mode``: with
+        ``"features_only"`` the conv features come back and the head does not
+        run; with ``"from_features"`` ``wav`` holds such features."""
+        h = self.wav2vec2(wav, mode=w2v_mode)
+        if w2v_mode == "features_only":
+            return h
+        h = self.tl2(self.tl1(h))
         if h.shape[1] < 51:
             # the VALID conv/pool stack would leave an empty time axis
             raise ValueError(

@@ -16,17 +16,28 @@ through ``ops.cuda.fused_ssh_kernel.fused_ssh_heads``. Tensors keep torch's
 NCHW shape between sections; a kernel section takes an NHWC-contiguous view
 (one copy where the tensor comes from a cuDNN section, none between two
 kernel sections) and hands back an NCHW-shaped view of its NHWC result, which
-cuDNN reads as channels-last. The mobilenet, space-to-depth and int8 variants
-are not ported yet.
+cuDNN reads as channels-last.
+
+``quant`` is the JAX package's int8 variant over the same state dict: every
+conv of the body's bottlenecks, of the FPN and of the SSH modules is a
+``layers.QConv`` (calibrated static activation scales, per-channel weight
+scales, int32 sums); the stem and the heads stay exact. With the fused
+switches the int8 convs run inside the fused kernels' int8 mode, folded to
+``(wq, mult, shift)`` with the activation scales in the kernels' order.
+Calibration forwards (``layers.calibrating``) always run the unfused modules.
+The mobilenet and space-to-depth variants are not ported yet.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from avcer_tpu_torch.models.layers import BatchNorm, FoldCache, fold_bn
+from avcer_tpu_torch.models.layers import (BatchNorm, FoldCache, QConv, compute_dtype, fold_bn,
+                                           fold_bn_q)
 from avcer_tpu_torch.ops.cuda.fused_resnet_kernel import fused_chain
 from avcer_tpu_torch.ops.cuda.fused_ssh_kernel import fused_ssh_heads
 
@@ -36,8 +47,21 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
-def fold_conv_bn(m: "ConvBN", dtype: torch.dtype) -> tuple[torch.Tensor, ...]:
-    return fold_bn(m[0].weight, m[1], dtype)
+def fold_pairs(pairs, dtype: torch.dtype) -> tuple[list[torch.Tensor], Optional[torch.Tensor]]:
+    """(conv, BatchNorm) pairs -> (flat ``(w, inv, shift)`` per conv, act_s):
+    the exact fold in ``dtype`` with ``act_s`` None, or for ``QConv``s the
+    int8 fold with one activation scale per conv, in the order given."""
+    if not isinstance(pairs[0][0], QConv):
+        return [t for conv, bn in pairs for t in fold_bn(conv.weight, bn, dtype)], None
+    got = [fold_bn_q(conv, bn) for conv, bn in pairs]
+    return [t for triple, _ in got for t in triple], torch.stack([sx for _, sx in got])
+
+
+def make_conv(inp: int, oup: int, k: int, stride: int, padding: int, quant: bool) -> nn.Module:
+    """A bias-free conv: ``nn.Conv2d``, or its int8 stand-in."""
+    if quant:
+        return QConv(inp, oup, k, stride, padding, bias=False)
+    return nn.Conv2d(inp, oup, k, stride, padding, bias=False)
 
 
 class ConvBN(nn.Sequential):
@@ -45,9 +69,8 @@ class ConvBN(nn.Sequential):
     ``0.weight`` and ``1.*`` like the reference's ``conv_bn`` Sequentials."""
 
     def __init__(self, inp: int, oup: int, k: int = 3, stride: int = 1,
-                 leaky: float = 0.0, relu: bool = True):
-        super().__init__(nn.Conv2d(inp, oup, k, stride, (k - 1) // 2, bias=False),
-                         BatchNorm(oup))
+                 leaky: float = 0.0, relu: bool = True, quant: bool = False):
+        super().__init__(make_conv(inp, oup, k, stride, (k - 1) // 2, quant), BatchNorm(oup))
         self.act = relu
         self.leaky = leaky
 
@@ -61,16 +84,17 @@ class ConvBN(nn.Sequential):
 class TVBottleneck(nn.Module):
     """torchvision Bottleneck: stride on the 3x3 conv (v1.5), BN eps 1e-5."""
 
-    def __init__(self, in_ch: int, planes: int, stride: int = 1, downsample: bool = False):
+    def __init__(self, in_ch: int, planes: int, stride: int = 1, downsample: bool = False,
+                 quant: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, planes, 1, bias=False)
+        self.conv1 = make_conv(in_ch, planes, 1, 1, 0, quant)
         self.bn1 = BatchNorm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1, bias=False)
+        self.conv2 = make_conv(planes, planes, 3, stride, 1, quant)
         self.bn2 = BatchNorm(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.conv3 = make_conv(planes, planes * 4, 1, 1, 0, quant)
         self.bn3 = BatchNorm(planes * 4)
         self.downsample = (
-            nn.Sequential(nn.Conv2d(in_ch, planes * 4, 1, stride=stride, bias=False),
+            nn.Sequential(make_conv(in_ch, planes * 4, 1, stride, 0, quant),
                           BatchNorm(planes * 4))
             if downsample else None
         )
@@ -81,23 +105,30 @@ class TVBottleneck(nn.Module):
         h = F.relu(self.bn2(self.conv2(h)))
         return F.relu(self.bn3(self.conv3(h)) + idn)
 
-    def folded(self, dtype: torch.dtype) -> list[torch.Tensor]:
-        """Flat ``(w, inv, shift)`` of conv1, conv2, conv3 and the projection."""
+    def fold_pairs(self) -> list:
+        """(conv, BatchNorm) of conv1, conv2, conv3 and the projection: the
+        order of the fused kernel's weights and of its int8 scales."""
         pairs = [(self.conv1, self.bn1), (self.conv2, self.bn2), (self.conv3, self.bn3)]
         if self.downsample is not None:
             pairs.append((self.downsample[0], self.downsample[1]))
-        return [t for conv, bn in pairs for t in fold_bn(conv.weight, bn, dtype)]
+        return pairs
+
+    def folded(self, dtype: torch.dtype) -> list[torch.Tensor]:
+        """Flat ``(w, inv, shift)`` of conv1, conv2, conv3 and the projection."""
+        return fold_pairs(self.fold_pairs(), dtype)[0]
 
 
 def fused_section(cache: FoldCache, h: torch.Tensor, layer: nn.Sequential, li: int,
                   chunk: list[int], kinds: tuple[str, ...]) -> torch.Tensor:
     """Blocks ``chunk`` of ``layer`` as one ``fused_chain`` call on NCHW-shaped
-    ``h``; the folded weights are made once per (chunk, dtype, device)."""
-    w = layer[chunk[0]].conv1.weight
-    folded = cache.folded(
-        (li, tuple(chunk), w.dtype, w.device),
-        lambda: tuple(t for bi in chunk for t in layer[bi].folded(w.dtype)))
-    return fused_chain(nhwc(h.to(w.dtype)), folded, kinds).permute(0, 3, 1, 2)
+    ``h``; the folded weights (and, in int8, the activation scales) are made
+    once per (chunk, dtype, device)."""
+    conv1 = layer[chunk[0]].conv1
+    dtype = compute_dtype(conv1)
+    folded, act_s = cache.folded(
+        (li, tuple(chunk), dtype, conv1.weight.device),
+        lambda: fold_pairs([p for bi in chunk for p in layer[bi].fold_pairs()], dtype))
+    return fused_chain(nhwc(h.to(dtype)), folded, kinds, act_s=act_s).permute(0, 3, 1, 2)
 
 
 class ResNet50Body(FoldCache):
@@ -110,7 +141,7 @@ class ResNet50Body(FoldCache):
     three. layer4 is never fused."""
 
     def __init__(self, fused_layer1: bool = False, fused_tails: bool = False,
-                 fused_entries: bool = False):
+                 fused_entries: bool = False, quant: bool = False):
         super().__init__()
         self.fused_layer1 = fused_layer1
         self.fused_tails = fused_tails
@@ -124,20 +155,22 @@ class ResNet50Body(FoldCache):
             for bi in range(blocks):
                 s = stride if bi == 0 else 1
                 layer.append(TVBottleneck(in_ch, planes, s,
-                                          bi == 0 and (s != 1 or in_ch != planes * 4)))
+                                          bi == 0 and (s != 1 or in_ch != planes * 4), quant))
                 in_ch = planes * 4
             setattr(self, f"layer{li + 1}", nn.Sequential(*layer))
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        # the stem stays exact in the int8 variant: 3 input channels
         h = F.relu(self.bn1(self.conv1(x)))
         h = F.max_pool2d(h, 3, stride=2, padding=1)
         outs = []
+        fused = not self.calibrating
         for li in range(4):
             layer = getattr(self, f"layer{li + 1}")
             blocks = len(layer)
-            if li == 0 and self.fused_layer1:
+            if li == 0 and self.fused_layer1 and fused:
                 h = fused_section(self, h, layer, li, list(range(blocks)), ("ds", "id", "id"))
-            elif li in (1, 2) and self.fused_tails:
+            elif li in (1, 2) and self.fused_tails and fused:
                 if self.fused_entries:
                     # layer3 takes one "id" with its entry, then chunks of three
                     first = blocks if li == 1 else 2
@@ -167,14 +200,14 @@ def upsample_nearest_to(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
 
 
 class FPN(nn.Module):
-    def __init__(self, in_list: tuple[int, int, int], out_ch: int):
+    def __init__(self, in_list: tuple[int, int, int], out_ch: int, quant: bool = False):
         super().__init__()
         leaky = 0.1 if out_ch <= 64 else 0.0
-        self.output1 = ConvBN(in_list[0], out_ch, k=1, leaky=leaky)
-        self.output2 = ConvBN(in_list[1], out_ch, k=1, leaky=leaky)
-        self.output3 = ConvBN(in_list[2], out_ch, k=1, leaky=leaky)
-        self.merge1 = ConvBN(out_ch, out_ch, leaky=leaky)
-        self.merge2 = ConvBN(out_ch, out_ch, leaky=leaky)
+        self.output1 = ConvBN(in_list[0], out_ch, k=1, leaky=leaky, quant=quant)
+        self.output2 = ConvBN(in_list[1], out_ch, k=1, leaky=leaky, quant=quant)
+        self.output3 = ConvBN(in_list[2], out_ch, k=1, leaky=leaky, quant=quant)
+        self.merge1 = ConvBN(out_ch, out_ch, leaky=leaky, quant=quant)
+        self.merge2 = ConvBN(out_ch, out_ch, leaky=leaky, quant=quant)
 
     def forward(self, feats):
         o1, o2, o3 = self.output1(feats[0]), self.output2(feats[1]), self.output3(feats[2])
@@ -184,14 +217,14 @@ class FPN(nn.Module):
 
 
 class SSH(nn.Module):
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, quant: bool = False):
         super().__init__()
         leaky = 0.1 if out_ch <= 64 else 0.0
-        self.conv3X3 = ConvBN(in_ch, out_ch // 2, relu=False)
-        self.conv5X5_1 = ConvBN(in_ch, out_ch // 4, leaky=leaky)
-        self.conv5X5_2 = ConvBN(out_ch // 4, out_ch // 4, relu=False)
-        self.conv7X7_2 = ConvBN(out_ch // 4, out_ch // 4, leaky=leaky)
-        self.conv7x7_3 = ConvBN(out_ch // 4, out_ch // 4, relu=False)
+        self.conv3X3 = ConvBN(in_ch, out_ch // 2, relu=False, quant=quant)
+        self.conv5X5_1 = ConvBN(in_ch, out_ch // 4, leaky=leaky, quant=quant)
+        self.conv5X5_2 = ConvBN(out_ch // 4, out_ch // 4, relu=False, quant=quant)
+        self.conv7X7_2 = ConvBN(out_ch // 4, out_ch // 4, leaky=leaky, quant=quant)
+        self.conv7x7_3 = ConvBN(out_ch // 4, out_ch // 4, relu=False, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c5_1 = self.conv5X5_1(x)
@@ -224,31 +257,35 @@ class RetinaFace(FoldCache):
 
     def __init__(self, num_anchors: int = 2, fused_layer1: bool = False,
                  fused_tails: bool = False, fused_entries: bool = False,
-                 fused_ssh: bool = False, fused_fpn: bool = False):
+                 fused_ssh: bool = False, fused_fpn: bool = False, quant: bool = False):
         super().__init__()
         self.fused_ssh = fused_ssh
         self.fused_fpn = fused_fpn
-        self.body = ResNet50Body(fused_layer1, fused_tails, fused_entries)
-        self.fpn = FPN((512, 1024, 2048), 256)
-        self.ssh1 = SSH(256, 256)
-        self.ssh2 = SSH(256, 256)
-        self.ssh3 = SSH(256, 256)
+        self.quant = quant
+        self.body = ResNet50Body(fused_layer1, fused_tails, fused_entries, quant)
+        self.fpn = FPN((512, 1024, 2048), 256, quant)
+        self.ssh1 = SSH(256, 256, quant)
+        self.ssh2 = SSH(256, 256, quant)
+        self.ssh3 = SSH(256, 256, quant)
         self.ClassHead = nn.ModuleList(Head(256, num_anchors, 2) for _ in range(3))
         self.BboxHead = nn.ModuleList(Head(256, num_anchors, 4) for _ in range(3))
         self.LandmarkHead = nn.ModuleList(Head(256, num_anchors, 10) for _ in range(3))
 
     def _scale_folded(self, i: int, dtype: torch.dtype):
-        """(5 SSH convs, 3 heads, lateral, merge or None) of scale ``i``."""
+        """(5 SSH convs, 3 heads, lateral, merge or None, scales) of scale
+        ``i``. ``scales`` is None for the exact model; in int8 it holds the
+        activation scales of (lateral, merge or None, the five SSH convs)."""
         ssh = getattr(self, f"ssh{i + 1}")
-        convs = tuple(t for name in ("conv3X3", "conv5X5_1", "conv5X5_2", "conv7X7_2",
-                                     "conv7x7_3")
-                      for t in fold_conv_bn(getattr(ssh, name), dtype))
+        convs, ssh_sx = fold_pairs([tuple(getattr(ssh, name)) for name in (
+            "conv3X3", "conv5X5_1", "conv5X5_2", "conv7X7_2", "conv7x7_3")], dtype)
         heads = tuple(t for head in (self.BboxHead[i], self.ClassHead[i], self.LandmarkHead[i])
                       for t in (head.conv1x1.weight[:, :, 0, 0].t().to(dtype).contiguous(),
                                 head.conv1x1.bias.to(dtype)))
-        lat = fold_conv_bn(getattr(self.fpn, f"output{i + 1}"), dtype)
-        merge = fold_conv_bn(getattr(self.fpn, f"merge{i + 1}"), dtype) if i < 2 else None
-        return convs, heads, lat, merge
+        lat, lat_sx = fold_pairs([tuple(getattr(self.fpn, f"output{i + 1}"))], dtype)
+        merge, merge_sx = (fold_pairs([tuple(getattr(self.fpn, f"merge{i + 1}"))], dtype)
+                           if i < 2 else (None, None))
+        scales = None if ssh_sx is None else (lat_sx, merge_sx, ssh_sx)
+        return tuple(convs), heads, tuple(lat), None if merge is None else tuple(merge), scales
 
     def _fused_heads(self, feats, dtype: torch.dtype):
         """``feats`` NCHW-shaped: the body's (with ``fused_fpn``) or the
@@ -257,20 +294,24 @@ class RetinaFace(FoldCache):
         per_scale: list = [None, None, None]
         feat_prev = None
         for i in (2, 1, 0):
-            w = self.ssh1.conv3X3[0].weight
-            convs, heads, lat, merge = self.folded(
+            w = self.BboxHead[0].conv1x1.weight
+            convs, heads, lat, merge, scales = self.folded(
                 ("scale", i, w.dtype, w.device), lambda: self._scale_folded(i, dtype))
             x = nhwc(feats[i].to(dtype))
             if self.fused_fpn:
                 up = None
                 if feat_prev is not None:
                     up = nhwc(upsample_nearest_to(feat_prev.permute(0, 3, 1, 2), x.shape[1:3]))
+                # the kernel's order of scales: lateral, merge, the SSH convs
+                act_s = None if scales is None else torch.cat(
+                    [sx for sx in scales if sx is not None])
                 res = fused_ssh_heads(x, convs, heads, leaky, fpn_lat=lat, fpn_merge=merge,
-                                      up=up, emit_feature=i > 0)
+                                      up=up, emit_feature=i > 0, act_s=act_s)
                 if i > 0:
                     feat_prev = res[3]
             else:
-                res = fused_ssh_heads(x, convs, heads, leaky)
+                res = fused_ssh_heads(x, convs, heads, leaky,
+                                      act_s=None if scales is None else scales[2])
             b = x.shape[0]
             per_scale[i] = (res[0].reshape(b, -1, 4), res[1].reshape(b, -1, 2),
                             res[2].reshape(b, -1, 10))
@@ -281,7 +322,7 @@ class RetinaFace(FoldCache):
         dtype = self.body.conv1.weight.dtype
         x = x.permute(0, 3, 1, 2).to(dtype)
         feats = self.body(x)
-        if self.fused_ssh:
+        if self.fused_ssh and not self.calibrating:
             return self._fused_heads(feats if self.fused_fpn else self.fpn(feats), dtype)
         fpn = self.fpn(feats)
         feats = [self.ssh1(fpn[0]), self.ssh2(fpn[1]), self.ssh3(fpn[2])]

@@ -13,6 +13,15 @@ LayerNorms run in f32 and cast back at the JAX package's rounding points.
 Parameter names are HF ``Wav2Vec2Model``'s, except that the positional conv
 holds the fused ``conv.weight`` (HF keeps its weight-norm factors).
 Public layout: waveform [B, T] -> hidden states [B, F, hidden].
+
+``Wav2Vec2Config.quant`` is the JAX package's int8 variant over the same
+state dict: the feature extractor's convs past the first (the 1-channel first
+layer stays exact) are ``layers.QConv1d``, and q, k, v, out and both
+feed-forward projections of every encoder layer are ``layers.QDense``;
+LayerNorms, the attention kernel, the feature projection and the positional
+conv stay exact. ``mode`` splits the forward for the shared extractor:
+``"features_only"`` stops after the conv features, ``"from_features"`` starts
+from them.
 """
 
 from __future__ import annotations
@@ -22,14 +31,14 @@ from dataclasses import dataclass
 import torch
 import torch.nn as nn
 
-from avcer_tpu_torch.models.layers import LayerNorm, gelu_exact
+from avcer_tpu_torch.models.layers import LayerNorm, QConv1d, QDense, gelu_exact
 from avcer_tpu_torch.ops.cuda.attention_kernel import mha
 
 
 @dataclass(frozen=True)
 class Wav2Vec2Config:
     """Same fields and defaults as avcer_tpu's Wav2Vec2Config, less the TPU
-    options (Pallas attention, remat, int8)."""
+    options (Pallas attention, remat)."""
 
     hidden_size: int = 1024
     num_layers: int = 12
@@ -42,12 +51,22 @@ class Wav2Vec2Config:
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
     layer_norm_eps: float = 1e-5
+    #: int8 serving (see the module docstring); calibrated through AudioStage
+    quant: bool = False
+
+    def num_output_frames(self, num_samples: int) -> int:
+        n = num_samples
+        for k, s in zip(self.conv_kernel, self.conv_stride):
+            n = (n - k) // s + 1
+        return n
 
 
 class ConvLayer(nn.Module):
-    def __init__(self, cin: int, cout: int, k: int, s: int, bias: bool, eps: float):
+    def __init__(self, cin: int, cout: int, k: int, s: int, bias: bool, eps: float,
+                 quant: bool = False):
         super().__init__()
-        self.conv = nn.Conv1d(cin, cout, k, stride=s, bias=bias)
+        self.conv = (QConv1d(cin, cout, k, stride=s, bias=bias) if quant
+                     else nn.Conv1d(cin, cout, k, stride=s, bias=bias))
         self.layer_norm = LayerNorm(cout, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, C, T]
@@ -60,7 +79,8 @@ class FeatureEncoder(nn.Module):
         super().__init__()
         dims = (1,) + tuple(c.conv_dim)
         self.conv_layers = nn.ModuleList(
-            ConvLayer(dims[i], dims[i + 1], k, s, c.conv_bias, c.layer_norm_eps)
+            ConvLayer(dims[i], dims[i + 1], k, s, c.conv_bias, c.layer_norm_eps,
+                      quant=c.quant and i > 0)
             for i, (k, s) in enumerate(zip(c.conv_kernel, c.conv_stride)))
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:  # [B, T] -> [B, F, C]
@@ -95,14 +115,18 @@ class PositionalConvEmbedding(nn.Module):
         return gelu_exact(h).transpose(1, 2)
 
 
+def dense(c: Wav2Vec2Config, inp: int, oup: int) -> nn.Module:
+    return QDense(inp, oup) if c.quant else nn.Linear(inp, oup)
+
+
 class Attention(nn.Module):
     def __init__(self, c: Wav2Vec2Config):
         super().__init__()
         self.num_heads = c.num_heads
-        self.q_proj = nn.Linear(c.hidden_size, c.hidden_size)
-        self.k_proj = nn.Linear(c.hidden_size, c.hidden_size)
-        self.v_proj = nn.Linear(c.hidden_size, c.hidden_size)
-        self.out_proj = nn.Linear(c.hidden_size, c.hidden_size)
+        self.q_proj = dense(c, c.hidden_size, c.hidden_size)
+        self.k_proj = dense(c, c.hidden_size, c.hidden_size)
+        self.v_proj = dense(c, c.hidden_size, c.hidden_size)
+        self.out_proj = dense(c, c.hidden_size, c.hidden_size)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         b, t, d = h.shape
@@ -117,8 +141,8 @@ class Attention(nn.Module):
 class FeedForward(nn.Module):
     def __init__(self, c: Wav2Vec2Config):
         super().__init__()
-        self.intermediate_dense = nn.Linear(c.hidden_size, c.intermediate_size)
-        self.output_dense = nn.Linear(c.intermediate_size, c.hidden_size)
+        self.intermediate_dense = dense(c, c.hidden_size, c.intermediate_size)
+        self.output_dense = dense(c, c.intermediate_size, c.hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.output_dense(gelu_exact(self.intermediate_dense(x)))
@@ -154,7 +178,11 @@ class Encoder(nn.Module):
 
 
 class Wav2Vec2Model(nn.Module):
-    """Normalised waveform [B, T] -> hidden states [B, F, hidden]."""
+    """Normalised waveform [B, T] -> hidden states [B, F, hidden].
+
+    ``mode``: ``"full"``; ``"features_only"`` returns the conv features [B, F,
+    conv_dim]; ``"from_features"`` takes such features as its input and runs
+    the projection and the encoder. Same parameters in every mode."""
 
     def __init__(self, config: Wav2Vec2Config | None = None):
         super().__init__()
@@ -163,5 +191,10 @@ class Wav2Vec2Model(nn.Module):
         self.feature_projection = FeatureProjection(self.config)
         self.encoder = Encoder(self.config)
 
-    def forward(self, wav: torch.Tensor) -> torch.Tensor:
-        return self.encoder(self.feature_projection(self.feature_extractor(wav)))
+    def forward(self, wav: torch.Tensor, mode: str = "full") -> torch.Tensor:
+        if mode not in ("full", "features_only", "from_features"):
+            raise ValueError(f"unknown wav2vec2 mode {mode!r}")
+        feats = wav if mode == "from_features" else self.feature_extractor(wav)
+        if mode == "features_only":
+            return feats
+        return self.encoder(self.feature_projection(feats))

@@ -9,14 +9,25 @@ conv3 and, for a projection block, the projection), ``w`` matmul-shaped
 ``shift`` the folded BatchNorm ``[1, C]``; ``blocks`` is a tuple of ``"ds" |
 "id" | "s2ds" | "s2pre"``.
 
-Dispatch rule, with no fallback: a CPU tensor goes to ``fused_chain_plain``;
-a CUDA tensor launches the kernel (one launch per call) or raises.
+The int8 mode (``act_s``), as the JAX function's: ``folded`` then holds
+``(wq int8, mult f32, shift f32)`` per conv, ``mult = sx * sw * bn_inv`` the
+merged dequantisation and BatchNorm multiply, and ``act_s`` the static
+activation scale ``sx`` of every conv in the order conv1, conv2, conv3, then
+the projection, per block. ``x`` and the result stay in the compute dtype;
+the sums are exact integers.
+
+``fused_chain_flat`` is the counterpart of the JAX package's
+``fused_chain_flat``: stride-1 chains over flat bands, its own kernel.
+
+Dispatch rule, with no fallback: a CPU tensor goes to the plain version
+(``fused_chain_plain``, ``fused_chain_flat_plain``); a CUDA tensor launches
+the kernel (one launch per call) or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -59,31 +70,61 @@ def split_folded(folded: Sequence[torch.Tensor], blocks: Sequence[str]) -> list[
     return out
 
 
-def _check_blocks(blocks: Sequence[str], act_s) -> None:
-    if act_s is not None:
-        raise NotImplementedError(
-            "fused_chain: the int8 mode (act_s) is not ported; it comes with int8 "
-            "serving (ROADMAP queue 1 item 11)")
+def quantize_plain(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """``clip(round(x / sx), -127, 127)`` in f32: true division, round half to
+    even. The values are integers, returned as float64 for an exact product."""
+    return torch.clamp(torch.round(x.float() / sx.float()), -127, 127).double()
+
+
+def conv_bn_plain_q(x: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor, mult: torch.Tensor,
+                    shift: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """The int8 mode's conv on NCHW ``x``: quantise with the static scale
+    ``sx``, an exact integer product (float64 holds every sum of int8
+    products exactly, on the CPU and on the card), then ``sum * mult + shift``
+    in f32 with two roundings, and one rounding to ``x``'s dtype."""
+    if wq.dim() == 2:
+        weight, pad = wq.t()[:, :, None, None], 0
+    else:
+        weight, pad = wq.permute(3, 2, 0, 1), 1
+    acc = F.conv2d(quantize_plain(x, sx), weight.double(), stride=stride, padding=pad)
+    y = acc.float() * mult.float().reshape(1, -1, 1, 1)
+    return (y + shift.float().reshape(1, -1, 1, 1)).to(x.dtype)
+
+
+def _check_blocks(blocks: Sequence[str], act_s, n_folded: int) -> None:
     if not blocks or any(b not in KINDS for b in blocks):
         raise ValueError(f"fused_chain: unknown block kinds in {blocks}")
     if any(b in ("s2ds", "s2pre") for b in blocks[1:]) or (
             blocks[0] in ("s2ds", "s2pre") and any(b != "id" for b in blocks[1:])):
         raise ValueError("a stride-2 entry must be the single entry block")
+    if act_s is not None and (act_s.dim() != 1 or 3 * act_s.numel() != n_folded):
+        raise ValueError(
+            f"fused_chain: act_s must hold one scale per conv ({n_folded // 3}), got "
+            f"{tuple(act_s.shape)}")
 
 
 def fused_chain_plain(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequence[str],
-                      band: int = 32, act_s=None) -> torch.Tensor:
+                      band: int = 32, act_s: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The chain in plain PyTorch (``F.conv2d`` on NCHW views, f32
-    accumulation, the kernel's rounding points). NHWC in, NHWC out."""
-    _check_blocks(blocks, act_s)
+    accumulation or, with ``act_s``, exact integer sums; the kernel's rounding
+    points). NHWC in, NHWC out."""
+    _check_blocks(blocks, act_s, len(folded))
+    scales = iter(act_s) if act_s is not None else None
+
+    def conv(h, t, stride=1):
+        if scales is None:
+            return conv_bn_plain(h, *t, stride=stride)
+        return conv_bn_plain_q(h, next(scales), *t, stride=stride)
+
     h = x.permute(0, 3, 1, 2)
     for kind, t in zip(blocks, split_folded(folded, blocks)):
         s1 = 2 if kind == "s2pre" else 1  # TF v1: the stride on conv1
         s2 = 2 if kind == "s2ds" else 1  # torchvision v1.5: on the 3x3
-        res = h if kind == "id" else conv_bn_plain(h, *t[9:12], stride=s1 * s2)
-        y = F.relu(conv_bn_plain(h, *t[0:3], stride=s1))
-        y = F.relu(conv_bn_plain(y, *t[3:6], stride=s2))
-        h = F.relu(conv_bn_plain(y, *t[6:9]) + res)
+        y = F.relu(conv(h, t[0:3], s1))
+        y = F.relu(conv(y, t[3:6], s2))
+        y = conv(y, t[6:9])
+        res = h if kind == "id" else conv(h, t[9:12], s1 * s2)
+        h = F.relu(y + res)
     return h.permute(0, 2, 3, 1).contiguous()
 
 
@@ -94,10 +135,12 @@ def tile_edge(dim: int) -> int:
 
 
 def chain_plan(b: int, h: int, w: int, cout: int, planes_max: int, blocks: Sequence[str],
-               itemsize: int, sm_count: int) -> dict[str, int]:
+               itemsize: int, sm_count: int, q_cin: int = 0) -> dict[str, int]:
     """Tiling of one call, as ``csrc/fused_resnet.cu`` derives it again from
     ``th``, ``tw``, ``g`` and ``grid``: output size, tile, halo, frames per
-    work item, grid, and the scratch the thread blocks need."""
+    work item, grid, and the scratch the thread blocks need. ``q_cin``: in the
+    int8 mode the input's channels (each thread block then also holds an int8
+    plane of its widest conv input), else 0."""
     s2 = blocks[0] in ("s2ds", "s2pre")
     ho, wo = ((h + 1) // 2, (w + 1) // 2) if s2 else (h, w)
     th, tw = tile_edge(ho), tile_edge(wo)
@@ -108,47 +151,35 @@ def chain_plan(b: int, h: int, w: int, cout: int, planes_max: int, blocks: Seque
     nwork = -(-b // g) * -(-ho // th) * -(-wo // tw)
     grid = max(1, min(nwork, BLOCKS_PER_SM * sm_count))
     slab = g * (rh * rw * cout + rh1 * rw1 * planes_max + rh * rw * planes_max)
+    qslab = g * rh1 * rw1 * max(q_cin, cout, planes_max) if q_cin else 0
     return {"ho": ho, "wo": wo, "th": th, "tw": tw, "halo": halo, "g": g, "nwork": nwork,
-            "grid": grid, "scratch_bytes": slab * grid * itemsize}
+            "grid": grid, "scratch_bytes": (slab * itemsize + qslab) * grid}
 
 
-def check_cuda_tensor(name: str, t: torch.Tensor, x: torch.Tensor) -> None:
-    if t.device != x.device or t.dtype != x.dtype or not t.is_contiguous():
+def check_cuda_tensor(name: str, t: torch.Tensor, x: torch.Tensor,
+                      dtype: Optional[torch.dtype] = None) -> None:
+    dtype = dtype or x.dtype
+    if (t.device != x.device or t.dtype != dtype or not t.is_contiguous()
+            or t.data_ptr() % 16):
         raise ValueError(
-            f"{name}: every weight must be contiguous {x.dtype} on {x.device}, got "
-            f"{tuple(t.shape)} {t.dtype} on {t.device}")
+            f"{name}: expected a contiguous, 16-byte aligned {dtype} tensor on {x.device}, "
+            f"got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def fused_chain(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequence[str],
-                band: int = 32, act_s=None) -> torch.Tensor:
-    """A chain of bottlenecks ``[B, H, W, Cin] -> [B, Ho, Wo, Cout]``. ``band``
-    is the TPU kernel's VMEM tiling and does not change the result: the CUDA
-    kernel ignores it. ``fused_chain.launches`` counts kernel launches."""
-    blocks = tuple(blocks)
-    if x.device.type == "cpu":
-        return fused_chain_plain(x, folded, blocks, band=band, act_s=act_s)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_chain: unsupported device {x.device}")
-    _check_blocks(blocks, act_s)
-    if x.dim() != 4 or x.dtype not in DTYPE_CODE or not x.is_contiguous():
-        raise ValueError(
-            f"fused_chain: x must be contiguous [B, H, W, C] float32 or bfloat16, got "
-            f"{tuple(x.shape)} {x.dtype}")
-    if len(blocks) > MAX_BLOCKS:
-        raise ValueError(f"fused_chain: at most {MAX_BLOCKS} blocks a call, got {len(blocks)}")
-    if any(k != "id" for k in blocks[1:]):
-        raise NotImplementedError(
-            "fused_chain: the CUDA kernel takes a projection block only as the first of a "
-            f"chain, got {blocks}")
-    per_block = split_folded(folded, blocks)
-    vec = 16 // x.element_size()
-    b, h, w, cin = x.shape
+def _check_chain_weights(name: str, x: torch.Tensor, per_block, blocks, quant: bool
+                         ) -> tuple[list, list[int], list[int], int]:
+    """Types and shapes of a chain's folded weights against ``x``; returns
+    (pointers, input channels per block, planes per block, output channels).
+    int8 weights are copied 16 channels at a time."""
+    vec = 16 if quant else 16 // x.element_size()
+    cin = x.shape[-1]
     cout = per_block[0][6].shape[-1]
     ptrs: list[int | None] = []
     cins, planes = [], []
     for kind, t in zip(blocks, per_block):
-        for wt in t:
-            check_cuda_tensor("fused_chain", wt, x)
+        for j, wt in enumerate(t):
+            want = None if not quant else (torch.int8 if j % 3 == 0 else torch.float32)
+            check_cuda_tensor(name, wt, x, want)
         ci, pl = t[0].shape
         ok = (t[3].shape == (3, 3, pl, pl) and t[6].shape == (pl, cout) and ci == cin
               and all(t[i].numel() == n for i, n in ((1, pl), (2, pl), (4, pl), (5, pl),
@@ -159,24 +190,56 @@ def fused_chain(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequenc
             ok = False
         if not ok or ci % vec or pl % vec or cout % vec:
             raise ValueError(
-                f"fused_chain: block {kind!r} with weights {[tuple(v.shape) for v in t]} does "
+                f"{name}: block {kind!r} with weights {[tuple(v.shape) for v in t]} does "
                 f"not fit input channels {cin}, output channels {cout} (channel counts must "
                 f"be multiples of {vec})")
         ptrs += [v.data_ptr() for v in t] + [None] * (12 - len(t))
         cins.append(cin)
         planes.append(pl)
         cin = cout
+    return ptrs, cins, planes, cout
+
+
+def fused_chain(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequence[str],
+                band: int = 32, act_s: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A chain of bottlenecks ``[B, H, W, Cin] -> [B, Ho, Wo, Cout]``; with
+    ``act_s`` in the int8 mode. ``band`` is the TPU kernel's VMEM tiling and
+    does not change the result: the CUDA kernel ignores it.
+    ``fused_chain.launches`` counts kernel launches."""
+    blocks = tuple(blocks)
+    if x.device.type == "cpu":
+        return fused_chain_plain(x, folded, blocks, band=band, act_s=act_s)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_chain: unsupported device {x.device}")
+    _check_blocks(blocks, act_s, len(folded))
+    if x.dim() != 4 or x.dtype not in DTYPE_CODE or not x.is_contiguous():
+        raise ValueError(
+            f"fused_chain: x must be contiguous [B, H, W, C] float32 or bfloat16, got "
+            f"{tuple(x.shape)} {x.dtype}")
+    if len(blocks) > MAX_BLOCKS:
+        raise ValueError(f"fused_chain: at most {MAX_BLOCKS} blocks a call, got {len(blocks)}")
+    if any(k != "id" for k in blocks[1:]):
+        raise NotImplementedError(
+            "fused_chain: the CUDA kernel takes a projection block only as the first of a "
+            f"chain, got {blocks}")
+    quant = act_s is not None
+    ptrs, cins, planes, cout = _check_chain_weights(
+        "fused_chain", x, split_folded(folded, blocks), blocks, quant)
+    if quant:
+        act_s = act_s.to(device=x.device, dtype=torch.float32).contiguous()
+    b, h, w, _ = x.shape
     props = torch.cuda.get_device_properties(x.device)
     plan = chain_plan(b, h, w, cout, max(planes), blocks, x.element_size(),
-                      props.multi_processor_count)
+                      props.multi_processor_count, q_cin=cins[0] if quant else 0)
     out = torch.empty((b, plan["ho"], plan["wo"], cout), dtype=x.dtype, device=x.device)
     if b == 0:
         return out
     scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=x.device)
     n = len(blocks)
-    fn = _build.library("fused_resnet").avcer_fused_chain
+    lib = _build.library("fused_resnet")
+    fn = lib.avcer_fused_chain_q if quant else lib.avcer_fused_chain
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 10 + [ctypes.c_void_p] * (2 if quant else 1))
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -185,7 +248,7 @@ def fused_chain(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequenc
                 (ctypes.c_int * n)(*[KINDS[k] for k in blocks]),
                 (ctypes.c_int * n)(*cins), (ctypes.c_int * n)(*planes), n,
                 b, h, w, cout, plan["th"], plan["tw"], plan["g"], plan["grid"],
-                DTYPE_CODE[x.dtype], stream)
+                DTYPE_CODE[x.dtype], *((act_s.data_ptr(),) if quant else ()), stream)
     if rc != 0:
         raise RuntimeError(f"fused_chain kernel launch failed: CUDA error {rc}")
     fused_chain.launches += 1
@@ -198,3 +261,143 @@ fused_chain.launches = 0
 def fused_layer1(x: torch.Tensor, folded: Sequence[torch.Tensor], band: int = 32) -> torch.Tensor:
     """The whole torchvision-resnet50 layer1: ``[B, H, W, 64] -> [.., 256]``."""
     return fused_chain(x, folded, ("ds", "id", "id"), band=band)
+
+
+#: a flat band holds about this many pixels (rows x pitch, halo included)
+FLAT_PIXELS = 3072
+
+
+def flat_plan(h: int, w: int, n: int, band: int) -> dict[str, int]:
+    """Band geometry of ``fused_chain_flat``: ``th`` output rows a band (at
+    most ``band``, and few enough for the band's pixels), ``nb`` bands,
+    ``hp = nb * th`` padded rows, and the row pitch: the frame's width plus
+    the halo columns, rounded up to a multiple of 8 as the TPU kernel's."""
+    pitch = -(-(w + 2 * n) // 8) * 8
+    th = max(1, min(h, band, FLAT_PIXELS // pitch - 2 * n))
+    nb = -(-h // th)
+    return {"th": th, "nb": nb, "hp": nb * th, "pitch": pitch, "rows": th + 2 * n}
+
+
+def _flat_inputs(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequence[str],
+                 band: int, align: int):
+    """What the flat kernel reads: the padded input flattened to ``[B, (hp +
+    2n) * pitch, cin]``, the per-band frame mask ``[nb, rows * pitch]`` f32,
+    the weights (conv1's and the projection's input rows zero-padded with the
+    input's channels to a multiple of ``align``), and the plan."""
+    blocks = tuple(blocks)
+    if not blocks or any(b not in ("ds", "id") for b in blocks):
+        raise ValueError("fused_chain_flat handles stride-1 chains only")
+    bsz, h, w, cin = x.shape
+    n = len(blocks)
+    folded = list(folded)
+    split_folded(folded, blocks)  # the count of tensors fits the blocks
+    pad_ch = (-cin) % align
+    if pad_ch:
+        if blocks[0] == "id":
+            raise ValueError(
+                f"fused_chain_flat with cin % {align} != 0 needs a projection entry block "
+                "(identity residuals cannot be channel-padded)")
+        folded[0] = F.pad(folded[0], (0, 0, 0, pad_ch))
+        folded[9] = F.pad(folded[9], (0, 0, 0, pad_ch))
+    plan = flat_plan(h, w, n, band)
+    hp, pitch, th, rows = plan["hp"], plan["pitch"], plan["th"], plan["rows"]
+    xp = F.pad(x, (0, pad_ch, n, pitch - w - n, n, n + hp - h))
+    xp = xp.reshape(bsz, (hp + 2 * n) * pitch, cin + pad_ch)
+    ri = torch.arange(hp + 2 * n, device=x.device)[:, None]
+    ci = torch.arange(pitch, device=x.device)[None, :]
+    ok2d = (ri >= n) & (ri < n + h) & (ci >= n) & (ci < n + w)
+    mask = torch.stack([ok2d[rb * th: rb * th + rows] for rb in range(plan["nb"])])
+    return xp, mask.float().reshape(plan["nb"], rows * pitch), folded, plan
+
+
+def _unflatten(out: torch.Tensor, h: int, w: int, n: int, plan: dict[str, int]) -> torch.Tensor:
+    out = out.reshape(out.shape[0], plan["hp"], plan["pitch"], out.shape[-1])
+    return out[:, :h, n:n + w].contiguous()
+
+
+def fused_chain_flat_plain(x: torch.Tensor, folded: Sequence[torch.Tensor],
+                           blocks: Sequence[str], band: int = 32) -> torch.Tensor:
+    """``fused_chain_flat`` in plain PyTorch over the same flat bands: each
+    band is read as an image of ``rows x pitch`` pixels, its convs are SAME
+    over that image (they differ from the flat row-offset taps only in the
+    first and last column, which are halo), conv1's output is multiplied by
+    the frame mask, and the central rows go to the flat output."""
+    blocks = tuple(blocks)
+    bsz, h, w, _ = x.shape
+    n = len(blocks)
+    xp, mask, folded, plan = _flat_inputs(x, folded, blocks, band, 1)
+    th, rows, pitch = plan["th"], plan["rows"], plan["pitch"]
+    per_block = split_folded(folded, blocks)
+    cout = per_block[0][6].shape[-1]
+    out = x.new_empty((bsz, plan["hp"] * pitch, cout))
+    for rb in range(plan["nb"]):
+        cur = xp[:, rb * th * pitch:(rb * th + rows) * pitch]
+        cur = cur.reshape(bsz, rows, pitch, -1).permute(0, 3, 1, 2)
+        okd = mask[rb].reshape(1, 1, rows, pitch).to(x.dtype)
+        for kind, t in zip(blocks, per_block):
+            t1 = F.relu(conv_bn_plain(cur, *t[0:3])) * okd
+            t2 = F.relu(conv_bn_plain(t1, *t[3:6]))
+            y = conv_bn_plain(t2, *t[6:9])
+            res = cur if kind == "id" else conv_bn_plain(cur, *t[9:12])
+            cur = F.relu(y + res)
+        central = cur[:, :, n:n + th].permute(0, 2, 3, 1)
+        out[:, rb * th * pitch:(rb + 1) * th * pitch] = central.reshape(bsz, th * pitch, cout)
+    return _unflatten(out, h, w, n, plan)
+
+
+def fused_chain_flat(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequence[str],
+                     band: int = 32) -> torch.Tensor:
+    """A stride-1 chain (``"ds"`` and ``"id"`` blocks) ``[B, H, W, Cin] -> [B,
+    H, W, Cout]`` through the flat kernel: the wrapper pads and flattens the
+    input and builds the frame mask, the kernel works on flat bands of at most
+    ``band`` output rows, the wrapper unflattens. Same result as
+    ``fused_chain``. ``fused_chain_flat.launches`` counts kernel launches."""
+    blocks = tuple(blocks)
+    if x.device.type == "cpu":
+        return fused_chain_flat_plain(x, folded, blocks, band=band)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_chain_flat: unsupported device {x.device}")
+    if x.dim() != 4 or x.dtype not in DTYPE_CODE or not x.is_contiguous():
+        raise ValueError(
+            f"fused_chain_flat: x must be contiguous [B, H, W, C] float32 or bfloat16, got "
+            f"{tuple(x.shape)} {x.dtype}")
+    if len(blocks) > MAX_BLOCKS:
+        raise ValueError(f"fused_chain_flat: at most {MAX_BLOCKS} blocks a call, got {len(blocks)}")
+    if "ds" in blocks[1:]:
+        raise NotImplementedError(
+            "fused_chain_flat: the CUDA kernel takes a projection block only as the first of "
+            f"a chain, got {blocks}")
+    bsz, h, w, _ = x.shape
+    n = len(blocks)
+    xp, mask, folded, plan = _flat_inputs(x, folded, blocks, band, 16 // x.element_size())
+    xp = xp.contiguous()
+    folded = [t.contiguous() for t in folded]
+    ptrs, cins, planes, cout = _check_chain_weights(
+        "fused_chain_flat", xp, split_folded(folded, blocks), blocks, False)
+    out = torch.empty((bsz, plan["hp"] * plan["pitch"], cout), dtype=x.dtype, device=x.device)
+    if bsz == 0:
+        return _unflatten(out, h, w, n, plan)
+    props = torch.cuda.get_device_properties(x.device)
+    grid = max(1, min(bsz * plan["nb"], BLOCKS_PER_SM * props.multi_processor_count))
+    scratch_bytes = (plan["rows"] * plan["pitch"] * (cout + 2 * max(planes)) * grid
+                     * x.element_size())
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=x.device)
+    fn = _build.library("fused_resnet").avcer_fused_chain_flat
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(xp.data_ptr(), mask.data_ptr(), out.data_ptr(), scratch.data_ptr(), scratch_bytes,
+                (ctypes.c_void_p * (12 * n))(*ptrs),
+                (ctypes.c_int * n)(*[KINDS[k] for k in blocks]),
+                (ctypes.c_int * n)(*cins), (ctypes.c_int * n)(*planes), n,
+                bsz, plan["nb"], plan["th"], plan["pitch"], xp.shape[-1], cout, grid,
+                DTYPE_CODE[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_chain_flat kernel launch failed: CUDA error {rc}")
+    fused_chain_flat.launches += 1
+    return _unflatten(out, h, w, n, plan)
+
+
+fused_chain_flat.launches = 0

@@ -10,6 +10,11 @@ shift)``; ``fpn_merge`` ``(w [3, 3, C, C], inv, shift)``; ``up`` ``[B, H, W,
 C]`` the upsampled coarser level. Returns ``(loc, conf, landmarks)`` as
 ``[B, H, W, out]`` and, with ``emit_feature``, the scale's FPN feature.
 
+The int8 option (``act_s``), as the JAX function's: the lateral, the merge and
+the five SSH convs hold ``(wq int8, mult f32, shift f32)`` with ``mult = sx *
+sw * bn_inv``, ``act_s`` their static activation scales in the order lateral,
+merge, then the five SSH convs; the heads stay exact in the compute dtype.
+
 Dispatch rule, with no fallback: a CPU tensor goes to
 ``fused_ssh_heads_plain``; a CUDA tensor launches the kernel (one launch per
 call) or raises.
@@ -26,20 +31,22 @@ import torch.nn.functional as F
 from avcer_tpu_torch import _build
 from avcer_tpu_torch.ops.cuda.fused_resnet_kernel import (BLOCKS_PER_SM, DTYPE_CODE,
                                                           REGION_PIXELS, check_cuda_tensor,
-                                                          conv_bn_plain, tile_edge)
+                                                          conv_bn_plain, conv_bn_plain_q,
+                                                          tile_edge)
 
 
 def _check_args(conv_folded, head_folded, fpn_lat, fpn_merge, act_s) -> None:
-    if act_s is not None:
-        raise NotImplementedError(
-            "fused_ssh_heads: the int8 mode (act_s) is not ported; it comes with int8 "
-            "serving (ROADMAP queue 1 item 11)")
     if fpn_merge is not None and fpn_lat is None:
         raise ValueError("fpn_merge requires fpn_lat")
     if len(conv_folded) != 15 or len(head_folded) != 6:
         raise ValueError(
             f"fused_ssh_heads: expected 5 x (w, inv, shift) and 3 x (w, bias), got "
             f"{len(conv_folded)} and {len(head_folded)} tensors")
+    n_scales = 5 + (fpn_lat is not None) + (fpn_merge is not None)
+    if act_s is not None and tuple(act_s.shape) != (n_scales,):
+        raise ValueError(
+            f"fused_ssh_heads: act_s must hold one scale per conv ({n_scales}), got "
+            f"{tuple(act_s.shape)}")
 
 
 def _activate(y: torch.Tensor, leaky: float) -> torch.Tensor:
@@ -55,20 +62,28 @@ def fused_ssh_heads_plain(
     emit_feature: bool = False, band: int = 32, act_s=None,
 ) -> tuple[torch.Tensor, ...]:
     """The scale in plain PyTorch (``F.conv2d`` on NCHW views, f32
-    accumulation, the kernel's rounding points)."""
+    accumulation or, with ``act_s``, exact integer sums in the convs; the
+    kernel's rounding points)."""
     _check_args(conv_folded, head_folded, fpn_lat, fpn_merge, act_s)
+    scales = iter(act_s) if act_s is not None else None
+
+    def conv(h, t):
+        if scales is None:
+            return conv_bn_plain(h, *t)
+        return conv_bn_plain_q(h, next(scales), *t)
+
     f = x.permute(0, 3, 1, 2)
     if fpn_lat is not None:
-        f = _activate(conv_bn_plain(f, *fpn_lat), leaky)
+        f = _activate(conv(f, fpn_lat), leaky)
     if up is not None:
         f = f + up.to(x.dtype).permute(0, 3, 1, 2)
     if fpn_merge is not None:
-        f = _activate(conv_bn_plain(f, *fpn_merge), leaky)
+        f = _activate(conv(f, fpn_merge), leaky)
     cf = conv_folded
-    c3 = conv_bn_plain(f, *cf[0:3])
-    c5_1 = _activate(conv_bn_plain(f, *cf[3:6]), leaky)
-    c5 = conv_bn_plain(c5_1, *cf[6:9])
-    c7 = conv_bn_plain(_activate(conv_bn_plain(c5_1, *cf[9:12]), leaky), *cf[12:15])
+    c3 = conv(f, cf[0:3])
+    c5_1 = _activate(conv(f, cf[3:6]), leaky)
+    c5 = conv(c5_1, cf[6:9])
+    c7 = conv(_activate(conv(c5_1, cf[9:12]), leaky), cf[12:15])
     cat = F.relu(torch.cat([c3, c5, c7], dim=1)).permute(0, 2, 3, 1).float()
     outs = tuple((torch.matmul(cat, w.float()).to(x.dtype) + b.reshape(-1))
                  for w, b in zip(head_folded[0::2], head_folded[1::2]))
@@ -78,9 +93,11 @@ def fused_ssh_heads_plain(
 
 
 def ssh_plan(b: int, h: int, w: int, c: int, has_merge: bool, itemsize: int,
-             sm_count: int) -> dict[str, int]:
+             sm_count: int, q_ci: int = 0) -> dict[str, int]:
     """Tiling of one call, as ``csrc/fused_ssh.cu`` derives it again from
-    ``th``, ``tw``, ``g`` and ``grid``."""
+    ``th``, ``tw``, ``g`` and ``grid``. ``q_ci``: with the int8 option the
+    input's channels (each thread block then also holds an int8 plane of its
+    widest conv input), else 0."""
     th, tw = tile_edge(h), tile_edge(w)
     halo = 4 if has_merge else 3
     rh, rw = th + 2 * halo, tw + 2 * halo
@@ -88,8 +105,9 @@ def ssh_plan(b: int, h: int, w: int, c: int, has_merge: bool, itemsize: int,
     nwork = -(-b // g) * -(-h // th) * -(-w // tw)
     grid = max(1, min(nwork, BLOCKS_PER_SM * sm_count))
     slab = g * rh * rw * (c * (3 if has_merge else 2) + c // 2)
+    qslab = g * rh * rw * max(q_ci, c) if q_ci else 0
     return {"th": th, "tw": tw, "halo": halo, "g": g, "nwork": nwork, "grid": grid,
-            "scratch_bytes": slab * grid * itemsize}
+            "scratch_bytes": (slab * itemsize + qslab) * grid}
 
 
 def fused_ssh_heads(
@@ -99,7 +117,7 @@ def fused_ssh_heads(
     emit_feature: bool = False, band: int = 32, act_s=None,
 ) -> tuple[torch.Tensor, ...]:
     """One FPN scale: optional lateral + top-down add + merge, the SSH
-    module, the three heads. ``band`` is the TPU kernel's VMEM tiling and is
+    module, the three heads; with ``act_s`` the convs in int8. ``band`` is the TPU kernel's VMEM tiling and is
     ignored by the CUDA kernel. ``fused_ssh_heads.launches`` counts kernel
     launches."""
     if x.device.type == "cpu":
@@ -114,9 +132,14 @@ def fused_ssh_heads(
             f"{tuple(x.shape)} {x.dtype}")
     b, h, w, ci = x.shape
     c = fpn_lat[0].shape[-1] if fpn_lat is not None else conv_folded[0].shape[-2]
+    quant = act_s is not None
     vec = 16 // x.element_size()
-    weights = list(fpn_lat or ()) + list(fpn_merge or ()) + list(conv_folded) + list(head_folded)
-    for t in weights:
+    conv_weights = list(fpn_lat or ()) + list(fpn_merge or ()) + list(conv_folded)
+    weights = conv_weights + list(head_folded)
+    for j, t in enumerate(conv_weights):
+        want = None if not quant else (torch.int8 if j % 3 == 0 else torch.float32)
+        check_cuda_tensor("fused_ssh_heads", t, x, want)
+    for t in head_folded:
         check_cuda_tensor("fused_ssh_heads", t, x)
     q = c // 4
     shapes_ok = (
@@ -127,10 +150,13 @@ def fused_ssh_heads(
         and (fpn_lat is None or tuple(fpn_lat[0].shape) == (ci, c))
         and (fpn_lat is not None or ci == c)
         and (fpn_merge is None or tuple(fpn_merge[0].shape) == (3, 3, c, c)))
-    if not shapes_ok or c % (4 * vec) or ci % vec:
+    c_align = 64 if quant else 4 * vec  # int8 weights are copied 16 channels at a time
+    if not shapes_ok or c % c_align or ci % (16 if quant else vec):
         raise ValueError(
             f"fused_ssh_heads: weights {[tuple(t.shape) for t in weights]} do not fit input "
-            f"channels {ci}, feature channels {c} (C must be a multiple of {4 * vec})")
+            f"channels {ci}, feature channels {c} (C must be a multiple of {c_align})")
+    if quant:
+        act_s = act_s.to(device=x.device, dtype=torch.float32).contiguous()
     if up is not None:
         if fpn_lat is None:
             raise ValueError("fused_ssh_heads: up requires fpn_lat")
@@ -147,15 +173,17 @@ def fused_ssh_heads(
         return tuple(outs)
     props = torch.cuda.get_device_properties(x.device)
     plan = ssh_plan(b, h, w, c, fpn_merge is not None, x.element_size(),
-                    props.multi_processor_count)
+                    props.multi_processor_count, q_ci=ci if quant else 0)
     scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=x.device)
     ptrs = ([t.data_ptr() for t in fpn_lat] if fpn_lat is not None else [None] * 3)
     ptrs += ([t.data_ptr() for t in fpn_merge] if fpn_merge is not None else [None] * 3)
     ptrs += [t.data_ptr() for t in conv_folded] + [t.data_ptr() for t in head_folded]
     out_ptrs = [o.data_ptr() for o in outs] + ([None] if not emit_feature else [])
-    fn = _build.library("fused_ssh").avcer_fused_ssh
+    lib = _build.library("fused_ssh")
+    fn = lib.avcer_fused_ssh_q if quant else lib.avcer_fused_ssh
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * (2 if quant else 1))
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -163,7 +191,7 @@ def fused_ssh_heads(
                 (ctypes.c_void_p * 27)(*ptrs), (ctypes.c_int * 3)(*head_n),
                 (ctypes.c_void_p * 4)(*out_ptrs), scratch.data_ptr(), plan["scratch_bytes"],
                 b, h, w, ci, c, float(leaky), plan["th"], plan["tw"], plan["g"], plan["grid"],
-                DTYPE_CODE[x.dtype], stream)
+                DTYPE_CODE[x.dtype], *((act_s.data_ptr(),) if quant else ()), stream)
     if rc != 0:
         raise RuntimeError(f"fused_ssh_heads kernel launch failed: CUDA error {rc}")
     fused_ssh_heads.launches += 1

@@ -6,10 +6,18 @@ The port has no checkpoint loader yet. When the release files are absent it
 warns and uses its seeded init, as the JAX package does; when any of them is
 present under ``weights_dir`` it raises rather than serve random weights
 beside real ones or load them half-way.
+
+With ``quant == "int8"`` in a stage's config its model is built in the int8
+variant over the same state dict; the stage then seeds the activation scales
+(see each stage). A JAX tree that carries an ``act_scales`` collection hands
+its calibrated scales to the model before that, so both sides quantise with
+the same scales; the JAX package's calibration sidecars on disk wait for
+checkpoint loading (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 from typing import Any, Mapping, Optional
@@ -20,7 +28,7 @@ from avcer_tpu_torch.core.config import PipelineConfig
 from avcer_tpu_torch.core import convert
 from avcer_tpu_torch.models.audio_heads import ExprModel
 from avcer_tpu_torch.models.emotion_resnet import EmotionResNet50
-from avcer_tpu_torch.models.layers import cast_compute, seeded_init_
+from avcer_tpu_torch.models.layers import cast_compute, load_act_scales, seeded_init_
 from avcer_tpu_torch.models.retinaface import RetinaFace
 from avcer_tpu_torch.models.temporal_lstm import TemporalLSTM
 from avcer_tpu_torch.models.wav2vec2 import Wav2Vec2Config
@@ -76,16 +84,20 @@ def build_pipeline(
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
+    w2v2 = wav2vec2_config or Wav2Vec2Config()
+    if cfg.audio.quant == "int8":
+        w2v2 = dataclasses.replace(w2v2, quant=True)
     models = {
         # the fused switches select the CUDA kernels K3 / K4 inside the models
         "retinaface": RetinaFace(
             fused_layer1=cfg.detector.fused_layer1, fused_tails=cfg.detector.fused_tails,
             fused_entries=cfg.detector.fused_entries, fused_ssh=cfg.detector.fused_ssh,
-            fused_fpn=cfg.detector.fused_fpn),
+            fused_fpn=cfg.detector.fused_fpn, quant=cfg.detector.quant == "int8"),
         "emotion_resnet50": EmotionResNet50(cfg.visual.num_classes, fused=cfg.visual.fused,
-                                            fused_entries=cfg.visual.fused_entries),
+                                            fused_entries=cfg.visual.fused_entries,
+                                            quant=cfg.visual.quant == "int8"),
         "temporal_lstm": TemporalLSTM(cfg.visual.num_classes),
-        "expr_model": ExprModel(cfg.audio.num_classes, wav2vec2_config or Wav2Vec2Config()),
+        "expr_model": ExprModel(cfg.audio.num_classes, w2v2),
     }
     given = dict(jax_variables or {})
     unknown = set(given) - set(models)
@@ -100,6 +112,9 @@ def build_pipeline(
     for family, model in models.items():
         if family in given:
             model.load_state_dict(convert.CONVERTERS[family](given[family]), strict=True)
+            scales = convert.act_scales(family, given[family])
+            if scales is not None:
+                load_act_scales(model, scales)
         else:
             seeded_init_(model, gen)
         model.eval().requires_grad_(False)
@@ -112,6 +127,7 @@ def build_pipeline(
     visual = VisualStage(place(models["emotion_resnet50"], cfg.visual.dtype),
                          models["temporal_lstm"].to(device),
                          num_classes=cfg.visual.num_classes,
-                         batch_size=cfg.visual.batch_size, device=device)
+                         batch_size=cfg.visual.batch_size, device=device,
+                         quant=cfg.visual.quant)
     audio = AudioStage(place(models["expr_model"], cfg.audio.dtype), cfg.audio, device=device)
     return Pipeline(cfg, detect, visual, audio, device=device)

@@ -8,22 +8,36 @@ on a card with no OpenCV; it is within 1 LSB of cv2. Greedy NMS on the card
 is the CUDA kernel (``ops.cuda.nms_kernel``). The detector's fused switches
 (``DetectorConfig.fused_*``) are the model's: ``pipeline.builder`` hands them
 to ``RetinaFace``, and the stage runs whichever model it is given.
+
+int8 (``DetectorConfig.quant == "int8"``): the model's static activation
+scales are seeded at build on two noise frames, refined once per process on
+the first real batch's first two frames, and watched every ``RECALIB_EVERY``
+batches (scales only grow; growth above 5 % is logged). Every calibration
+forward runs the model's unfused int8 modules (``layers.calibrating``), also
+when the stage serves through the fused kernels.
 """
 
 from __future__ import annotations
 
+import logging
+import threading
 from dataclasses import dataclass
+from typing import Mapping
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from avcer_tpu_torch.core.config import DetectorConfig
+from avcer_tpu_torch.models import layers
 from avcer_tpu_torch.ops import boxes as box_ops
 from avcer_tpu_torch.ops import nms as nms_ops
 from avcer_tpu_torch.ops.cuda.nms_kernel import nms_mask
 from avcer_tpu_torch.ops.image import (letterbox_params, resize_bilinear_uint8,
                                        retinaface_normalize)
+
+
+log = logging.getLogger("avcer_tpu_torch")
 
 
 @dataclass
@@ -37,6 +51,9 @@ class Detections:
 
 
 class DetectStage:
+    #: int8 drift watch: batches between sampled re-calibration forwards
+    RECALIB_EVERY = 64
+
     def __init__(self, cfg: DetectorConfig, model: torch.nn.Module,
                  device: torch.device | str = "cuda"):
         if cfg.transfer_format != "bgr":
@@ -48,15 +65,75 @@ class DetectStage:
             raise ValueError(
                 f"detector stride {cfg.stride}: detect stride is not ported "
                 "(ROADMAP queue 1, serving presets)")
-        if cfg.backbone != "resnet50" or cfg.quant != "none":
+        if cfg.backbone != "resnet50" or cfg.quant not in ("none", "int8"):
             raise ValueError(
                 f"backbone={cfg.backbone!r} quant={cfg.quant!r}: only the "
-                "resnet50 bf16/f32 detector is ported (ROADMAP queue 1, int8 "
-                "serving and serving presets)")
+                "resnet50 detector is ported, exact or int8 (ROADMAP queue 1, "
+                "serving presets)")
         self.cfg = cfg
         self.model = model
         self.device = torch.device(device)
         self._priors: dict[tuple[int, int], torch.Tensor] = {}
+        self.quant = cfg.quant == "int8"
+        if self.quant != bool(getattr(model, "quant", False)):
+            raise ValueError(f"quant={cfg.quant!r} does not fit the model it was given")
+        self._real_calibrated = False
+        self._calib_lock = threading.Lock()
+        self._batches_seen = 0
+        #: calibration forwards made so far (seed, refinement, drift watch)
+        self.calibration_forwards = 0
+        if self.quant:
+            # static scales: a dynamic scale costs every conv a reduction over
+            # its whole input. Noise frames bound the first layers' ranges
+            # until the first real batch refines them.
+            self.calibrate(np.random.default_rng(0).integers(0, 255, (2, 160, 160, 3), np.uint8))
+
+    @torch.inference_mode()
+    def _calibrate_device(self, frames: torch.Tensor) -> None:
+        with layers.calibrating(self.model):
+            self.model(retinaface_normalize(frames))
+        self.calibration_forwards += 1
+
+    def calibrate(self, frames: np.ndarray) -> None:
+        """Take the running max-abs of every int8 conv's input over ``frames``
+        ([N, H, W, 3] uint8 BGR) into the model's activation scales. One
+        unfused forward; scales only grow, so calling again is cumulative."""
+        self._calibrate_device(torch.from_numpy(np.ascontiguousarray(frames)).to(self.device))
+
+    def merge_act_scales(self, scales: Mapping[str, torch.Tensor]) -> None:
+        """Adopt calibration scales made elsewhere: the elementwise running
+        max with the model's own. Raises on a structure mismatch."""
+        cur = layers.act_scales(self.model)
+        if not cur:
+            return
+        layers.load_act_scales(self.model, layers.merge_act_scales_trees(cur, scales))
+        self._real_calibrated = True
+
+    def _watch_calibration(self, frames_dev: torch.Tensor) -> None:
+        """Before a batch is served in int8: refine the noise-seeded scales on
+        the first real batch's first two frames (once per process, under the
+        lock), then re-run that forward every ``RECALIB_EVERY`` batches and
+        warn when a scale grew by more than 5 %: a quiet first clip would
+        leave later, louder clips clipped."""
+        if not self._real_calibrated:
+            with self._calib_lock:
+                if not self._real_calibrated:
+                    self._calibrate_device(frames_dev[:2])
+                    self._real_calibrated = True
+            return
+        with self._calib_lock:
+            self._batches_seen += 1
+            if self._batches_seen % self.RECALIB_EVERY:
+                return
+            old = layers.act_scales(self.model)
+            self._calibrate_device(frames_dev[:2])
+            new = layers.act_scales(self.model)
+        growth = max(float(new[k] / torch.clamp_min(old[k], 1e-10)) for k in new)
+        if growth > 1.05:
+            log.warning(
+                "int8 act_scales grew %.1f%% on a sampled batch: earlier clips were "
+                "quantized with too-small scales; scales updated from here on. Consider "
+                "calibrate() on representative frames up front.", (growth - 1) * 100)
 
     def prepare_batch(self, frames: np.ndarray) -> tuple[torch.Tensor, float]:
         """Upload [B, H, W, 3] uint8 BGR and letterbox it on the device to the
@@ -104,6 +181,8 @@ class DetectStage:
         """Enqueue detection for a batch: (packed on the device, scale,
         letterboxed frames on the device for the crop stage)."""
         frames_dev, scale = self.prepare_batch(frames)
+        if self.quant:
+            self._watch_calibration(frames_dev)
         return self.forward(frames_dev), scale, frames_dev
 
     @staticmethod

@@ -63,7 +63,8 @@ def check_supported(cfg: PipelineConfig) -> None:
         "heatmaps (ROADMAP queue 1, other modules: Grad-CAM)": bool(cfg.heatmaps),
         "save_face_crops (ROADMAP queue 1, other modules)": cfg.save_face_crops,
         "visual.cnn_stride != 1 (ROADMAP queue 1, serving presets)": cfg.visual.cnn_stride != 1,
-        "visual int8 (ROADMAP queue 1, int8 serving)": cfg.visual.quant != "none",
+        f"visual.quant={cfg.visual.quant!r} (only 'none' and 'int8' exist)":
+            cfg.visual.quant not in ("none", "int8"),
         "calibrate (not ported: batch sizes are measured with bench.py)": cfg.calibrate,
     }
     bad = [name for name, hit in unsupported.items() if hit]

@@ -11,15 +11,23 @@ temporal plan that reproduces the reference's per-frame loop
 
 ``VisualConfig.fused`` and ``fused_entries`` are the static model's switches:
 ``pipeline.builder`` hands them to ``EmotionResNet50``.
+
+int8 (``VisualConfig.quant == "int8"``): the static CNN's activation scales
+are seeded at build on two noise crops and refined once per process on the
+first real crops (running max); calibration forwards run the unfused int8
+modules (``layers.calibrating``). The LSTM stays exact.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
+from typing import Mapping
 
 import numpy as np
 import torch
 
+from avcer_tpu_torch.models import layers
 from avcer_tpu_torch.ops.image import crop_and_resize, vggface_normalize
 
 
@@ -76,12 +84,68 @@ def build_temporal_plan(present: np.ndarray, step: int, window: int = 10) -> Tem
 class VisualStage:
     def __init__(self, static_model: torch.nn.Module, lstm_model: torch.nn.Module,
                  num_classes: int = 7, batch_size: int = 256,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", quant: str = "none"):
         self.static_model = static_model
         self.lstm_model = lstm_model
         self.num_classes = num_classes
         self.batch_size = batch_size
         self.device = torch.device(device)
+        if quant not in ("none", "int8") or (quant == "int8") != bool(
+                getattr(static_model, "quant", False)):
+            raise ValueError(f"quant={quant!r} does not fit the static model it was given")
+        self.quant = quant
+        self._real_calibrated = quant != "int8"
+        self._calib_lock = threading.Lock()
+        #: calibration forwards made so far (seed and refinement)
+        self.calibration_forwards = 0
+        if quant == "int8":
+            self.calibrate(np.random.default_rng(0).integers(0, 255, (2, 224, 224, 3), np.uint8))
+
+    @torch.inference_mode()
+    def _calibrate_device(self, crops: torch.Tensor) -> None:
+        with layers.calibrating(self.static_model):
+            self.static_model(vggface_normalize(crops))
+        self.calibration_forwards += 1
+
+    def calibrate(self, crops: np.ndarray) -> None:
+        """Take the running max-abs of every int8 conv's input over ``crops``
+        ([N, 224, 224, 3] uint8 BGR) into the static model's activation
+        scales (cumulative: scales only grow)."""
+        self._calibrate_device(torch.from_numpy(np.ascontiguousarray(crops)).to(self.device))
+
+    def merge_act_scales(self, scales: Mapping[str, torch.Tensor]) -> None:
+        """Adopt calibration scales made elsewhere: the elementwise running
+        max with the model's own. Raises on a structure mismatch."""
+        cur = layers.act_scales(self.static_model)
+        if not cur:
+            return
+        layers.load_act_scales(self.static_model, layers.merge_act_scales_trees(cur, scales))
+        self._real_calibrated = True
+
+    def ensure_calibrated_crops(self, crops: np.ndarray) -> None:
+        """One refinement of the int8 scales on the first real crops (two of
+        them, repeated if there is one); nothing once calibrated."""
+        if self._real_calibrated or crops.shape[0] == 0:
+            return
+        with self._calib_lock:
+            if not self._real_calibrated:
+                self.calibrate(np.resize(crops, (2,) + crops.shape[1:]))
+                self._real_calibrated = True
+
+    def ensure_calibrated_from_frames(self, frames_dev: torch.Tensor, present_idx: np.ndarray,
+                                      boxes: np.ndarray) -> None:
+        """The same refinement from the device frame buffer: the first eight
+        present frames' crops (repeated if there are fewer)."""
+        p = present_idx.shape[0]
+        if self._real_calibrated or p == 0:
+            return
+        with self._calib_lock:
+            if not self._real_calibrated:
+                sel = np.resize(np.arange(p), 8)
+                idx = torch.from_numpy(present_idx[sel].astype(np.int64)).to(self.device)
+                bxs = torch.from_numpy(boxes[sel].astype(np.int64)).to(self.device)
+                self._calibrate_device(crop_and_resize(frames_dev, idx, bxs, 224))
+                self._real_calibrated = True
 
     @torch.inference_mode()
     def run_static_from_frames(
@@ -96,6 +160,7 @@ class VisualStage:
         if p == 0:
             return (np.zeros((0, self.num_classes), np.float32),
                     np.zeros((0, 512), np.float32))
+        self.ensure_calibrated_from_frames(frames_dev, present_idx, boxes)
         idx_all = torch.from_numpy(present_idx.astype(np.int64)).to(self.device)
         boxes_all = torch.from_numpy(boxes.astype(np.int64)).to(self.device)
         outs = []

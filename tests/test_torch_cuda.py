@@ -12,7 +12,8 @@ import torch
 from avcer_tpu_torch.ops.cuda import (attention_kernel, fused_resnet_kernel, fused_ssh_kernel,
                                       nms_kernel)
 
-from torch_fused_cases import chain_weights, ssh_weights, tensors
+from torch_fused_cases import (chain_weights, quant_tensors, quantize_folded, ssh_weights,
+                               tensors)
 
 pytestmark = pytest.mark.cuda
 
@@ -178,6 +179,176 @@ def test_fused_ssh_heads_kernel(cuda_device, shape, c, leaky, lat, merge, has_up
         torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol)
 
 
+# The int8 mode copies its weights 16 channels at a time: channel counts are
+# multiples of 16. Otherwise the geometry of CHAIN_CASES: every frame edge,
+# sizes that are no multiple of the tile, odd stride-2 sizes, the four kinds.
+QCHAIN_CASES = [
+    ((2, 24, 16, 16), 16, ("ds", "id", "id")), ((2, 23, 17, 64), 16, ("id", "id")),
+    ((2, 23, 17, 32), 16, ("s2ds", "id")), ((2, 24, 16, 32), 16, ("s2pre", "id", "id")),
+    ((5, 7, 7, 64), 16, ("id",)), ((2, 45, 40, 32), 16, ("s2ds", "id", "id", "id")),
+    ((2, 55, 55, 32), 16, ("s2pre", "id", "id")), ((1, 90, 37, 16), 16, ("ds", "id", "id")),
+    ((2, 49, 67, 16), 16, ("s2ds",)), ((2, 30, 41, 48), 48, ("ds", "id")),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,planes,blocks", QCHAIN_CASES)
+def test_fused_chain_kernel_int8(cuda_device, shape, planes, blocks, dtype):
+    """The int8 mode against its plain version. Both quantise with the same
+    true f32 division and round half to even, sum the int8 products exactly
+    and apply the same two f32 roundings, so they agree bit for bit unless the
+    compilers differ by an ulp somewhere; then a quantised value may flip and
+    move one term by one step (amax / 127 times a weight). The bound leaves
+    room for that: the chain kernel's own bf16 bound, in both dtypes."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(np.maximum(rng.normal(size=shape), 0).astype(np.float32))
+    x = x.to(cuda_device, dtype)
+    folded, act_s = quantize_folded(rng, chain_weights(rng, shape[-1], planes, blocks))
+    folded = quant_tensors(folded, cuda_device)
+    act_s = torch.from_numpy(act_s).to(cuda_device)
+    want = fused_resnet_kernel.fused_chain_plain(x, folded, blocks, act_s=act_s)
+    before = fused_resnet_kernel.fused_chain.launches
+    got = fused_resnet_kernel.fused_chain(x, folded, blocks, act_s=act_s)
+    torch.cuda.synchronize()
+    assert fused_resnet_kernel.fused_chain.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=2 ** -5, rtol=2 ** -5)
+    # and almost everywhere exactly
+    assert float((got != want).float().mean()) < 1e-3
+
+
+QSSH_CASES = [
+    ((2, 12, 9, 64), 64, 0.0, False, False, False, False),
+    ((2, 7, 5, 48), 64, 0.0, True, False, False, True),
+    ((2, 23, 17, 48), 64, 0.0, True, True, True, True),
+    ((2, 40, 37, 64), 64, 0.1, True, True, True, False),
+    ((1, 45, 80, 32), 128, 0.0, True, True, True, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,c,leaky,lat,merge,has_up,emit", QSSH_CASES)
+def test_fused_ssh_heads_kernel_int8(cuda_device, shape, c, leaky, lat, merge, has_up, emit,
+                                     dtype):
+    """The int8 option (lateral, merge and the five SSH convs in int8, heads
+    exact) against its plain version; bounds as for the int8 chain, and for
+    the heads' f32 sums in another order the exact kernel's."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(np.maximum(rng.normal(size=shape), 0).astype(np.float32))
+    x = x.to(cuda_device, dtype)
+    up = (torch.from_numpy(rng.normal(size=shape[:3] + (c,)).astype(np.float32))
+          .to(cuda_device, dtype) if has_up else None)
+    convs, heads, fl, fm = ssh_weights(rng, shape[-1], c, lat, merge)
+    scales = []
+    if lat:
+        fl, sx = quantize_folded(rng, fl)
+        scales.append(sx)
+    if merge:
+        fm, sx = quantize_folded(rng, fm)
+        scales.append(sx)
+    convs, sx = quantize_folded(rng, convs)
+    act_s = torch.from_numpy(np.concatenate(scales + [sx])).to(cuda_device)
+    convs, fl, fm = (quant_tensors(t, cuda_device) for t in (convs, fl, fm))
+    heads = tensors(heads, dtype, cuda_device)
+    kw = dict(leaky=leaky, fpn_lat=fl, fpn_merge=fm, up=up, emit_feature=emit, act_s=act_s)
+    want = fused_ssh_kernel.fused_ssh_heads_plain(x, convs, heads, **kw)
+    before = fused_ssh_kernel.fused_ssh_heads.launches
+    got = fused_ssh_kernel.fused_ssh_heads(x, convs, heads, **kw)
+    torch.cuda.synchronize()
+    assert fused_ssh_kernel.fused_ssh_heads.launches == before + 1
+    assert len(got) == len(want) == 3 + emit
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=2 ** -5, rtol=2 ** -5)
+
+
+# the three cases of the JAX package's test of its flat kernel, and two more:
+# a pitch that is no multiple of 8 before rounding up, and layer1's width
+FLAT_CASES = [((2, 13, 17, 64), 24, ("ds", "id", "id"), 8), ((1, 37, 29, 128), 24, ("id", "id"), 16),
+              ((1, 24, 16, 64), 24, ("ds",), 24), ((3, 41, 23, 16), 8, ("ds", "id"), 32),
+              ((1, 90, 160, 64), 16, ("ds", "id", "id"), 32)]
+
+
+@pytest.mark.parametrize("shape,planes,blocks,band", FLAT_CASES)
+def test_fused_chain_flat_kernel_equals_chain_kernel_f32(cuda_device, shape, planes, blocks, band):
+    """The flat kernel's contract: in f32 it equals ``fused_chain`` bit for
+    bit (the same device routines sum the same terms in the same order), and
+    it is within the chain kernel's bound of its own plain version."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
+    cin = shape[-1]
+    folded = chain_weights(rng, cin, planes, blocks)
+    if blocks[0] == "id":  # chain_weights makes 4 * planes outputs: an identity needs cin
+        folded = chain_weights(rng, cin, cin // 4, blocks)
+    folded = tensors(folded, torch.float32, cuda_device)
+    want = fused_resnet_kernel.fused_chain(x, folded, blocks)
+    before = (fused_resnet_kernel.fused_chain_flat.launches, fused_resnet_kernel.fused_chain.launches)
+    got = fused_resnet_kernel.fused_chain_flat(x, folded, blocks, band=band)
+    torch.cuda.synchronize()
+    assert (fused_resnet_kernel.fused_chain_flat.launches,
+            fused_resnet_kernel.fused_chain.launches) == (before[0] + 1, before[1])
+    assert torch.equal(got, want)
+    torch.testing.assert_close(
+        got, fused_resnet_kernel.fused_chain_flat_plain(x, folded, blocks, band=band),
+        atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("shape,planes,blocks,band", FLAT_CASES[:4])
+def test_fused_chain_flat_kernel_bf16(cuda_device, shape, planes, blocks, band):
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    cin = shape[-1]
+    folded = chain_weights(rng, cin, cin // 4 if blocks[0] == "id" else planes, blocks)
+    folded = tensors(folded, torch.bfloat16, cuda_device)
+    got = fused_resnet_kernel.fused_chain_flat(x, folded, blocks, band=band)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused_resnet_kernel.fused_chain(x, folded, blocks))
+    torch.testing.assert_close(
+        got.float(), fused_resnet_kernel.fused_chain_flat_plain(x, folded, blocks).float(),
+        atol=2 ** -5, rtol=2 ** -5)
+
+
+def test_fused_chain_flat_pads_input_channels(cuda_device):
+    """20 bf16 input channels are no multiple of 16 bytes: a projection entry
+    pads them with zeros (and the rows of the two weights that read them); an
+    identity entry cannot and is refused."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(size=(2, 11, 9, 20)).astype(np.float32))
+    x = x.to(cuda_device, torch.bfloat16)
+    folded = tensors(chain_weights(rng, 20, 8, ("ds", "id")), torch.bfloat16, cuda_device)
+    got = fused_resnet_kernel.fused_chain_flat(x, folded, ("ds", "id"))
+    torch.cuda.synchronize()
+    want = fused_resnet_kernel.fused_chain_flat_plain(x, folded, ("ds", "id"))
+    torch.testing.assert_close(got.float(), want.float(), atol=2 ** -5, rtol=2 ** -5)
+    ident = tensors(chain_weights(rng, 20, 5, ("id",)), torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="projection entry"):
+        fused_resnet_kernel.fused_chain_flat(x, ident, ("id",))
+
+
+def test_int8_products_on_the_card_are_exact(cuda_device):
+    """``layers.int8_conv`` and ``int8_matmul`` on the card (``torch._int_mm``
+    over the unfolded input) against the same functions on the CPU: the sums
+    are integers on both, so the results are equal."""
+    from avcer_tpu_torch.models import layers
+
+    rng = np.random.default_rng(9)
+    for k, stride, pad, ci, co in ((1, 1, 0, 64, 256), (3, 1, 1, 64, 64), (3, 2, 1, 128, 128),
+                                   (7, 2, 0, 3, 64), (1, 2, 0, 2048, 24)):
+        x = torch.from_numpy(rng.normal(size=(2, ci, 19, 23)).astype(np.float32))
+        w = torch.from_numpy((rng.normal(size=(co, ci, k, k)) * 0.1).astype(np.float32))
+        amax = torch.tensor(3.0)
+        want = layers.int8_conv(x, w, stride=(stride, stride), padding=pad,
+                                out_dtype=torch.float32, act_amax=amax)
+        got = layers.int8_conv(x.to(cuda_device), w.to(cuda_device), stride=(stride, stride),
+                               padding=pad, out_dtype=torch.float32,
+                               act_amax=amax.to(cuda_device))
+        assert torch.equal(got.cpu(), want), (k, stride, ci, co)
+    x = torch.from_numpy(rng.normal(size=(3, 5, 1024)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(4096, 1024)) * 0.05).astype(np.float32))
+    want = layers.int8_matmul(x, w, out_dtype=torch.float32)
+    got = layers.int8_matmul(x.to(cuda_device), w.to(cuda_device), out_dtype=torch.float32)
+    assert torch.equal(got.cpu(), want)
+
+
 def test_fused_kernels_raise_on_bad_input(cuda_device):
     rng = np.random.default_rng(3)
     x = torch.zeros((1, 8, 8, 16), device=cuda_device)
@@ -190,7 +361,7 @@ def test_fused_kernels_raise_on_bad_input(cuda_device):
         fused_resnet_kernel.fused_chain(
             x[..., :10].contiguous(),
             tensors(chain_weights(rng, 10, 8, ("ds",)), device=cuda_device), ("ds",))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # the int8 mode takes int8 weights
         fused_resnet_kernel.fused_chain(x, folded, ("ds",), act_s=torch.ones(4))
     convs, heads = (tensors(t, device=cuda_device)
                     for t in ssh_weights(rng, 16, 16, False, False)[:2])

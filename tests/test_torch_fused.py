@@ -248,11 +248,15 @@ def test_wrappers_raise_on_what_is_not_ported():
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.normal(size=(1, 6, 5, 16)).astype(np.float32))
     folded = tensors(chain_weights(rng, 16, 8, ("ds",)))
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        frk.fused_chain(x, folded, ("ds",), act_s=torch.ones(4))
+    # the int8 mode wants one activation scale per conv
+    with pytest.raises(ValueError, match="one scale per conv"):
+        frk.fused_chain(x, folded, ("ds",), act_s=torch.ones(3))
     convs, heads, fl, fm = ssh_weights(rng, 16, 16, True, True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        fsk.fused_ssh_heads(x, tensors(convs), tensors(heads), act_s=torch.ones(5))
+    with pytest.raises(ValueError, match="one scale per conv"):
+        fsk.fused_ssh_heads(x, tensors(convs), tensors(heads), act_s=torch.ones(6))
+    # the flat kernel takes stride-1 chains only
+    with pytest.raises(ValueError, match="stride-1 chains only"):
+        frk.fused_chain_flat(x, folded, ("s2ds",))
     with pytest.raises(ValueError, match="fpn_merge requires fpn_lat"):
         fsk.fused_ssh_heads(x, tensors(convs), tensors(heads), fpn_merge=tensors(fm))
     # a stride-2 entry is the first block and is followed by "id" blocks only

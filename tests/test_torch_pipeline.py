@@ -288,7 +288,8 @@ print("IMPORT_GUARD_OK")
 def test_cli_rejects_unported_flags():
     import avcer_tpu_torch.cli.run as cli
 
-    for argv in (["--serving_profile", "int8"], ["--data_parallel", "2"],
+    for argv in (["--serving_profile", "int8_s2"], ["--serving_profile", "fast"],
+                 ["--data_parallel", "2"],
                  ["--heatmaps", "static"]):
         with pytest.raises(SystemExit):
             cli.parse_args(argv)

@@ -45,3 +45,26 @@ def tensors(arrays, dtype=torch.float32, device="cpu"):
     if arrays is None:
         return None
     return [torch.from_numpy(a).to(device, dtype).contiguous() for a in arrays]
+
+
+def quantize_folded(rng, folded, amax=(2.0, 5.0)):
+    """The int8 fold of a flat list of exact ``(w, inv, shift)`` triples:
+    ``(wq int8, mult = (sw * sx) * inv, shift)`` per conv with one weight
+    scale per output channel, and the activation scales ``sx`` (one per conv,
+    ``amax / 127`` with ``amax`` drawn from the range given), as numpy."""
+    out, sxs = [], []
+    for w, inv, shift in zip(folded[0::3], folded[1::3], folded[2::3]):
+        sw = np.maximum(np.abs(w).reshape(-1, w.shape[-1]).max(axis=0) / np.float32(127.0),
+                        np.float32(1e-10)).astype(np.float32)
+        wq = np.clip(np.round(w / sw), -127, 127).astype(np.int8)
+        sx = np.float32(rng.uniform(*amax)) / np.float32(127.0)
+        out += [wq, ((sw * sx) * inv).astype(np.float32), shift]
+        sxs.append(sx)
+    return out, np.asarray(sxs, np.float32)
+
+
+def quant_tensors(arrays, device="cpu"):
+    """``tensors`` for an int8 fold: every array keeps its own dtype."""
+    if arrays is None:
+        return None
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
