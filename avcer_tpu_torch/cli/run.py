@@ -1,18 +1,32 @@
 """CLI entry point: ``python -m avcer_tpu_torch.cli.run --path_video V
 --path_save S [--device cuda]``.
 
-The surface of ``avcer_tpu.cli.run`` (same core flags, same output tree, same
-final real-time-factor and throughput lines) for the parity profile: the
-RetinaFace-r50 detector at the 640 bucket, the emotion CNN and LSTM, and
-wav2vec2 + ExprModel V3; and for ``--serving_profile int8``: the same models
-with calibrated int8 convs and projections in all three stages and the
-audio conv feature extractor shared across a clip's overlapping windows
-(``--exact_audio`` keeps the per-window extraction). ``--fused`` runs the detector's and the emotion
-CNN's bottleneck chains and the detector's FPN, SSH modules and heads
-through the fused CUDA kernels (same weights, same outputs up to rounding).
-Flags for what the port does not run yet exit with an error that names the
-ROADMAP item porting it. ``--device`` defaults to
-cuda and never falls back to the CPU on its own.
+The surface of ``avcer_tpu.cli.run``: the same core flags, the same output
+tree, the same final real-time-factor and throughput lines, and the same
+``--serving_profile`` presets, mapped to the same configuration:
+
+- ``parity``: the RetinaFace-r50 detector at the 640 bucket, the emotion CNN
+  and LSTM, wav2vec2 + ExprModel V3, all exact;
+- ``balanced``: the same models and arithmetic at the 448 bucket;
+- ``int8``: the parity models with calibrated int8 convs and projections in
+  all three stages; ``int8_s2`` adds detect stride 2 (boxes interpolated
+  between detections, the gap-mode tracker), ``int8_448`` the 448 bucket,
+  ``int8_448_s2`` both;
+- ``fast``: int8 with the mobilenet0.25 detector (detect batches of 128);
+  ``turbo``: fast at the 448 bucket with detect stride 2; ``max``: turbo with
+  the static CNN on the dynamic step cadence only (``--cnn_stride 0``; the
+  dynamic stream is unchanged).
+
+Every quantised profile shares the audio conv feature extractor across a
+clip's overlapping windows; ``--exact_audio`` keeps the per-window extraction.
+``--long_side``, ``--detect_stride`` and ``--cnn_stride`` override the preset
+when given. ``--fused`` runs the r50 detector's and the emotion CNN's
+bottleneck chains, and either detector's FPN, SSH modules and heads, through
+the fused CUDA kernels (same weights, same outputs up to rounding). A
+directory of clips is served through ``Pipeline.run_many``, two clips at a
+time. Flags for what the port does not run yet exit with an error that names
+the ROADMAP item porting it. ``--device`` defaults to cuda and never falls
+back to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -28,12 +42,11 @@ from avcer_tpu_torch.core.config import (AudioConfig, DetectorConfig, FusionConf
                                          PipelineConfig, VisualConfig)
 
 NOT_PORTED = {
-    "serving_profile": "ROADMAP queue 1 item 12, serving presets: detect stride, the 448 "
-                       "bucket, cnn_stride and the mobilenet0.25 backbone (only 'parity' and "
-                       "'int8' are ported)",
     "data_parallel": "ROADMAP queue 1, parallelism",
     "heatmaps": "ROADMAP queue 1, other modules: Grad-CAM heatmaps",
 }
+PROFILES = ("parity", "balanced", "int8", "int8_s2", "int8_448", "int8_448_s2", "fast", "turbo",
+            "max")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -42,28 +55,38 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--path_save", type=str, default="report/")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' raises if CUDA is unavailable")
-    p.add_argument("--long_side", type=int, default=640,
-                   help="detector bucket; 0 = native resolution padded to /32")
+    p.add_argument("--long_side", type=int, default=None,
+                   help="detector bucket (default 640; 448 in the balanced, int8_448*, turbo "
+                        "and max presets); 0 = native resolution padded to /32")
     p.add_argument("--no_published_weights", action="store_true")
     p.add_argument("--ce_weights_type", action="store_true")
     p.add_argument("--no_ce_mask", action="store_true")
     p.add_argument("--audio_padding", choices=["mean", "constant", "repeat"], default="mean")
     p.add_argument("--audio_step", type=float, default=0.5)
     p.add_argument("--weights_dir", type=str, default="weights")
-    p.add_argument("--serving_profile", default="parity",
-                   choices=["parity", "balanced", "int8", "int8_s2", "int8_448",
-                            "int8_448_s2", "fast", "turbo", "max"])
+    p.add_argument("--detect_stride", type=int, default=None,
+                   help="detect every Nth frame (default 1; 2 in the int8_s2, int8_448_s2, "
+                        "turbo and max presets); boxes are interpolated between detections, "
+                        "the CNN still runs on every frame")
+    p.add_argument("--cnn_stride", type=int, default=None,
+                   help="run the static CNN at most every N frames, plus every dynamic step "
+                        "frame (the LSTM stream stays exact); skipped frames hold the last "
+                        "computed static probabilities. 0 = the dynamic step cadence. "
+                        "Default 1 (every frame); the max preset sets 0")
+    p.add_argument("--serving_profile", default="parity", choices=PROFILES,
+                   help="speed/quality presets, see the module docstring; explicit flags "
+                        "override the preset")
     p.add_argument("--exact_audio", action="store_true",
-                   help="keep the per-window audio feature extraction on the int8 profile "
-                        "(turns the shared extractor off)")
+                   help="keep the per-window audio feature extraction on the quantised "
+                        "profiles (turns the shared extractor off)")
     p.add_argument("--fused", action="store_true",
                    help="run the r50 detector's and the emotion CNN's bottleneck chains, and "
-                        "the detector's FPN + SSH + heads, as fused CUDA kernels")
+                        "the detector's FPN + SSH + heads (either backbone), as fused CUDA "
+                        "kernels")
     p.add_argument("--data_parallel", type=int, default=1)
     p.add_argument("--heatmaps", choices=["", "static", "dynamic"], default="")
     a = p.parse_args(argv)
-    asked = {"serving_profile": a.serving_profile not in ("parity", "int8"),
-             "data_parallel": a.data_parallel > 1, "heatmaps": bool(a.heatmaps)}
+    asked = {"data_parallel": a.data_parallel > 1, "heatmaps": bool(a.heatmaps)}
     for flag, hit in asked.items():
         if hit:
             p.error(f"--{flag} is not ported yet ({NOT_PORTED[flag]})")
@@ -71,13 +94,28 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def config_from_args(a: argparse.Namespace) -> PipelineConfig:
-    quant = "int8" if a.serving_profile == "int8" else "none"
+    """The JAX package's ``pipeline_config_from_args`` mapping, field for
+    field, except ``transfer_format`` (the I420 wire format is not ported)."""
+    profile = a.serving_profile
+    quant = "none" if profile in ("parity", "balanced") else "int8"
+    mobilenet = profile in ("fast", "turbo", "max")
+    small_bucket = profile in ("turbo", "max", "balanced", "int8_448", "int8_448_s2")
+    strided = profile in ("turbo", "max", "int8_s2", "int8_448_s2")
+    # None = flag not given: the preset decides (an explicit --long_side 640
+    # with turbo stays 640)
+    long_side = a.long_side if a.long_side is not None else (448 if small_bucket else 640)
+    stride = a.detect_stride if a.detect_stride is not None else (2 if strided else 1)
+    cnn_stride = a.cnn_stride if a.cnn_stride is not None else (0 if profile == "max" else 1)
     return PipelineConfig(
         detector=DetectorConfig(
-            long_side=a.long_side, batch_size=32, transfer_format="bgr", quant=quant,
+            long_side=long_side, stride=stride, quant=quant, transfer_format="bgr",
+            backbone="mobilenet0.25" if mobilenet else "resnet50",
+            # the mobilenet presets serve detect batches of 128, as in the JAX package
+            batch_size=128 if mobilenet else 32,
             fused_layer1=a.fused, fused_tails=a.fused, fused_entries=a.fused,
             fused_ssh=a.fused, fused_fpn=a.fused),
-        visual=VisualConfig(quant=quant, fused=a.fused, fused_entries=a.fused),
+        visual=VisualConfig(quant=quant, fused=a.fused, fused_entries=a.fused,
+                            cnn_stride=cnn_stride),
         # every quantised profile shares the conv feature extractor across the
         # windows unless --exact_audio
         audio=AudioConfig(padding=a.audio_padding, step_sec=a.audio_step, quant=quant,
@@ -95,14 +133,15 @@ def main(argv=None) -> int:
 
     pipe = build_pipeline(config_from_args(a), device=a.device)  # raises without CUDA
 
-    if os.path.isdir(a.path_video):  # a directory of clips, one after another
+    if os.path.isdir(a.path_video):  # a directory of clips, two at a time
         paths = sorted(p for p in glob.glob(os.path.join(a.path_video, "*"))
                        if p.lower().endswith((".mp4", ".avi", ".mkv", ".mov", ".webm")))
         if not paths:
             print(f"no videos found under {a.path_video}")
             return 1
         t0 = time.perf_counter()
-        clips = [pipe.run(p, a.path_save) for p in paths]
+        clips = pipe.run_many(paths, a.path_save)
+        # elapsed time: the clips' own walls overlap under run_many
         total_wall = time.perf_counter() - t0
         total_video = sum(c.total_frames / max(c.fps, 1) for c in clips)
         print(f"Processed {len(clips)} clips: "

@@ -106,8 +106,10 @@ class VisualConfig:
 
     num_classes: int = 7
     lstm_window: int = 10
-    #: crop-CNN batch: 256 is the measured optimum on v5e (0.080 ms/frame vs
-    #: 0.139 at 128 — BENCH_NOTES.md round-2 table)
+    #: crop-CNN batch. Every CNN forward takes exactly this many crops (the
+    #: last batch of a chunk is filled up with its last crop), so that a
+    #: crop's row does not depend on how many crops its chunk holds: a
+    #: 3-frame clip pays for a whole batch. Set it small for runs on the CPU.
     batch_size: int = 256
     dtype: str = "bfloat16"
     #: "int8" = quantized static-CNN serving (models/emotion_resnet.py quant;

@@ -132,27 +132,44 @@ def _temporal_lstm(variables: Tree) -> _SD:
     return c
 
 
+def _convbn(c: _SD, path: str, name: str) -> None:
+    """A ``ConvBN`` (conv + bn) -> the reference's ``Sequential(conv, bn)``."""
+    c.conv2d(f"{path}/conv", f"{name}.0")
+    c.norm(f"{path}/bn", f"{name}.1")
+
+
 def _retinaface(variables: Tree) -> _SD:
-    """RetinaFace-r50 (the mobilenet backbone is not ported yet)."""
+    """RetinaFace with either backbone: the tree's ``body`` says which. Names
+    on the torch side are the reference state dict's, as the JAX package's
+    ``convert_retinaface`` reads them."""
     c = _SD(variables)
-    c.conv2d("body/conv1", "body.conv1")
-    c.norm("body/bn1", "body.bn1")
-    for li, blocks in enumerate((3, 4, 6, 3)):
-        for bi in range(blocks):
-            fp, tp = f"body/layer{li + 1}_{bi}", f"body.layer{li + 1}.{bi}"
-            for ci in (1, 2, 3):
-                c.conv2d(f"{fp}/conv{ci}", f"{tp}.conv{ci}")
-                c.norm(f"{fp}/bn{ci}", f"{tp}.bn{ci}")
-            if "downsample_conv" in c.p(fp):
-                c.conv2d(f"{fp}/downsample_conv", f"{tp}.downsample.0")
-                c.norm(f"{fp}/downsample_bn", f"{tp}.downsample.1")
+    if "stage1_0" in c.p("body"):  # mobilenet0.25: conv_bn, then conv_dw blocks
+        _convbn(c, "body/stage1_0", "body.stage1.0")
+        for stage, blocks in (("stage1", range(1, 6)), ("stage2", range(6)),
+                              ("stage3", range(2))):
+            for i in blocks:
+                fp, tp = f"body/{stage}_{i}", f"body.{stage}.{i}"
+                c.conv2d(f"{fp}/dw/conv", f"{tp}.0")
+                c.norm(f"{fp}/dw/bn", f"{tp}.1")
+                c.conv2d(f"{fp}/pw/conv", f"{tp}.3")
+                c.norm(f"{fp}/pw/bn", f"{tp}.4")
+    else:
+        c.conv2d("body/conv1", "body.conv1")
+        c.norm("body/bn1", "body.bn1")
+        for li, blocks in enumerate((3, 4, 6, 3)):
+            for bi in range(blocks):
+                fp, tp = f"body/layer{li + 1}_{bi}", f"body.layer{li + 1}.{bi}"
+                for ci in (1, 2, 3):
+                    c.conv2d(f"{fp}/conv{ci}", f"{tp}.conv{ci}")
+                    c.norm(f"{fp}/bn{ci}", f"{tp}.bn{ci}")
+                if "downsample_conv" in c.p(fp):
+                    c.conv2d(f"{fp}/downsample_conv", f"{tp}.downsample.0")
+                    c.norm(f"{fp}/downsample_bn", f"{tp}.downsample.1")
     convbns = [f"fpn/output{i}" for i in (1, 2, 3)] + [f"fpn/merge{i}" for i in (1, 2)]
     convbns += [f"ssh{s}/{n}" for s in (1, 2, 3) for n in
                 ("conv3X3", "conv5X5_1", "conv5X5_2", "conv7X7_2", "conv7x7_3")]
     for path in convbns:
-        name = path.replace("/", ".")
-        c.conv2d(f"{path}/conv", f"{name}.0")
-        c.norm(f"{path}/bn", f"{name}.1")
+        _convbn(c, path, path.replace("/", "."))
     for i in range(3):
         for head in ("ClassHead", "BboxHead", "LandmarkHead"):
             c.conv2d(f"{head}_{i}", f"{head}.{i}.conv1x1", bias=True)

@@ -1,9 +1,13 @@
-"""RetinaFace-r50 face detector (avcer_tpu/models/retinaface.py): the
-torchvision v1.5 ResNet50 body, FPN, SSH context modules and 1x1 heads.
+"""RetinaFace face detector (avcer_tpu/models/retinaface.py) with its two
+backbones: the torchvision v1.5 ResNet50 body (FPN and SSH 256 wide, ReLU) or
+the MobileNetV1-0.25 body (64 wide, leaky ReLU 0.1 inside the body, the FPN
+and the SSH modules), then the 1x1 heads.
 
 Parameter names follow the reference torch module (``TwinRetinaFace`` with
-``TVStyleResNet50Body`` in tests/torch_twins.py), so a ``Resnet50_Final.pth``
-state dict loads strictly. Public layout is the JAX package's: NHWC input,
+``TVStyleResNet50Body`` in tests/torch_twins.py; for mobilenet the reference's
+``stage1..3`` Sequentials of ``conv_bn`` and ``conv_dw``), so a
+``Resnet50_Final.pth`` or ``mobilenet0.25_Final.pth`` state dict loads
+strictly. Public layout is the JAX package's: NHWC input,
 ``(loc [B, A, 4], conf [B, A, 2], landms [B, A, 10])`` with anchor rows in
 (level, h, w, anchor) order, conf softmaxed in f32. Inside, convolutions run
 NCHW in the weights' dtype.
@@ -12,7 +16,10 @@ The fused switches are the JAX package's, over the same state dict:
 ``fused_layer1``, ``fused_tails`` and ``fused_entries`` run the body's
 bottleneck chains through ``ops.cuda.fused_resnet_kernel.fused_chain``;
 ``fused_ssh`` and ``fused_fpn`` run each scale's FPN, SSH module and heads
-through ``ops.cuda.fused_ssh_kernel.fused_ssh_heads``. Tensors keep torch's
+through ``ops.cuda.fused_ssh_kernel.fused_ssh_heads``, for either backbone
+(at 64 channels with the kernel's leaky ReLU). The mobilenet body has no
+bottleneck chains: the three chain switches are accepted and do nothing
+there, as in the JAX package. Tensors keep torch's
 NCHW shape between sections; a kernel section takes an NHWC-contiguous view
 (one copy where the tensor comes from a cuDNN section, none between two
 kernel sections) and hands back an NCHW-shaped view of its NHWC result, which
@@ -21,11 +28,13 @@ cuDNN reads as channels-last.
 ``quant`` is the JAX package's int8 variant over the same state dict: every
 conv of the body's bottlenecks, of the FPN and of the SSH modules is a
 ``layers.QConv`` (calibrated static activation scales, per-channel weight
-scales, int32 sums); the stem and the heads stay exact. With the fused
+scales, int32 sums); the stem and the heads stay exact. In the mobilenet body
+only the pointwise convs are quantised: the first conv (3 input channels) and
+every depthwise conv stay in the compute dtype. With the fused
 switches the int8 convs run inside the fused kernels' int8 mode, folded to
 ``(wq, mult, shift)`` with the activation scales in the kernels' order.
 Calibration forwards (``layers.calibrating``) always run the unfused modules.
-The mobilenet and space-to-depth variants are not ported yet.
+The space-to-depth stem is not ported yet.
 """
 
 from __future__ import annotations
@@ -39,7 +48,7 @@ import torch.nn.functional as F
 from avcer_tpu_torch.models.layers import (BatchNorm, FoldCache, QConv, compute_dtype, fold_bn,
                                            fold_bn_q)
 from avcer_tpu_torch.ops.cuda.fused_resnet_kernel import fused_chain
-from avcer_tpu_torch.ops.cuda.fused_ssh_kernel import fused_ssh_heads
+from avcer_tpu_torch.ops.cuda.fused_ssh_kernel import activate, fused_ssh_heads
 
 
 def nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -76,9 +85,9 @@ class ConvBN(nn.Sequential):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self[1](self[0](x))
-        if not self.act:
-            return x
-        return F.leaky_relu(x, self.leaky) if self.leaky else F.relu(x)
+        # the leaky slope is rounded to the activation's dtype first, as the
+        # JAX package and the fused kernel round it
+        return activate(x, self.leaky) if self.act else x
 
 
 class TVBottleneck(nn.Module):
@@ -191,6 +200,52 @@ class ResNet50Body(FoldCache):
         return tuple(outs)
 
 
+class LeakyReLU(nn.Module):
+    """``activate`` as a module (``nn.LeakyReLU`` multiplies by the f32 slope)."""
+
+    def __init__(self, slope: float):
+        super().__init__()
+        self.slope = slope
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return activate(x, self.slope)
+
+
+class ConvDW(nn.Sequential):
+    """MobileNetV1 block: depthwise 3x3 -> BatchNorm -> leaky 0.1 -> pointwise
+    1x1 -> BatchNorm -> leaky 0.1, with the state names of the reference's
+    ``conv_dw`` Sequential (``0``, ``1``, ``3``, ``4``). The depthwise half is
+    a grouped ``F.conv2d`` (a library call, as in the JAX package it is an XLA
+    op) and is never quantised."""
+
+    def __init__(self, inp: int, oup: int, stride: int, quant: bool = False):
+        super().__init__(
+            nn.Conv2d(inp, inp, 3, stride, 1, groups=inp, bias=False), BatchNorm(inp),
+            LeakyReLU(0.1),
+            make_conv(inp, oup, 1, 1, 0, quant), BatchNorm(oup), LeakyReLU(0.1))
+
+
+class MobileNetV1Body(nn.Module):
+    """MobileNetV1-0.25 backbone emitting stage1/2/3 features (64, 128 and
+    256 channels at strides 8, 16 and 32)."""
+
+    def __init__(self, quant: bool = False):
+        super().__init__()
+        # the first conv stays exact in the int8 variant: 3 input channels
+        self.stage1 = nn.Sequential(
+            ConvBN(3, 8, stride=2, leaky=0.1),
+            *[ConvDW(i, o, s, quant)
+              for i, o, s in ((8, 16, 1), (16, 32, 2), (32, 32, 1), (32, 64, 2), (64, 64, 1))])
+        self.stage2 = nn.Sequential(
+            ConvDW(64, 128, 2, quant), *[ConvDW(128, 128, 1, quant) for _ in range(5)])
+        self.stage3 = nn.Sequential(ConvDW(128, 256, 2, quant), ConvDW(256, 256, 1, quant))
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        s1 = self.stage1(x)
+        s2 = self.stage2(s1)
+        return s1, s2, self.stage3(s2)
+
+
 def upsample_nearest_to(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
     """torch nearest to an exact size: source index floor(i * in / out)."""
     h, w = x.shape[2], x.shape[3]
@@ -257,19 +312,29 @@ class RetinaFace(FoldCache):
 
     def __init__(self, num_anchors: int = 2, fused_layer1: bool = False,
                  fused_tails: bool = False, fused_entries: bool = False,
-                 fused_ssh: bool = False, fused_fpn: bool = False, quant: bool = False):
+                 fused_ssh: bool = False, fused_fpn: bool = False, quant: bool = False,
+                 backbone: str = "resnet50"):
         super().__init__()
+        self.backbone = backbone
         self.fused_ssh = fused_ssh
         self.fused_fpn = fused_fpn
         self.quant = quant
-        self.body = ResNet50Body(fused_layer1, fused_tails, fused_entries, quant)
-        self.fpn = FPN((512, 1024, 2048), 256, quant)
-        self.ssh1 = SSH(256, 256, quant)
-        self.ssh2 = SSH(256, 256, quant)
-        self.ssh3 = SSH(256, 256, quant)
-        self.ClassHead = nn.ModuleList(Head(256, num_anchors, 2) for _ in range(3))
-        self.BboxHead = nn.ModuleList(Head(256, num_anchors, 4) for _ in range(3))
-        self.LandmarkHead = nn.ModuleList(Head(256, num_anchors, 10) for _ in range(3))
+        if backbone == "resnet50":
+            self.body = ResNet50Body(fused_layer1, fused_tails, fused_entries, quant)
+            taps, c = (512, 1024, 2048), 256
+        elif backbone == "mobilenet0.25":
+            self.body = MobileNetV1Body(quant)  # no bottleneck chains to fuse
+            taps, c = (64, 128, 256), 64
+        else:
+            raise ValueError(backbone)
+        self.out_ch = c
+        self.fpn = FPN(taps, c, quant)
+        self.ssh1 = SSH(c, c, quant)
+        self.ssh2 = SSH(c, c, quant)
+        self.ssh3 = SSH(c, c, quant)
+        self.ClassHead = nn.ModuleList(Head(c, num_anchors, 2) for _ in range(3))
+        self.BboxHead = nn.ModuleList(Head(c, num_anchors, 4) for _ in range(3))
+        self.LandmarkHead = nn.ModuleList(Head(c, num_anchors, 10) for _ in range(3))
 
     def _scale_folded(self, i: int, dtype: torch.dtype):
         """(5 SSH convs, 3 heads, lateral, merge or None, scales) of scale
@@ -290,7 +355,7 @@ class RetinaFace(FoldCache):
     def _fused_heads(self, feats, dtype: torch.dtype):
         """``feats`` NCHW-shaped: the body's (with ``fused_fpn``) or the
         FPN's. Rows stay (h, w, anchor): the kernel writes NHWC."""
-        leaky = 0.0  # 0.1 belongs to the 64-channel mobilenet FPN
+        leaky = 0.1 if self.out_ch <= 64 else 0.0  # as FPN and SSH choose theirs
         per_scale: list = [None, None, None]
         feat_prev = None
         for i in (2, 1, 0):
@@ -319,7 +384,7 @@ class RetinaFace(FoldCache):
         return loc, torch.softmax(conf.float(), dim=-1), landms
 
     def forward(self, x: torch.Tensor):
-        dtype = self.body.conv1.weight.dtype
+        dtype = self.BboxHead[0].conv1x1.weight.dtype
         x = x.permute(0, 3, 1, 2).to(dtype)
         feats = self.body(x)
         if self.fused_ssh and not self.calibrating:

@@ -49,7 +49,9 @@ def _check_args(conv_folded, head_folded, fpn_lat, fpn_merge, act_s) -> None:
             f"{tuple(act_s.shape)}")
 
 
-def _activate(y: torch.Tensor, leaky: float) -> torch.Tensor:
+def activate(y: torch.Tensor, leaky: float) -> torch.Tensor:
+    """ReLU, or leaky ReLU with the slope rounded to ``y``'s dtype and the
+    product taken in it: the kernel's rule and the JAX package's."""
     if leaky == 0.0:
         return F.relu(y)
     return torch.where(y >= 0, y, y * torch.tensor(leaky, dtype=y.dtype, device=y.device))
@@ -74,16 +76,16 @@ def fused_ssh_heads_plain(
 
     f = x.permute(0, 3, 1, 2)
     if fpn_lat is not None:
-        f = _activate(conv(f, fpn_lat), leaky)
+        f = activate(conv(f, fpn_lat), leaky)
     if up is not None:
         f = f + up.to(x.dtype).permute(0, 3, 1, 2)
     if fpn_merge is not None:
-        f = _activate(conv(f, fpn_merge), leaky)
+        f = activate(conv(f, fpn_merge), leaky)
     cf = conv_folded
     c3 = conv(f, cf[0:3])
-    c5_1 = _activate(conv(f, cf[3:6]), leaky)
+    c5_1 = activate(conv(f, cf[3:6]), leaky)
     c5 = conv(c5_1, cf[6:9])
-    c7 = conv(_activate(conv(c5_1, cf[9:12]), leaky), cf[12:15])
+    c7 = conv(activate(conv(c5_1, cf[9:12]), leaky), cf[12:15])
     cat = F.relu(torch.cat([c3, c5, c7], dim=1)).permute(0, 2, 3, 1).float()
     outs = tuple((torch.matmul(cat, w.float()).to(x.dtype) + b.reshape(-1))
                  for w, b in zip(head_folded[0::2], head_folded[1::2]))
@@ -117,9 +119,10 @@ def fused_ssh_heads(
     emit_feature: bool = False, band: int = 32, act_s=None,
 ) -> tuple[torch.Tensor, ...]:
     """One FPN scale: optional lateral + top-down add + merge, the SSH
-    module, the three heads; with ``act_s`` the convs in int8. ``band`` is the TPU kernel's VMEM tiling and is
-    ignored by the CUDA kernel. ``fused_ssh_heads.launches`` counts kernel
-    launches."""
+    module, the three heads; with ``act_s`` the convs in int8. ``band`` is the
+    TPU kernel's VMEM tiling and is ignored by the CUDA kernel.
+    ``fused_ssh_heads.launches`` counts kernel launches, and
+    ``fused_ssh_heads.launches_by_leaky`` the same launches by their slope."""
     if x.device.type == "cpu":
         return fused_ssh_heads_plain(x, conv_folded, head_folded, leaky, fpn_lat, fpn_merge,
                                      up, emit_feature, band, act_s)
@@ -195,7 +198,10 @@ def fused_ssh_heads(
     if rc != 0:
         raise RuntimeError(f"fused_ssh_heads kernel launch failed: CUDA error {rc}")
     fused_ssh_heads.launches += 1
+    by_leaky = fused_ssh_heads.launches_by_leaky
+    by_leaky[float(leaky)] = by_leaky.get(float(leaky), 0) + 1
     return tuple(outs)
 
 
 fused_ssh_heads.launches = 0
+fused_ssh_heads.launches_by_leaky = {}

@@ -39,22 +39,26 @@ from avcer_tpu_torch.pipeline.visual import VisualStage
 
 log = logging.getLogger("avcer_tpu_torch")
 
-#: release checkpoint files per family (avcer_tpu/core/checkpoint.py)
+#: release checkpoint files per family (avcer_tpu/core/checkpoint.py); the
+#: detector's file and cache are named after its backbone
 RELEASE_FILES = {
     "retinaface": "Resnet50_Final.pth",
+    "retinaface_mnet025": "mobilenet0.25_Final.pth",
     "emotion_resnet50": "FER_static_ResNet50_AffectNet.pt",
     "temporal_lstm": "FER_dinamic_LSTM_Aff-Wild2.pt",
     "expr_model": os.path.join("FLW-ExprModelV3-2024.03.02-11.42.11", "epoch_63.pth"),
 }
 #: the JAX package's converted-weight cache directory per family
-JAX_CACHE_NAMES = {"retinaface": "retinaface", "emotion_resnet50": "emotion_resnet50",
+JAX_CACHE_NAMES = {"retinaface": "retinaface", "retinaface_mnet025": "retinaface_mnet025",
+                   "emotion_resnet50": "emotion_resnet50",
                    "temporal_lstm": "temporal_lstm", "expr_model": "expr_model_8cl"}
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def _check_no_release_weights(weights_dir: str) -> None:
-    found = [p for fam, name in RELEASE_FILES.items()
+def _check_no_release_weights(weights_dir: str, backbone: str) -> None:
+    other = "retinaface_mnet025" if backbone == "resnet50" else "retinaface"
+    found = [p for fam, name in RELEASE_FILES.items() if fam != other
              for p in (os.path.join(weights_dir, name),
                        os.path.join(weights_dir, "jax", JAX_CACHE_NAMES[fam]))
              if os.path.exists(p)]
@@ -76,8 +80,9 @@ def build_pipeline(
     """Build the detect, visual and audio stages on ``device``.
 
     ``jax_variables``: optional ``{family: numpy variable tree}`` for the
-    families "retinaface", "emotion_resnet50", "temporal_lstm" and
-    "expr_model", converted with ``core.convert`` and loaded strictly; every
+    families "retinaface" (either backbone's tree, as ``cfg.detector.backbone``
+    says), "emotion_resnet50", "temporal_lstm" and "expr_model", converted
+    with ``core.convert`` and loaded strictly; every
     family not given is initialised from ``torch.Generator().manual_seed(seed)``.
     """
     check_supported(cfg)
@@ -90,6 +95,7 @@ def build_pipeline(
     models = {
         # the fused switches select the CUDA kernels K3 / K4 inside the models
         "retinaface": RetinaFace(
+            backbone=cfg.detector.backbone,
             fused_layer1=cfg.detector.fused_layer1, fused_tails=cfg.detector.fused_tails,
             fused_entries=cfg.detector.fused_entries, fused_ssh=cfg.detector.fused_ssh,
             fused_fpn=cfg.detector.fused_fpn, quant=cfg.detector.quant == "int8"),
@@ -104,7 +110,7 @@ def build_pipeline(
     if unknown:
         raise ValueError(f"jax_variables: unknown families {sorted(unknown)}")
     if len(given) < len(models):
-        _check_no_release_weights(cfg.weights_dir)
+        _check_no_release_weights(cfg.weights_dir, cfg.detector.backbone)
         log.warning("no checkpoints for %s under %s — using seeded random "
                     "initialization (outputs will not match the published models)",
                     sorted(set(models) - set(given)), cfg.weights_dir)

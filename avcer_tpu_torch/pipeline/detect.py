@@ -7,7 +7,9 @@ uint8), the stand-in for the JAX package's host ``cv2.resize(INTER_LINEAR)``
 on a card with no OpenCV; it is within 1 LSB of cv2. Greedy NMS on the card
 is the CUDA kernel (``ops.cuda.nms_kernel``). The detector's fused switches
 (``DetectorConfig.fused_*``) are the model's: ``pipeline.builder`` hands them
-to ``RetinaFace``, and the stage runs whichever model it is given.
+to ``RetinaFace``, and the stage runs whichever model it is given: the r50 or
+the mobilenet0.25 detector. ``DetectorConfig.stride`` runs the network on
+every stride-th frame of a batch; the runner interpolates the boxes between.
 
 int8 (``DetectorConfig.quant == "int8"``): the model's static activation
 scales are seeded at build on two noise frames, refined once per process on
@@ -61,15 +63,14 @@ class DetectStage:
                 f"transfer_format={cfg.transfer_format!r}: the I420 wire format "
                 "is not ported (ROADMAP queue 1, 'Not ported': I420 wire "
                 "format); use transfer_format='bgr'")
-        if cfg.stride != 1:
+        if cfg.stride > 1 and cfg.batch_size % cfg.stride:
             raise ValueError(
-                f"detector stride {cfg.stride}: detect stride is not ported "
-                "(ROADMAP queue 1, serving presets)")
-        if cfg.backbone != "resnet50" or cfg.quant not in ("none", "int8"):
-            raise ValueError(
-                f"backbone={cfg.backbone!r} quant={cfg.quant!r}: only the "
-                "resnet50 detector is ported, exact or int8 (ROADMAP queue 1, "
-                "serving presets)")
+                f"detector stride {cfg.stride} must divide batch_size {cfg.batch_size} "
+                "(keeps the detection cadence uniform across fixed-shape batches)")
+        if cfg.quant not in ("none", "int8"):
+            raise ValueError(f"quant={cfg.quant!r}: only 'none' and 'int8' exist")
+        if cfg.backbone != getattr(model, "backbone", cfg.backbone):
+            raise ValueError(f"backbone={cfg.backbone!r} does not fit the model it was given")
         self.cfg = cfg
         self.model = model
         self.device = torch.device(device)
@@ -160,9 +161,13 @@ class DetectStage:
     @torch.inference_mode()
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
         """frames: [B, H, W, 3] uint8 BGR on the device, letterboxed.
-        Returns packed [B, K, 16] f32: boxes 0:4, score 4, keep 5,
-        landmarks 6:16, in bucket pixel coordinates."""
+        Returns packed [B / stride, K, 16] f32: boxes 0:4, score 4, keep 5,
+        landmarks 6:16, in bucket pixel coordinates. With a detect stride the
+        network sees every stride-th frame only; the caller keeps the whole
+        batch on the device for the crop stage."""
         h, w = frames.shape[1], frames.shape[2]
+        if self.cfg.stride > 1:
+            frames = frames[::self.cfg.stride]
         loc, conf, landms = self.model(retinaface_normalize(frames))
         priors = self._priors_for(h, w)
         scale = torch.tensor([w, h, w, h], dtype=torch.float32, device=self.device)

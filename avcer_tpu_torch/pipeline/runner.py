@@ -4,7 +4,10 @@ fusion and the reference's output tree.
 
 Frames stay on the device from upload to crop: detection of batch N+1 is
 enqueued before batch N's result is fetched for the host tracker, and the
-crops for the CNN are gathered from the device frame buffer. The audio
+crops for the CNN are gathered from the device frame buffer. The serving
+approximations of the presets live here: a detect stride (boxes interpolated
+between detections), ``cnn_stride`` (the static CNN on a subset of frames,
+the dynamic stream unchanged) and ``run_many`` (clips overlapped). The audio
 thread runs on its own CUDA stream; its outputs reach the main thread as
 host arrays after a synchronising copy.
 """
@@ -31,9 +34,14 @@ from avcer_tpu_torch.ops import image as image_ops
 from avcer_tpu_torch.pipeline import media
 from avcer_tpu_torch.pipeline.audio_stage import AudioStage, AudioWindows
 from avcer_tpu_torch.pipeline.detect import DetectStage
-from avcer_tpu_torch.pipeline.visual import VisualStage, build_temporal_plan
+from avcer_tpu_torch.pipeline.visual import (VisualStage, build_temporal_plan, cnn_compute_sel,
+                                             subset_forward_fill)
 
 log = logging.getLogger("avcer_tpu_torch")
+
+#: frames held on the device before the tracker's boxes are cropped into the
+#: CNN (a chunk is at least one detect batch)
+CHUNK_FRAMES = 512
 
 
 @dataclass
@@ -62,7 +70,6 @@ def check_supported(cfg: PipelineConfig) -> None:
         "mesh.data > 1 (data parallel; ROADMAP queue 1, parallelism)": cfg.mesh.data > 1,
         "heatmaps (ROADMAP queue 1, other modules: Grad-CAM)": bool(cfg.heatmaps),
         "save_face_crops (ROADMAP queue 1, other modules)": cfg.save_face_crops,
-        "visual.cnn_stride != 1 (ROADMAP queue 1, serving presets)": cfg.visual.cnn_stride != 1,
         f"visual.quant={cfg.visual.quant!r} (only 'none' and 'int8' exist)":
             cfg.visual.quant not in ("none", "int8"),
         "calibrate (not ported: batch sizes are measured with bench.py)": cfg.calibrate,
@@ -90,16 +97,34 @@ class Pipeline:
         self._save_lock = threading.Lock()  # pyplot state is global
 
     def _new_tracker(self) -> IoUTracker:
+        # detections arrive every stride-th frame: gap mode extrapolates the
+        # tracklet's motion across the gap; stride 1 is the reference's tracker
         return IoUTracker(iou_threshold=self.cfg.detector.tracker_iou,
-                          minimum_face_size=self.cfg.detector.min_face_size, gap_frames=1)
+                          minimum_face_size=self.cfg.detector.min_face_size,
+                          gap_frames=self.cfg.detector.stride)
 
-    def detect_track_device(self, reader) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-        """Detection batches on the device, the host tracker per frame, the
-        target face (tracklet 1) cropped from the device frame buffer into
-        the CNN once per chunk of up to 512 frames. Returns (present [T],
-        stat_probs [P, C], feats [P, 512], face_boxes [T, 4] int32 native
-        int-cast+clamp coords, -1 rows where no face)."""
+    def detect_track_device(self, reader, cnn_step: Optional[int] = None
+                            ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Detection batches on the device, the host tracker per detected
+        frame, the target face (tracklet 1) cropped from the device frame
+        buffer into the CNN once per chunk of ``CHUNK_FRAMES`` frames. Returns
+        (present [T], stat_probs [P, C], feats [P, 512], face_boxes [T, 4]
+        int32 native int-cast+clamp coords, -1 rows where no face).
+
+        With ``DetectorConfig.stride`` > 1 the detector ran on every
+        stride-th frame; the frames between get the linear interpolation of
+        the surrounding detections' boxes (held at a chunk's tail).
+
+        ``cnn_step``: the clip's dynamic step cadence, needed when
+        ``VisualConfig.cnn_stride`` != 1: the static CNN then runs only on the
+        frames ``visual.cnn_compute_sel`` selects (every cnn_stride-th present
+        frame and every step frame) and the frames between hold the last
+        computed row, across chunks too (``visual.subset_forward_fill``)."""
         cfg = self.cfg.detector
+        if self.cfg.visual.cnn_stride != 1 and not cnn_step:
+            raise ValueError(
+                f"cnn_stride = {self.cfg.visual.cnn_stride} needs the clip's dynamic step "
+                "cadence: pass cnn_step (registry.dynamic_step(fps))")
         tracker = self._new_tracker()
         w_native, h_native = reader.meta.width, reader.meta.height
         present_all: list[bool] = []
@@ -108,14 +133,22 @@ class Pipeline:
         pending: list[tuple[Any, int, torch.Tensor, float]] = []
         det_boxes_nat: list[Optional[np.ndarray]] = []
         drained = 0
-        chunk_cap = max(cfg.batch_size, 512)
+        chunk_cap = max(cfg.batch_size, CHUNK_FRAMES)
+        stride = cfg.stride
+        # cnn_stride 0 aligns the static CNN to the dynamic step cadence
+        cs = self.cfg.visual.cnn_stride or int(cnn_step)
+        cnn_prev_gid: Optional[int] = None  # last computed frame id
+        carry_stat: Optional[np.ndarray] = None
+        carry_feat: Optional[np.ndarray] = None
 
         def drain_one() -> None:
-            # the per-frame tracker is sequential in frame order
+            # pass 1, per detected frame: the tracker is sequential in frame order
             nonlocal drained
             packed, n_valid, _, scale = pending[drained]
             det = self.detect.unpack(packed.cpu().numpy(), scale)
-            for r in range(n_valid):
+            for r in range(det.boxes.shape[0]):
+                if r * stride >= n_valid:
+                    break
                 kept = det.keep[r]
                 frame_dets = np.concatenate(
                     [det.boxes[r][kept], det.scores[r][kept][:, None]], axis=1)
@@ -131,7 +164,7 @@ class Pipeline:
             drained += 1
 
         def flush_chunk() -> None:
-            nonlocal pending, det_boxes_nat, drained
+            nonlocal pending, det_boxes_nat, drained, cnn_prev_gid, carry_stat, carry_feat
             if not pending:
                 return
             while drained < len(pending):
@@ -140,24 +173,55 @@ class Pipeline:
             scale = pending[0][3]
             bsz = pending[0][2].shape[0]
             lb_h, lb_w = frames_dev.shape[1], frames_dev.shape[2]
+            # pass 2, per frame, in float64 and in the JAX package's order of
+            # operations (the int cast below truncates: equal, not close): its
+            # own detection, or between two detections their interpolation
             frame_ids = np.concatenate(
                 [np.arange(n) + bi * bsz for bi, (_, n, _, _) in enumerate(pending)])
+            # every batch holds a valid frame, so a detection exists at or
+            # before each frame: d indexes it, d1 the next one if there is one
+            nd = len(det_boxes_nat)
             ok = np.array([b is not None for b in det_boxes_nat], bool)
-            box_f = np.stack([b if b is not None else np.zeros(4) for b in det_boxes_nat])
+            bx = np.stack([b if b is not None else np.zeros(4) for b in det_boxes_nat])
+            d = frame_ids // stride
+            frac = (frame_ids % stride) / stride
+            d1 = np.minimum(d + 1, nd - 1)
+            use1 = (frac > 0) & (d + 1 < nd) & ok[d1]
+            b1 = np.where(use1[:, None], bx[d1], bx[d])
+            box_f = (1 - frac[:, None]) * bx[d] + frac[:, None] * b1
             # the reference's int cast (truncation) + clamp
             bi_, box_ok = image_ops.clamp_boxes_valid(box_f, w_native, h_native)
-            present = ok & box_ok
+            present = ok[d] & box_ok
             # clamp in native coordinates, then map into the letterboxed frame
             b = np.round(bi_.astype(np.float64) * scale).astype(np.int32)
             b[:, 0] = np.minimum(b[:, 0], lb_w - 2)
             b[:, 1] = np.minimum(b[:, 1], lb_h - 2)
             b[:, 2] = np.maximum(b[:, 2], b[:, 0] + 1)
             b[:, 3] = np.maximum(b[:, 3], b[:, 1] + 1)
+            global_base = len(present_all)
             present_all.extend(present.tolist())
             boxes_nat_all.append(np.where(present[:, None], bi_.astype(np.int32), -1))
-            if present.any():
-                stat, feats = self.visual.run_static_from_frames(
-                    frames_dev, frame_ids[present].astype(np.int32), b[present])
+            present_idx = frame_ids[present].astype(np.int32)
+            boxes_lb = b[present]
+            if present_idx.size:
+                if cs > 1:
+                    # int8: refine the scales on the same leading present
+                    # frames as per-frame serving would, before the subset
+                    # changes which crops the first forward sees
+                    self.visual.ensure_calibrated_from_frames(frames_dev, present_idx, boxes_lb)
+                    gids = global_base + present_idx.astype(np.int64)
+                    sel, cnn_prev_gid = cnn_compute_sel(gids, int(cnn_step), cs, cnn_prev_gid)
+                    if sel.any():
+                        stat_c, feats_c = self.visual.run_static_from_frames(
+                            frames_dev, present_idx[sel], boxes_lb[sel])
+                    else:
+                        stat_c = np.zeros((0, self.cfg.visual.num_classes), np.float32)
+                        feats_c = np.zeros((0, 512), np.float32)
+                    stat, carry_stat = subset_forward_fill(sel, stat_c, carry_stat)
+                    feats, carry_feat = subset_forward_fill(sel, feats_c, carry_feat)
+                else:
+                    stat, feats = self.visual.run_static_from_frames(
+                        frames_dev, present_idx, boxes_lb)
                 stat_list.append(stat)
                 feats_list.append(feats)
             pending, det_boxes_nat, drained = [], [], 0
@@ -224,7 +288,8 @@ class Pipeline:
         t0 = time.perf_counter()
         step = registry.dynamic_step(meta.fps)
         try:
-            present, stat_probs_p, feats_p, face_boxes = self.detect_track_device(reader)
+            present, stat_probs_p, feats_p, face_boxes = self.detect_track_device(
+                reader, cnn_step=step)
         finally:
             reader.release()
         total_frames = meta.total_frames or len(present)
@@ -267,6 +332,20 @@ class Pipeline:
             with self._save_lock:
                 self.save_outputs(clip, path_save)
         return clip
+
+    def run_many(self, paths: list, path_save: str = "", overlap: int = 2) -> list[ClipResult]:
+        """Serve several clips (paths or readers), up to ``overlap`` at a
+        time, so that one clip's decoding and host tracking overlap another's
+        device work. Per-clip state (tracker, plan, carries) is local to each
+        ``run``; the stages are shared. On the card the clips' detect and CNN
+        work queues on the one default stream in the order the threads enqueue
+        it and every clip's audio on the one audio stream, so each clip's
+        results equal those of a run on its own."""
+        if overlap <= 1 or len(paths) == 1:
+            return [self.run(p, path_save) for p in paths]
+        with ThreadPoolExecutor(max_workers=overlap) as ex:
+            futures = [ex.submit(self.run, p, path_save) for p in paths]
+            return [f.result() for f in futures]
 
     def save_outputs(self, clip: ClipResult, path_save: str) -> None:
         """static/dynamic/audio CSVs, the compound txt and the plot, named as

@@ -10,7 +10,9 @@ temporal plan that reproduces the reference's per-frame loop
 - missing frames repeat the previous rows once a step output exists.
 
 ``VisualConfig.fused`` and ``fused_entries`` are the static model's switches:
-``pipeline.builder`` hands them to ``EmotionResNet50``.
+``pipeline.builder`` hands them to ``EmotionResNet50``. ``cnn_compute_sel``
+and ``subset_forward_fill`` are the host helpers of ``VisualConfig.cnn_stride``
+serving (the runner applies them per chunk).
 
 int8 (``VisualConfig.quant == "int8"``): the static CNN's activation scales
 are seeded at build on two noise crops and refined once per process on the
@@ -155,21 +157,31 @@ class VisualStage:
         boxes: np.ndarray,  # [P, 4] int crop boxes in frame coordinates
     ) -> tuple[np.ndarray, np.ndarray]:
         """Crop + CNN on the device in sub-batches, one fetch at the end.
-        Returns (probs [P, C] softmaxed in f32, features [P, 512])."""
+        Returns (probs [P, C] softmaxed in f32, features [P, 512]).
+
+        Every sub-batch has exactly ``batch_size`` crops, the last one filled
+        up by repeating its last crop, as in the JAX package: a library
+        convolution or product may sum in another order at another batch size,
+        and with one shape a crop's row does not depend on how many crops its
+        chunk holds. ``cnn_stride`` serving rests on that: it computes a subset
+        of the crops and its dynamic stream equals per-frame serving's bit for
+        bit."""
         p = present_idx.shape[0]
         if p == 0:
             return (np.zeros((0, self.num_classes), np.float32),
                     np.zeros((0, 512), np.float32))
         self.ensure_calibrated_from_frames(frames_dev, present_idx, boxes)
-        idx_all = torch.from_numpy(present_idx.astype(np.int64)).to(self.device)
-        boxes_all = torch.from_numpy(boxes.astype(np.int64)).to(self.device)
+        bs = self.batch_size
+        fill = (-p) % bs
+        idx_all = torch.from_numpy(np.pad(present_idx.astype(np.int64), (0, fill), "edge"))
+        boxes_all = torch.from_numpy(np.pad(boxes.astype(np.int64), ((0, fill), (0, 0)), "edge"))
+        idx_all, boxes_all = idx_all.to(self.device), boxes_all.to(self.device)
         outs = []
-        for s in range(0, p, self.batch_size):
-            crops = crop_and_resize(frames_dev, idx_all[s:s + self.batch_size],
-                                    boxes_all[s:s + self.batch_size], 224)
+        for s in range(0, p, bs):
+            crops = crop_and_resize(frames_dev, idx_all[s:s + bs], boxes_all[s:s + bs], 224)
             logits, feats = self.static_model(vggface_normalize(crops))
             outs.append(torch.cat([torch.softmax(logits.float(), dim=-1), feats.float()], -1))
-        packed = torch.cat(outs).cpu().numpy()
+        packed = torch.cat(outs)[:p].cpu().numpy()
         return packed[:, :self.num_classes], packed[:, self.num_classes:]
 
     @torch.inference_mode()
@@ -197,3 +209,47 @@ class VisualStage:
         if dyn_logits.size:
             dyn[md] = dyn_logits[plan.dyn_src[md]]
         return stat, dyn
+
+
+def cnn_compute_sel(frame_ids: np.ndarray, step: int, cnn_stride: int,
+                    prev_gid: int | None = None) -> tuple[np.ndarray, int | None]:
+    """Which present frames get a real static-CNN forward under
+    ``VisualConfig.cnn_stride``: a frame whose last computed predecessor lies
+    at least ``cnn_stride`` frame ids back (greedy in frame-id space, so static
+    probabilities are never held longer than ``cnn_stride - 1`` frames however
+    sparse the face's presence), and every dynamic step frame (``frame_id %
+    step == 0``: the frames that feed the LSTM windows, so the dynamic stream
+    is unchanged). ``frame_ids``: [P] global indices of this chunk's present
+    frames; ``prev_gid``: the last computed frame id of earlier chunks (None
+    at the clip's start, where the first present frame is always selected).
+    Returns ([P] bool mask, the new ``prev_gid``)."""
+    sel = np.zeros(frame_ids.shape[0], bool)
+    last = prev_gid
+    for i, g in enumerate(frame_ids.tolist()):
+        if last is None or g - last >= cnn_stride or g % step == 0:
+            sel[i] = True
+            last = g
+    return sel, last
+
+
+def subset_forward_fill(sel: np.ndarray, rows: np.ndarray, carry: np.ndarray | None
+                        ) -> tuple[np.ndarray, np.ndarray | None]:
+    """Spread ``rows``, computed on the ``sel`` subset, back over the whole
+    sequence by holding each row until the next computed one. ``carry`` is the
+    previous chunk's last filled row (None before any row exists). Returns
+    (filled [P, D] rows, the new carry)."""
+    n = sel.shape[0]
+    if n == 0:
+        return rows[:0], carry
+    src = np.cumsum(sel) - 1
+    if carry is None and src[0] < 0:
+        raise ValueError(
+            "subset_forward_fill: leading unselected rows with no carry: select the clip's "
+            "first present frame or hand over the previous chunk's carry")
+    if rows.shape[0]:
+        out = rows[np.maximum(src, 0)].copy()
+        if src[0] < 0:
+            out[src < 0] = carry
+    else:
+        out = np.tile(np.asarray(carry)[None], (n, 1))
+    return out, out[-1].copy()

@@ -339,7 +339,8 @@ def test_cli_int8_profile():
     """``--serving_profile int8`` maps as the JAX package's CLI maps it:
     ``quant="int8"`` in all three stages, the r50 detector at the 640 bucket
     with batch 32, the shared extractor unless ``--exact_audio``; ``parity``
-    is unchanged; every other quantised profile is refused by name."""
+    is unchanged; every other quantised profile is int8 in all three stages
+    too, ``balanced`` in none."""
     cfg = cli.config_from_args(cli.parse_args(["--serving_profile", "int8"]))
     assert (cfg.detector.quant, cfg.visual.quant, cfg.audio.quant) == ("int8",) * 3
     assert (cfg.detector.backbone, cfg.detector.long_side, cfg.detector.batch_size,
@@ -353,13 +354,16 @@ def test_cli_int8_profile():
     assert (cfg.detector.quant, cfg.visual.quant, cfg.audio.quant) == ("none",) * 3
     assert not cfg.audio.shared_extractor
     for profile in ("balanced", "int8_s2", "int8_448", "int8_448_s2", "fast", "turbo", "max"):
-        with pytest.raises(SystemExit):
-            cli.parse_args(["--serving_profile", profile])
+        cfg = cli.config_from_args(cli.parse_args(["--serving_profile", profile]))
+        want = "none" if profile == "balanced" else "int8"
+        assert (cfg.detector.quant, cfg.visual.quant, cfg.audio.quant) == (want,) * 3
+        assert cfg.audio.shared_extractor == (want == "int8")
 
 
 def test_builder_int8_models_and_refusals(tmp_path):
     """``build_pipeline`` builds the int8 variants the config names, seeds
-    their scales, and still refuses what is not ported."""
+    their scales, builds what the serving presets switch on, and still
+    refuses what is not ported."""
     cfg = int8_config(slice_config(str(tmp_path / "no_weights")), fused=True)
     pipe = build_pipeline(cfg, Wav2Vec2Config(**TINY_W2V2), device="cpu")
     det, cnn, aud = pipe.detect.model, pipe.visual.static_model, pipe.audio.model
@@ -370,9 +374,17 @@ def test_builder_int8_models_and_refusals(tmp_path):
                    for m in layers.q_modules(model).values())
     assert isinstance(det.body.conv1, torch.nn.Conv2d)  # the detector's stem stays exact
     assert isinstance(cnn.fc1, torch.nn.Linear)
-    for bad in (dict(detector=dataclasses.replace(cfg.detector, stride=2)),
-                dict(detector=dataclasses.replace(cfg.detector, backbone="mobilenet0.25")),
-                dict(visual=dataclasses.replace(cfg.visual, cnn_stride=0))):
-        with pytest.raises(ValueError, match="not ported|is not ported|ported"):
+    # the presets' switches build: detect stride, the mobilenet detector,
+    # the CNN on the step cadence
+    for ok in (dict(detector=dataclasses.replace(cfg.detector, stride=2)),
+               dict(detector=dataclasses.replace(cfg.detector, backbone="mobilenet0.25")),
+               dict(visual=dataclasses.replace(cfg.visual, cnn_stride=0))):
+        c = dataclasses.replace(cfg, **ok)
+        built = build_pipeline(c, Wav2Vec2Config(**TINY_W2V2), device="cpu")
+        assert built.detect.model.backbone == c.detector.backbone and built.detect.model.quant
+        assert built._new_tracker().gap_frames == c.detector.stride
+    for bad in (dict(heatmaps="static"), dict(save_face_crops=True), dict(calibrate=True),
+                dict(detector=dataclasses.replace(cfg.detector, stride=3))):
+        with pytest.raises(ValueError, match="not ported|must divide batch_size"):
             build_pipeline(dataclasses.replace(cfg, **bad), Wav2Vec2Config(**TINY_W2V2),
                            device="cpu")

@@ -270,8 +270,11 @@ import avcer_tpu_torch.cli.run as cli
 from avcer_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 from avcer_tpu_torch.pipeline.builder import build_pipeline
 from avcer_tpu_torch.pipeline.media import ArrayReader
+import dataclasses
 cfg = cli.config_from_args(cli.parse_args(["--weights_dir", {str(tmp_path)!r}, "--long_side", "64",
                                                 "--fused"]))
+# every CNN batch is filled up to its size: a small one for the CPU
+cfg = dataclasses.replace(cfg, visual=dataclasses.replace(cfg.visual, batch_size=4))
 pipe = build_pipeline(cfg, Wav2Vec2Config(**{TINY_W2V2!r}), device="cpu")
 frames = np.random.default_rng(0).integers(0, 255, (3, 48, 64, 3), dtype=np.uint8)
 clip = pipe.run(ArrayReader(frames, fps=25), "", wav=np.zeros(16000, np.float32))
@@ -286,13 +289,18 @@ print("IMPORT_GUARD_OK")
 
 
 def test_cli_rejects_unported_flags():
+    """What the port does not run is refused by name; every serving profile
+    parses (tests/test_torch_presets.py holds each to the JAX CLI's mapping);
+    the default device raises without a card instead of falling back."""
     import avcer_tpu_torch.cli.run as cli
 
-    for argv in (["--serving_profile", "int8_s2"], ["--serving_profile", "fast"],
-                 ["--data_parallel", "2"],
-                 ["--heatmaps", "static"]):
+    for argv in (["--data_parallel", "2"], ["--heatmaps", "static"],
+                 ["--serving_profile", "fastest"]):
         with pytest.raises(SystemExit):
             cli.parse_args(argv)
+    for profile, backbone in (("int8_s2", "resnet50"), ("fast", "mobilenet0.25")):
+        cfg = cli.config_from_args(cli.parse_args(["--serving_profile", profile]))
+        assert (cfg.detector.backbone, cfg.detector.quant) == (backbone, "int8")
     with pytest.raises(RuntimeError) if not torch.cuda.is_available() else pytest.raises(
             SystemExit):
         cli.main(["--path_video", "missing.avi"])
