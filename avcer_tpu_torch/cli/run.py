@@ -24,14 +24,21 @@ when given. ``--fused`` runs the r50 detector's and the emotion CNN's
 bottleneck chains, and either detector's FPN, SSH modules and heads, through
 the fused CUDA kernels (same weights, same outputs up to rounding). A
 directory of clips is served through ``Pipeline.run_many``, two clips at a
-time. Flags for what the port does not run yet exit with an error that names
-the ROADMAP item porting it. ``--device`` defaults to cuda and never falls
-back to the CPU on its own.
+time. ``--profile_dir DIR`` runs the single-clip ``Pipeline.run`` under
+``torch.profiler`` (CPU, and CUDA on a card) and writes a Chrome trace into
+DIR. The JAX CLI's other flags parse as there: ``--audio_head`` defaults to
+v3 with ``--audio_classes 8`` and to v2 with 7, and the port serves v3 with 8
+classes. Flags for what the port does not run yet exit with an error that
+names the ROADMAP item porting it: another audio head or class count,
+``--save_face_crops``, ``--data_parallel``, ``--heatmaps``; ``--calibrate``
+and ``--compile_cache_dir`` are TPU-only and named in its "Not ported" list.
+``--device`` defaults to cuda and never falls back to the CPU on its own.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import logging
 import os
@@ -44,7 +51,14 @@ from avcer_tpu_torch.core.config import (AudioConfig, DetectorConfig, FusionConf
 NOT_PORTED = {
     "data_parallel": "ROADMAP queue 1, parallelism",
     "heatmaps": "ROADMAP queue 1, other modules: Grad-CAM heatmaps",
+    "audio_head": "ROADMAP queue 1, item 4: ExprModel V2, V1 and 7 classes",
+    "save_face_crops": "ROADMAP queue 1, item 5: the host-crop path",
+    "calibrate": "ROADMAP, \"Not ported\": TPU batch-size calibration",
+    "compile_cache_dir": "ROADMAP, \"Not ported\": the XLA compile cache",
 }
+#: the audio head and class count the port serves
+AUDIO_HEAD = ("v3", 8)
+TRACE_FILE = "trace.json"
 PROFILES = ("parity", "balanced", "int8", "int8_s2", "int8_448", "int8_448_s2", "fast", "turbo",
             "max")
 
@@ -85,12 +99,43 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "kernels")
     p.add_argument("--data_parallel", type=int, default=1)
     p.add_argument("--heatmaps", choices=["", "static", "dynamic"], default="")
+    p.add_argument("--save_face_crops", action="store_true")
+    p.add_argument("--audio_classes", type=int, choices=[7, 8], default=8)
+    p.add_argument("--audio_head", choices=["v1", "v2", "v3"], default=None,
+                   help="default: v3 for 8 classes, v2 for 7 (the reference's pairing)")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="write a torch.profiler Chrome trace of the run here")
+    p.add_argument("--calibrate", action="store_true")
+    p.add_argument("--compile_cache_dir", type=str, default=None)
     a = p.parse_args(argv)
-    asked = {"data_parallel": a.data_parallel > 1, "heatmaps": bool(a.heatmaps)}
+    a.audio_head = a.audio_head or ("v3" if a.audio_classes == 8 else "v2")
+    asked = {"data_parallel": a.data_parallel > 1, "heatmaps": bool(a.heatmaps),
+             "audio_head": (a.audio_head, a.audio_classes) != AUDIO_HEAD,
+             "save_face_crops": a.save_face_crops, "calibrate": a.calibrate,
+             "compile_cache_dir": bool(a.compile_cache_dir)}
     for flag, hit in asked.items():
         if hit:
-            p.error(f"--{flag} is not ported yet ({NOT_PORTED[flag]})")
+            what = (f"--audio_head {a.audio_head} with --audio_classes {a.audio_classes}"
+                    if flag == "audio_head" else f"--{flag}")
+            p.error(f"{what} is not ported ({NOT_PORTED[flag]})")
     return a
+
+
+@contextlib.contextmanager
+def profiled(path: str, device="cuda"):
+    """``torch.profiler`` over the body (CPU activity, and CUDA where
+    ``device`` is a GPU); on exit the Chrome trace goes to
+    ``path/trace.json``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(path, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(path, TRACE_FILE))
 
 
 def config_from_args(a: argparse.Namespace) -> PipelineConfig:
@@ -119,9 +164,12 @@ def config_from_args(a: argparse.Namespace) -> PipelineConfig:
         # every quantised profile shares the conv feature extractor across the
         # windows unless --exact_audio
         audio=AudioConfig(padding=a.audio_padding, step_sec=a.audio_step, quant=quant,
-                          shared_extractor=quant == "int8" and not a.exact_audio),
+                          shared_extractor=quant == "int8" and not a.exact_audio,
+                          head=a.audio_head, num_classes=a.audio_classes),
         fusion=FusionConfig(use_published_weights=not a.no_published_weights,
                             ce_weights_type=a.ce_weights_type, ce_mask=not a.no_ce_mask),
+        # refused by parse_args; check_supported is the second guard
+        save_face_crops=a.save_face_crops, calibrate=a.calibrate,
         weights_dir=a.weights_dir,
     )
 
@@ -149,7 +197,12 @@ def main(argv=None) -> int:
         return 0
 
     print(f"Face images detection in video: {a.path_video}")
-    clip = pipe.run(a.path_video, a.path_save)
+    if a.profile_dir:
+        with profiled(a.profile_dir, a.device):
+            clip = pipe.run(a.path_video, a.path_save)
+        print(f"Profiler trace written to {a.profile_dir}")
+    else:
+        clip = pipe.run(a.path_video, a.path_save)
     print("Compound expression prediction")
     for stage, sec in clip.timings.items():
         print(f"  {stage}: {sec:.3f}s")

@@ -1,10 +1,14 @@
-"""Wrapper of the CUDA self-attention kernel (``csrc/attention.cu``), the
+"""Wrapper of the CUDA self-attention kernels (``csrc/attention.cu``), the
 counterpart of avcer_tpu/ops/pallas/attention_kernel.py ``pallas_mha``.
 
 Dispatch rule, with no fallback: a CPU tensor goes to the plain version in
-this module (``mha_plain``); a CUDA tensor launches the kernel or raises. The
-port has no ``use_pallas_attention`` option: on the card the wav2vec2 encoder
-layers always run this kernel.
+this module (``mha_plain``); a CUDA tensor launches a kernel or raises. Which
+of the two kernels runs depends on the dtype and the shape only
+(``kernel_for``): bf16 with D a multiple of 16 and T <= 256 goes to the
+tensor-core kernel ``tc``, everything else (f32, longer sequences, other head
+dims) to the f32-exact CUDA-core kernel ``exact``. The port has no
+``use_pallas_attention`` option: on the card the wav2vec2 encoder layers
+always run a kernel.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from avcer_tpu_torch import _build
 
 MAX_T = 1024
 MAX_D = 128
+TC_MAX_T = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -32,9 +37,31 @@ def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     return torch.matmul(p, vf).to(q.dtype)
 
 
+_ENTRIES: dict = {}
+
+
+def _entry(kernel: str):
+    """The C entry point of ``kernel`` ("tc" or "exact"), typed once."""
+    fn = _ENTRIES.get(kernel)
+    if fn is None:
+        fn = getattr(_build.library("attention"), f"avcer_mha_{kernel}")
+        extra = [] if kernel == "tc" else [ctypes.c_int]  # the dtype code
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + extra + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _ENTRIES[kernel] = fn
+    return fn
+
+
+def kernel_for(dtype: torch.dtype, t: int, d: int) -> str:
+    """The kernel that takes [B, H, t, d] operands of ``dtype``: "tc" (bf16 on
+    the tensor cores) or "exact" (f32 on the CUDA cores)."""
+    return "tc" if dtype == torch.bfloat16 and t <= TC_MAX_T and d % 16 == 0 else "exact"
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Unmasked softmax(Q K^T / sqrt(d)) V over [B, H, T, D] operands (f32
-    or bf16, T <= 1024, D <= 128). ``mha.launches`` counts kernel launches."""
+    or bf16, T <= 1024, D <= 128). ``mha.launches`` counts kernel launches,
+    ``mha.launches_by_kernel`` the same launches by kernel."""
     if q.device.type == "cpu":
         return mha_plain(q, k, v)
     if q.device.type != "cuda":
@@ -53,18 +80,20 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"mha: T = {t}, D = {d} outside T <= {MAX_T}, D <= {MAX_D}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("mha: q, k and v must be contiguous")
+    kernel = kernel_for(q.dtype, t, d)
+    if kernel == "tc" and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("mha: bf16 operands must start on a 16-byte boundary")
     out = torch.empty_like(q)
-    fn = _build.library("attention").avcer_mha
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn, extra = _entry(kernel), (() if kernel == "tc" else (_DTYPE_CODE[q.dtype],))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t, d, *extra)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b * h, t, d, _DTYPE_CODE[q.dtype], stream)
+        rc = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"attention kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"attention kernel {kernel} launch failed: CUDA error {rc}")
     mha.launches += 1
+    mha.launches_by_kernel[kernel] += 1
     return out
 
 
 mha.launches = 0
+mha.launches_by_kernel = {"tc": 0, "exact": 0}

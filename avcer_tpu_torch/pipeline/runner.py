@@ -69,7 +69,7 @@ def check_supported(cfg: PipelineConfig) -> None:
     unsupported = {
         "mesh.data > 1 (data parallel; ROADMAP queue 1, parallelism)": cfg.mesh.data > 1,
         "heatmaps (ROADMAP queue 1, other modules: Grad-CAM)": bool(cfg.heatmaps),
-        "save_face_crops (ROADMAP queue 1, other modules)": cfg.save_face_crops,
+        "save_face_crops (ROADMAP queue 1, item 5: the host-crop path)": cfg.save_face_crops,
         f"visual.quant={cfg.visual.quant!r} (only 'none' and 'int8' exist)":
             cfg.visual.quant not in ("none", "int8"),
         "calibrate (not ported: batch sizes are measured with bench.py)": cfg.calibrate,

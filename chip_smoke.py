@@ -17,7 +17,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    from the configuration ``cli.run`` maps its ``--serving_profile`` to (the
    mobilenet0.25 detector for ``fast``, ``turbo`` and ``max``);
 4. kernels: each kernel against its plain PyTorch version at the first main
-   paths' shapes (NMS keep masks equal; attention, fused_chain and
+   paths' shapes (NMS keep masks equal; attention (the tensor-core kernel in
+   bf16, the exact kernel in f32), fused_chain and
    fused_ssh_heads, exact and in their int8 modes, the latter also at the
    mobilenet detector's 64 channels with leaky ReLU 0.1, and fused_chain_flat
    within the stated tolerances, f32 and bf16), with median times over 50
@@ -34,14 +35,18 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    and int8 fused (``--serving_profile int8 [--fused]``): an 8 s synthetic
    640x360 clip and a 16 kHz wav: one warm-up run (in int8 it also refines
    the scales, which then stay frozen), then three timed runs, each with its
-   outputs and the launch counts of the kernels checked; the fused runs'
-   compound decisions against the unfused runs'. In every warm-up run, of
+   outputs and the launch counts of the kernels checked (every attention
+   launch in the tensor-core kernel); the fused runs' compound decisions
+   against the unfused runs'; one more run of the unfused exact path under
+   the CLI's ``--profile_dir`` helper, for the device's busy and idle share
+   of the wall. In every warm-up run, of
    these paths and of the presets', each kernel call with shapes, types or
    modes that no path has shown yet is held against the kernel's plain
    version on the call's own inputs;
 7. the presets: ``max --fused`` and ``turbo`` unfused the same way (three
    timed runs, launch counts: ``fused_ssh_heads`` three times a detect batch
-   and every launch with leaky 0.1), ``max``'s dynamic stream held bit for
+   and every launch with leaky 0.1; ``max --fused`` also one profiled run),
+   ``max``'s dynamic stream held bit for
    bit against ``turbo --fused``'s, and one timed run each of ``balanced``,
    ``int8_s2``, ``int8_448``, ``int8_448_s2`` and ``fast`` (``balanced``,
    ``int8_448_s2`` and ``fast`` also with ``--fused``), and ``run_many`` over
@@ -139,9 +144,12 @@ def phase_build() -> None:
     log(f"build: {time.perf_counter() - t0:.2f} s wall, all sources at once "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in took.items())})")
     for name in _build.KERNELS:
+        entry = ""
         for line in _build.ptxas_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name} {entry}: {line.strip()}")
 
 
 def median_ms(fn, runs: int = 50, warmup: int = 5) -> float:
@@ -157,6 +165,30 @@ def median_ms(fn, runs: int = 50, warmup: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, runs: int = 20) -> float:
+    """Device time of one call: the kernels' own durations in a
+    ``torch.profiler`` trace of ``runs`` calls (after 3 warm-ups), summed and
+    divided by ``runs``. Unlike ``median_ms`` it leaves out the host's time to
+    launch, which a short kernel does not hide."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    path = os.path.join(ROOT, "build", "smoke_traces", "device_ms.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("the profiler's trace holds no device kernel")
+    return sum(float(e["dur"]) for e in kernels) / runs * 1e-3
 
 
 def nms_case(seed: int, b: int, k: int) -> tuple[np.ndarray, np.ndarray]:
@@ -217,39 +249,76 @@ def kernels_nms_attention(card: str) -> list[dict]:
         f"{nms_ms:.4f} ms vs plain {nms_plain_ms:.4f} ms (median of 50), bound "
         f"{nms_bound:.6f} ms ({nms_by}), no library call, on {card}")
 
-    # attention, f32: the JAX package's bound for the Pallas kernel
+    # attention, f32: the exact kernel, within the JAX package's bound for the
+    # Pallas kernel
+    mha, plain = attention_kernel.mha, attention_kernel.mha_plain
     rng = np.random.default_rng(0)
     q, k, v = (torch.from_numpy(rng.normal(size=ATTN_SHAPE).astype(np.float32)).to(dev)
                for _ in range(3))
-    err32 = float((attention_kernel.mha(q, k, v) - attention_kernel.mha_plain(q, k, v)).abs().max())
-    torch.testing.assert_close(attention_kernel.mha(q, k, v), attention_kernel.mha_plain(q, k, v),
-                               atol=2e-5, rtol=1e-4)
-    # bf16 (the main path's dtype): both sides work in f32 from the same bf16
-    # inputs and the kernel rounds to bf16, within 2**-8 relative of the f32
-    # result; atol covers f32 summation-order differences near zero
+    ran = mha_kernels_of(lambda: mha(q, k, v))
+    got32 = mha(q, k, v)
+    err32 = float((got32 - plain(q, k, v)).abs().max())
+    torch.testing.assert_close(got32, plain(q, k, v), atol=2e-5, rtol=1e-4)
+    # bf16 (the main path's dtype), the tensor-core kernel: both sides work in
+    # f32 from the same bf16 inputs and the kernel rounds to bf16, within
+    # 2**-8 relative of the f32 result; atol covers f32 summation-order
+    # differences near zero (the exp values enter the tensor cores as two bf16
+    # parts)
     qb, kb, vb = (x.bfloat16() for x in (q, k, v))
-    got = attention_kernel.mha(qb, kb, vb).float()
-    want = attention_kernel.mha_plain(qb.float(), kb.float(), vb.float())
+    ran16 = mha_kernels_of(lambda: mha(qb, kb, vb))
+    got = mha(qb, kb, vb).float()
+    want = plain(qb.float(), kb.float(), vb.float())
     err16 = float((got - want).abs().max())
     torch.testing.assert_close(got, want, atol=1e-5, rtol=4e-3)
-    attn_ms = median_ms(lambda: attention_kernel.mha(qb, kb, vb))
-    attn_plain_ms = median_ms(lambda: attention_kernel.mha_plain(qb, kb, vb))
-    attn_lib_ms = median_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb))
+    if (ran, ran16) != ({"exact": 1}, {"tc": 1}):
+        raise AssertionError(f"mha routed f32 to {ran} and bf16 to {ran16}")
+    # in turns: tensor-core kernel, library call, plain, exact kernel in f32
+    # and its library call
+    tc_ms = median_ms(lambda: mha(qb, kb, vb))
+    tc_lib_ms = median_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb))
+    tc_plain_ms = median_ms(lambda: plain(qb, kb, vb))
+    exact_ms = median_ms(lambda: mha(q, k, v))
+    exact_lib_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    exact_plain_ms = median_ms(lambda: plain(q, k, v))
+    tc_dev = device_ms(lambda: mha(qb, kb, vb))
+    tc_lib_dev = device_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb))
+    exact_dev = device_ms(lambda: mha(q, k, v))
     b, h, t, d = ATTN_SHAPE
-    attn_bound, attn_by = bound_ms(4 * tensor_bytes(qb), 4.0 * b * h * t * t * d, "bf16")
-    log(f"kernel mha {list(ATTN_SHAPE)}: f32 max abs err {err32:.3g} (atol 2e-5, rtol 1e-4); "
-        f"bf16 max abs err {err16:.3g} vs f32 plain (atol 1e-5, rtol 4e-3); "
-        f"bf16 {attn_ms:.4f} ms vs plain {attn_plain_ms:.4f} ms, "
-        f"scaled_dot_product_attention {attn_lib_ms:.4f} ms (median of 50), bound "
-        f"{attn_bound:.4f} ms ({attn_by}) on {card}")
+    flops = 4.0 * b * h * t * t * d
+    tc_bound, tc_by = bound_ms(4 * tensor_bytes(qb), flops, "bf16")
+    # the exact kernel multiplies in f32 on the CUDA cores
+    exact_bound, exact_by = bound_ms(4 * tensor_bytes(q), flops, "f32")
+    log(f"kernel mha_tc {list(ATTN_SHAPE)} bf16 (tensor cores): max abs err {err16:.3g} vs f32 "
+        f"plain (atol 1e-5, rtol 4e-3); {tc_ms:.4f} ms vs plain {tc_plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {tc_lib_ms:.4f} ms (a call, median of 50); device time "
+        f"{tc_dev:.4f} ms vs scaled_dot_product_attention's kernels {tc_lib_dev:.4f} ms "
+        f"(profiler, 20 calls); bound {tc_bound:.4f} ms ({tc_by}) on {card}")
+    log(f"kernel mha_exact {list(ATTN_SHAPE)} f32 (CUDA cores): max abs err {err32:.3g} "
+        f"(atol 2e-5, rtol 1e-4); {exact_ms:.4f} ms vs plain {exact_plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {exact_lib_ms:.4f} ms (a call, median of 50); device "
+        f"time {exact_dev:.4f} ms (profiler, 20 calls); bound {exact_bound:.4f} ms ({exact_by}) "
+        f"on {card}")
     return [
         entry("nms_mask", "nms.cu", "avcer_tpu/ops/pallas/nms_kernel.py:62",
               max_abs_err=float(mismatches), ms=nms_ms, plain_ms=nms_plain_ms,
               bound_ms=nms_bound, bound_by=nms_by, library_ms=None),
-        entry("mha", "attention.cu", "avcer_tpu/ops/pallas/attention_kernel.py:40",
-              max_abs_err=err16, ms=attn_ms, plain_ms=attn_plain_ms, bound_ms=attn_bound,
-              bound_by=attn_by, library_ms=attn_lib_ms),
+        entry("mha_tc", "attention.cu", "avcer_tpu/ops/pallas/attention_kernel.py:40",
+              max_abs_err=err16, ms=tc_ms, plain_ms=tc_plain_ms, bound_ms=tc_bound,
+              bound_by=tc_by, library_ms=tc_lib_ms, shape=list(ATTN_SHAPE), dtype="bf16",
+              device_ms=tc_dev, library_device_ms=tc_lib_dev),
+        entry("mha_exact", "attention.cu", "avcer_tpu/ops/pallas/attention_kernel.py:40",
+              max_abs_err=err32, ms=exact_ms, plain_ms=exact_plain_ms, bound_ms=exact_bound,
+              bound_by=exact_by, library_ms=exact_lib_ms, shape=list(ATTN_SHAPE), dtype="f32",
+              device_ms=exact_dev, on_main_path=False),
     ]
+
+
+def mha_kernels_of(call) -> dict[str, int]:
+    """The attention kernels ``call`` launched, with their launch counts."""
+    before = dict(attention_kernel.mha.launches_by_kernel)
+    call()
+    return {name: n - before[name] for name, n in attention_kernel.mha.launches_by_kernel.items()
+            if n != before[name]}
 
 
 def randn(shape, seed: int, dtype=torch.bfloat16, relu: bool = True) -> torch.Tensor:
@@ -332,6 +401,8 @@ def hold_on_path(name: str, args: tuple, kw: dict):
     quant = kw.get("act_s") is not None
     entry_name = name + ("_c64" if name == "fused_ssh_heads" and args[1][0].shape[2] == 64
                          else "") + ("_int8" if quant else "")
+    if name == "mha":
+        entry_name += "_" + attention_kernel.kernel_for(args[0].dtype, *args[0].shape[2:])
     got = wrapper(*args, **kw)
     if name == "nms_mask":
         err, tol = float((got != plain(*args, **kw)).sum()), None
@@ -1013,13 +1084,16 @@ def calibration_forwards(pipe) -> dict[str, int]:
 
 
 def phase_main(card: str, pipe, fused: bool, frames: np.ndarray, wav: np.ndarray,
-               int8: bool = False, label: str = "", timed_runs: int = TIMED_RUNS):
+               int8: bool = False, label: str = "", timed_runs: int = TIMED_RUNS,
+               profile: bool = False):
     """One warm-up run and ``timed_runs`` timed runs of one pipeline. Every
     count is set to 0 just before a timed run and read just after it. In int8
     the warm-up run refines the noise-seeded scales on the clip's first frames,
     crops and windows (one calibration forward a stage, counted apart); the
-    timed runs must then all run with the same frozen scales. Returns the last
-    run's result and launch counts."""
+    timed runs must then all run with the same frozen scales. With
+    ``profile``, one more run under the CLI's ``--profile_dir`` helper gives
+    the device's busy and idle share of the wall. Returns the last timed run's
+    result and launch counts."""
     label = label or ("int8 " if int8 else "") + ("fused main path" if fused else "main path")
     cnn_calls, crops_asked = [0], [0]
     hook = pipe.visual.static_model.register_forward_hook(
@@ -1046,9 +1120,7 @@ def phase_main(card: str, pipe, fused: bool, frames: np.ndarray, wav: np.ndarray
 
     walls = []
     for run in range(1, timed_runs + 1):
-        for wrapper in WRAPPERS.values():
-            wrapper.launches = 0
-        fused_ssh_kernel.fused_ssh_heads.launches_by_leaky.clear()
+        reset_counts()
         cnn_calls[0] = crops_asked[0] = 0
         pipe.detect.raw_kept = pipe.detect.frames = 0
         torch.cuda.synchronize()
@@ -1056,7 +1128,7 @@ def phase_main(card: str, pipe, fused: bool, frames: np.ndarray, wav: np.ndarray
         clip = pipe.run(ArrayReader(frames, FPS, "smoke.avi"), "", wav=wav)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        launches = {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+        launches = counts()
         check_main_path(clip, frames.shape[0], launches, pipe.cfg, cnn_calls[0], crops_asked[0])
         if int8 and calibration_forwards(pipe) != calib:
             raise AssertionError(f"{label}: the scales moved in a timed run: "
@@ -1068,6 +1140,8 @@ def phase_main(card: str, pipe, fused: bool, frames: np.ndarray, wav: np.ndarray
     log(f"detector kept {pipe.detect.raw_kept / max(pipe.detect.frames, 1):.1f} candidates "
         "per detected frame before the top one was forced to be the only face")
     wall = float(np.median(walls))
+    if profile:
+        profiled_run(card, pipe, frames, wav, label, wall)
     log(f"{label}: {frames.shape[0]} frames ({CLIP_SECONDS} s of video), wall per run "
         f"{', '.join(f'{w:.3f}' for w in walls)} s, median {wall:.3f} s = "
         f"{CLIP_SECONDS / wall:.3f} video-sec/sec on {card}; launches per run {launches}, "
@@ -1075,6 +1149,58 @@ def phase_main(card: str, pipe, fused: bool, frames: np.ndarray, wav: np.ndarray
         f"{fused_ssh_kernel.fused_ssh_heads.launches_by_leaky}, emotion CNN forward calls "
         f"{cnn_calls[0]} for {crops_asked[0]} crops")
     return clip, launches
+
+
+def reset_counts() -> None:
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    fused_ssh_kernel.fused_ssh_heads.launches_by_leaky.clear()
+    attention_kernel.mha.launches_by_kernel.update(tc=0, exact=0)
+
+
+def counts() -> dict[str, int]:
+    """Each wrapper's launches, and the attention launches by kernel."""
+    out = {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+    out.update({f"mha_{k}": n for k, n in attention_kernel.mha.launches_by_kernel.items()})
+    return out
+
+
+def profiled_run(card: str, pipe, frames: np.ndarray, wav: np.ndarray, label: str,
+                 wall: float) -> None:
+    """One run under ``cli.profiled`` (what ``cli.run --profile_dir`` does):
+    the union of the device's kernel, copy and set intervals in the Chrome
+    trace over the run's wall (which the profiler lengthens on the host) and
+    over the timed runs' median wall, and the kernels that took the most
+    device time."""
+    path = os.path.join(ROOT, "build", "smoke_traces", label.replace(" ", "_").strip("-_"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with cli.profiled(path, DEVICE):
+        pipe.run(ArrayReader(frames, FPS, "smoke.avi"), "", wav=wav)
+        torch.cuda.synchronize()
+    run_wall = time.perf_counter() - t0
+    with open(os.path.join(path, cli.TRACE_FILE)) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    if not any(e["cat"] == "kernel" for e in events):
+        raise AssertionError(f"{label}: the profiler's trace holds no device kernel")
+    busy, end = 0.0, -np.inf
+    for start, dur in sorted((float(e["ts"]), float(e["dur"])) for e in events):
+        busy += max(0.0, start + dur - max(start, end))
+        end = max(end, start + dur)
+    busy *= 1e-6  # the trace counts microseconds
+    by_name: dict[str, list] = {}
+    for e in events:
+        rec = by_name.setdefault(e["name"][:60], [0.0, 0])
+        rec[0] += float(e["dur"]) * 1e-3
+        rec[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    log(f"{label} under the profiler (cli.profiled, CPU + CUDA): device busy {busy:.4f} s of "
+        f"the run's {run_wall:.4f} s wall = {busy / run_wall:.1%} busy, {1 - busy / run_wall:.1%} "
+        f"idle; of the timed runs' median wall {wall:.4f} s: {busy / wall:.1%} busy, "
+        f"{1 - busy / wall:.1%} idle; {len(events)} device events on {card}")
+    log(f"{label} device time by kernel (ms, launches): "
+        + "; ".join(f"{name} {ms:.3f}, {n}" for name, (ms, n) in top))
 
 
 def check_main_path(clip, n: int, launches: dict[str, int], cfg: PipelineConfig, cnn_calls: int,
@@ -1085,7 +1211,8 @@ def check_main_path(clip, n: int, launches: dict[str, int], cfg: PipelineConfig,
     (with the mobilenet detector each with leaky 0.1, else with 0) and, in the
     r50 body, 5 fused_chain calls (layer1, layer2, three chunks of layer3); per
     emotion-CNN forward, fused, 7 fused_chain calls (1 + 2 + 2 + 2 over the
-    four layers); 12 attention calls per audio batch. With the quantised
+    four layers); 12 attention calls per audio batch, each in the tensor-core
+    kernel. With the quantised
     profiles' shared extractor the full 4 s windows and the tail windows are
     batched apart, so the audio batches are counted for each group. The CNN is
     asked for every frame's crop, or with ``cnn_stride`` 0 for the step
@@ -1124,6 +1251,8 @@ def check_main_path(clip, n: int, launches: dict[str, int], cfg: PipelineConfig,
             launches["nms_mask"] == detect_batches,
         f"attention launches == 12 x {audio_batches} audio batches":
             launches["mha"] == 12 * audio_batches,
+        "every attention launch went to the tensor-core kernel":
+            (launches["mha_tc"], launches["mha_exact"]) == (launches["mha"], 0),
         f"fused_chain launches == {want_chain} ({body_chains} in the detector's body + "
         f"7 x {cnn_calls} CNN calls, fused only)": launches["fused_chain"] == want_chain,
         f"fused_ssh_heads launches == {want_ssh}": launches["fused_ssh_heads"] == want_ssh,
@@ -1195,19 +1324,20 @@ def phase_presets(card: str, frames: np.ndarray, wav: np.ndarray, int8_clip) -> 
     two paths that drive the kernel's int8 mode at C = 64 with leaky 0.1:
     ``fast --fused`` (the 640 bucket) and ``max --fused`` (the 448 bucket,
     every second frame)."""
-    def preset(profile: str, fused: bool = False, timed_runs: int = 1):
+    def preset(profile: str, fused: bool = False, timed_runs: int = 1, traced: bool = False):
         label = f"--serving_profile {profile}" + (" --fused" if fused else "")
         cfg = preset_config(profile, fused)
         pipe = build(card, fused, cfg=cfg, label=label)
         clip, launches = phase_main(card, pipe, fused, frames, wav, label=label,
-                                    int8=cfg.visual.quant == "int8", timed_runs=timed_runs)
+                                    int8=cfg.visual.quant == "int8", timed_runs=timed_runs,
+                                    profile=traced)
         return pipe, clip, launches
 
     turbo, turbo_clip, _ = preset("turbo", timed_runs=TIMED_RUNS)
     phase_reference_mobilenet(turbo.detect.inner.model, frames)
     phase_run_many(card, turbo, frames, wav)
     del turbo
-    _, max_clip, max_launches = preset("max", fused=True, timed_runs=TIMED_RUNS)
+    _, max_clip, max_launches = preset("max", fused=True, timed_runs=TIMED_RUNS, traced=True)
     _, turbo_fused_clip, _ = preset("turbo", fused=True)
     torch.cuda.empty_cache()
     # max is turbo with the static CNN on the step cadence only: the step
@@ -1250,7 +1380,7 @@ def main() -> int:
     frames, wav = make_clip()
     phase_reference(pipe, fused_pipe, frames, wav)
     phase_reference_int8(int8_pipe, int8_fused_pipe, frames, wav)
-    clip, _ = phase_main(card, pipe, False, frames, wav)
+    clip, _ = phase_main(card, pipe, False, frames, wav, profile=True)
     fused_clip, launches = phase_main(card, fused_pipe, True, frames, wav)
     int8_clip, _ = phase_main(card, int8_pipe, False, frames, wav, int8=True)
     int8_fused_clip, int8_launches = phase_main(card, int8_fused_pipe, True, frames, wav,

@@ -81,13 +81,26 @@ def test_attention_kernel_f32(cuda_device, shape):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
 
 
-@pytest.mark.parametrize("shape", [(16, 16, 199, 64), (2, 4, 33, 16)])
+@pytest.mark.parametrize("shape", [
+    (16, 16, 199, 64), (2, 4, 33, 16),
+    # ragged and edge lengths of the tensor-core kernel, and its head dims
+    (2, 3, 1, 64), (2, 3, 17, 64), (2, 3, 64, 64), (2, 3, 200, 64), (2, 3, 256, 64),
+    (2, 3, 199, 16), (2, 3, 199, 128),
+    # past the tensor-core kernel's 256 keys: the exact kernel
+    (2, 3, 257, 64)])
 def test_attention_kernel_bf16(cuda_device, shape):
     rng = np.random.default_rng(1)
     q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
                .to(cuda_device, torch.bfloat16) for _ in range(3))
+    kernel = "tc" if shape[2] <= 256 else "exact"
+    assert attention_kernel.kernel_for(torch.bfloat16, shape[2], shape[3]) == kernel
+    before = dict(attention_kernel.mha.launches_by_kernel)
     got = attention_kernel.mha(q, k, v)
+    torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16
+    after = attention_kernel.mha.launches_by_kernel
+    assert {name: after[name] - before[name] for name in after} == {
+        name: int(name == kernel) for name in after}
     # both sides compute in f32 from the same bf16 inputs; the kernel then
     # rounds to bf16, which is within 2**-8 relative of the f32 result
     want = attention_kernel.mha_plain(q.float(), k.float(), v.float())

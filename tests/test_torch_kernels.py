@@ -70,6 +70,38 @@ def test_attention_plain_keeps_input_dtype():
     torch.testing.assert_close(out.float(), want, atol=1e-5, rtol=4e-3)
 
 
+@pytest.mark.parametrize("dtype,t,d,kernel", [
+    (torch.bfloat16, 199, 64, "tc"), (torch.bfloat16, 1, 16, "tc"),
+    (torch.bfloat16, 256, 128, "tc"), (torch.bfloat16, 257, 64, "exact"),
+    (torch.bfloat16, 199, 8, "exact"), (torch.bfloat16, 199, 72, "exact"),
+    (torch.float32, 199, 64, "exact")])
+def test_attention_kernel_choice(dtype, t, d, kernel):
+    """On the card the dtype and the shape alone choose the kernel."""
+    assert attention_kernel.kernel_for(dtype, t, d) == kernel
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_attention_split_p_keeps_the_bound(split):
+    """The tensor-core kernel's arithmetic, replayed in f32 on the CPU at the
+    wav2vec2 shape (two heads): logits of bf16 operands, exp(logit - row
+    max), its product with V in bf16 with the exp values as bf16 hi + lo
+    parts, divided by the row sum, rounded to bf16. With the split it stays
+    within the bound the card holds it to against the f32 plain version
+    (atol 1e-5, rtol 4e-3); the exp values rounded once to bf16 do not, at
+    the outputs near zero."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 2, 199, 64)).astype(np.float32)).bfloat16()
+               for _ in range(3))
+    want = attention_kernel.mha_plain(q.float(), k.float(), v.float())
+    logits = q.float() @ k.float().transpose(-1, -2) / torch.tensor(64.0).sqrt()
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    hi = e.bfloat16().float()
+    parts = (hi, (e - hi).bfloat16().float()) if split else (hi,)
+    got = (sum(part @ v.float() for part in parts) / e.sum(-1, keepdim=True)).bfloat16().float()
+    ok = bool(((got - want).abs() <= 1e-5 + 4e-3 * want.abs()).all())
+    assert ok == split
+
+
 def test_cpu_tensors_launch_no_kernel():
     n0, a0 = nms_kernel.nms_mask.launches, attention_kernel.mha.launches
     boxes, valid = nms_case(0, 2, 8, False)

@@ -288,19 +288,65 @@ print("IMPORT_GUARD_OK")
     assert "IMPORT_GUARD_OK" in proc.stdout, proc.stderr[-3000:]
 
 
-def test_cli_rejects_unported_flags():
-    """What the port does not run is refused by name; every serving profile
-    parses (tests/test_torch_presets.py holds each to the JAX CLI's mapping);
-    the default device raises without a card instead of falling back."""
+@pytest.mark.parametrize("argv,names", [
+    (["--data_parallel", "2"], "queue 1, parallelism"),
+    (["--heatmaps", "static"], "queue 1, other modules"),
+    (["--serving_profile", "fastest"], "invalid choice"),
+    (["--audio_classes", "7"], "queue 1, item 4"),
+    (["--audio_head", "v1"], "queue 1, item 4"),
+    (["--audio_head", "v2"], "queue 1, item 4"),
+    (["--save_face_crops"], "queue 1, item 5"),
+    (["--calibrate"], '"Not ported"'),
+    (["--compile_cache_dir", "X"], '"Not ported"'),
+])
+def test_cli_rejects_unported_flags(argv, names, capsys):
+    """What the port does not run is refused while the arguments are
+    parsed, before any model is built, by naming the ROADMAP item that ports
+    it (or its "Not ported" list)."""
     import avcer_tpu_torch.cli.run as cli
 
-    for argv in (["--data_parallel", "2"], ["--heatmaps", "static"],
-                 ["--serving_profile", "fastest"]):
-        with pytest.raises(SystemExit):
-            cli.parse_args(argv)
+    with pytest.raises(SystemExit):
+        cli.parse_args(argv)
+    assert names in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--audio_head", "v3", "--audio_classes", "8"],
+    ["--audio_classes", "8"],
+    ["--profile_dir", ""],
+])
+def test_cli_accepts_jax_command_line(argv):
+    """A JAX command line that restates the defaults parses and maps to the
+    configuration the port serves without it."""
+    import avcer_tpu_torch.cli.run as cli
+
+    cfg = cli.config_from_args(cli.parse_args(argv))
+    assert (cfg.audio.head, cfg.audio.num_classes) == ("v3", 8)
+    assert cfg == cli.config_from_args(cli.parse_args([]))
+
+
+def test_cli_serves_profiles_and_needs_card():
+    """Every serving profile parses (tests/test_torch_presets.py holds each
+    to the JAX CLI's mapping); the default device raises without a card
+    instead of falling back."""
+    import avcer_tpu_torch.cli.run as cli
+
     for profile, backbone in (("int8_s2", "resnet50"), ("fast", "mobilenet0.25")):
         cfg = cli.config_from_args(cli.parse_args(["--serving_profile", profile]))
         assert (cfg.detector.backbone, cfg.detector.quant) == (backbone, "int8")
     with pytest.raises(RuntimeError) if not torch.cuda.is_available() else pytest.raises(
             SystemExit):
         cli.main(["--path_video", "missing.avi"])
+
+
+def test_cli_profiled_writes_chrome_trace(tmp_path):
+    """``--profile_dir``'s helper: a tiny op under it leaves a Chrome trace
+    that names the op."""
+    import json
+
+    import avcer_tpu_torch.cli.run as cli
+
+    with cli.profiled(str(tmp_path / "trace"), device="cpu"):
+        torch.ones(4, 4).matmul(torch.ones(4, 4))
+    trace = json.loads((tmp_path / "trace" / cli.TRACE_FILE).read_text())
+    assert any("matmul" in e.get("name", "") for e in trace["traceEvents"])
