@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "avcer_tpu_torch"
 KERNELS = ("nms", "attention", "fused_resnet", "fused_ssh")
 #: headers under csrc/ that a kernel's source includes: part of its hash
-HEADERS = {"fused_resnet": ("conv_tile.cuh",), "fused_ssh": ("conv_tile.cuh",)}
+HEADERS = {"attention": ("mma.cuh",), "fused_resnet": ("conv_tile.cuh", "mma.cuh"),
+           "fused_ssh": ("conv_tile.cuh", "mma.cuh")}
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: the NMS keep set must match the JAX reference bit for bit: no contraction

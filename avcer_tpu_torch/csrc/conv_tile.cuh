@@ -22,7 +22,10 @@
 // the current one is multiplied), and an epilogue functor turns 16 bytes' worth of
 // neighbouring output channels at a time into the stored values: round to
 // the compute type, times inv, plus shift (each rounded, no FMA across
-// them), activation, mask, residual.
+// them), activation, mask, residual. K3's bf16 convs go through
+// block_gemm_tc instead (128 x 128 tiles on mma.sync, three cp.async stages;
+// the same sums bit for bit), and a product may be shared by the blocks of
+// a thread-block cluster (block_gemm's `part` of `parts`).
 //
 // The int8 mode (Q): the weights arrive as int8 with per-channel scales
 // folded into `mult`, the activations stay in the compute type T in device
@@ -43,6 +46,8 @@
 #include <mma.h>
 
 #include <type_traits>
+
+#include "mma.cuh"
 
 namespace avcer {
 
@@ -145,6 +150,16 @@ template <typename T>
 __device__ __forceinline__ Vec<T> load_vec(const T* p) {
   Vec<T> r;
   *reinterpret_cast<int4*>(r.v) = *reinterpret_cast<const int4*>(p);
+  return r;
+}
+
+// The same through L2 only (ld.global.cg): for rows that another thread
+// block of the cluster may have written, never through L1 or the read-only
+// path, which may hold an older copy.
+template <typename T>
+__device__ __forceinline__ Vec<T> load_vec_cg(const T* p) {
+  Vec<T> r;
+  *reinterpret_cast<int4*>(r.v) = __ldcg(reinterpret_cast<const int4*>(p));
   return r;
 }
 
@@ -328,6 +343,25 @@ struct Acc<signed char> {
   }
 };
 
+// Every thread of every block of the cluster waits here; what each wrote to
+// memory before is visible to all of them after (release / acquire at
+// cluster scope). Every block of a cluster must reach it equally often.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// A barrier over the `parts` blocks that share a product: the block's own
+// barrier for one, the cluster's for more.
+__device__ __forceinline__ void sync_parts(int parts) {
+  if (parts > 1)
+    cluster_sync();
+  else
+    __syncthreads();
+}
+
 // epi(m, n, acc, infofn(m)) for m < M and every n < N that is a multiple of
 // EV, by the whole block, where acc[j] = sum_tap sum_k a[rowfn(m, tap), k] *
 // w[tap, k, n + j] for j < EV: `epi` stores those EV results (EV: the compute
@@ -339,9 +373,14 @@ struct Acc<signed char> {
 // kernel. K, N and lda are multiples of 16 bytes' worth of elements. For int8
 // operands `acc` holds the bits of int32 sums (fold_vec reads either). Ends
 // with a barrier: what `epi` stored is visible to the whole block on return.
+// `part` of `parts`: the block computes only the (m-tile, n-tile) pairs p,
+// numbered m-tile major, with p % parts == part (the blocks of a cluster share
+// one product so); (0, 1) is the whole product. Which block computes an
+// output does not change how it is summed.
 template <typename Op, int EV, typename RowFn, typename InfoFn, typename EpiFn>
 __device__ void block_gemm(const Op* a, int lda, int K, const Op* __restrict__ w, int N, int taps,
-                           int M, unsigned char* smem, RowFn rowfn, InfoFn infofn, EpiFn epi) {
+                           int M, unsigned char* smem, RowFn rowfn, InfoFn infofn, EpiFn epi,
+                           int part = 0, int parts = 1) {
   using L = Tile<Op>;
   constexpr int V = L::kVec;
   constexpr int kBK = L::kBK;
@@ -351,15 +390,20 @@ __device__ void block_gemm(const Op* a, int lda, int K, const Op* __restrict__ w
   int* rows = reinterpret_cast<int*>(smem + L::kABytes + L::kBBytes + L::kCBytes);
   int* infos = rows + kMaxTaps * kBM;
   const int tid = threadIdx.x;
+  const int ntiles = (N + kBN - 1) / kBN;
 
-  for (int m0 = 0; m0 < M; m0 += kBM) {
+  for (int m0 = 0, mt = 0; m0 < M; m0 += kBM, ++mt) {
+    // this part's first n-tile of the m-tile, if it has one
+    const int nt0 = ((part - mt * ntiles) % parts + parts) % parts;
+    if (nt0 >= ntiles) continue;
     for (int idx = tid; idx < taps * kBM; idx += kThreads) {
       const int tap = idx / kBM, i = idx % kBM;
       rows[idx] = m0 + i < M ? rowfn(m0 + i, tap) : -1;
     }
     for (int i = tid; i < kBM; i += kThreads) infos[i] = m0 + i < M ? infofn(m0 + i) : 0;
     __syncthreads();
-    for (int n0 = 0; n0 < N; n0 += kBN) {
+    for (int nt = nt0; nt < ntiles; nt += parts) {
+      const int n0 = nt * kBN;
       Acc<Op> acc;
       acc.zero();
       // two operand slabs in flight: slab s + 1 is copied (cp.async, 16 bytes
@@ -410,6 +454,154 @@ __device__ void block_gemm(const Op* a, int lda, int K, const Op* __restrict__ w
   }
 }
 
+// The bf16 product of K3 (fused_resnet.cu's chain_kernel) on mma.sync: the
+// function of block_gemm<__nv_bfloat16>, on tiles of 128 pixels x BN output
+// channels (BN 128 where N >= 128, else 64). Eight warps in 2 x 4 each own
+// 64 x BN/4 of the tile as 4 x BN/32 fragments of mma.sync m16n8k16 (bf16 x
+// bf16 -> f32), fed by ldmatrix (A) and ldmatrix.trans (B, stored k x n).
+// Operand slabs of 64 input channels go through a ring of three cp.async
+// stages with one block barrier a slab: slab s + 2 is copied while slab s is
+// multiplied. The sums take the same terms in the same order as
+// block_gemm's (taps, then 64-deep slabs, then 16-deep steps, ascending, each
+// step one HMMA of k 16 as wmma m16n16k16 issues), so every output equals
+// its result bit for bit. The f32 staging of the sums for the 16-byte
+// epilogue reuses the ring, which is idle by then.
+template <int BN>
+struct TcTile {
+  static constexpr int kBK = 64;
+  static constexpr int kStages = 3;
+  static constexpr int kAS = kBK + 8;  // rows padded by 16 bytes: ldmatrix
+  static constexpr int kBS = BN + 8;   // phases fall in 8 bank groups
+  static constexpr int kCS = BN + 8;
+  static constexpr int kStage = kBM * kAS + kBK * kBS;  // elements of one stage
+  static constexpr size_t kRingBytes = sizeof(__nv_bfloat16) * kStages * kStage;
+  static constexpr size_t kCBytes = sizeof(float) * kBM * kCS;
+  static constexpr size_t kMainBytes = kRingBytes > kCBytes ? kRingBytes : kCBytes;
+  static constexpr size_t kBytes = kMainBytes + Tile<__nv_bfloat16>::kRowBytes;
+};
+
+template <int BN, typename RowFn, typename InfoFn, typename EpiFn>
+__device__ void block_gemm_tc(const __nv_bfloat16* a, int lda, int K,
+                              const __nv_bfloat16* __restrict__ w, int N, int taps, int M,
+                              unsigned char* smem, RowFn rowfn, InfoFn infofn, EpiFn epi,
+                              int part, int parts) {
+  using B16 = __nv_bfloat16;
+  using L = TcTile<BN>;
+  constexpr int V = 8;   // bf16 a 16-byte chunk
+  constexpr int EV = 8;  // outputs an epilogue call
+  constexpr int kBK = L::kBK;
+  constexpr int WN = BN / 4;  // columns a warp
+  constexpr int NT = WN / 8;  // n8 fragments a warp
+  B16* ring = reinterpret_cast<B16*>(smem);
+  float* cs = reinterpret_cast<float*>(smem);
+  int* rows = reinterpret_cast<int*>(smem + L::kMainBytes);
+  int* infos = rows + kMaxTaps * kBM;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp % 2, wn = warp / 2;
+  const int ntiles = (N + BN - 1) / BN;
+
+  for (int m0 = 0, mt = 0; m0 < M; m0 += kBM, ++mt) {
+    const int nt0 = ((part - mt * ntiles) % parts + parts) % parts;
+    if (nt0 >= ntiles) continue;
+    for (int idx = tid; idx < taps * kBM; idx += kThreads) {
+      const int tap = idx / kBM, i = idx % kBM;
+      rows[idx] = m0 + i < M ? rowfn(m0 + i, tap) : -1;
+    }
+    for (int i = tid; i < kBM; i += kThreads) infos[i] = m0 + i < M ? infofn(m0 + i) : 0;
+    __syncthreads();
+    for (int nt = nt0; nt < ntiles; nt += parts) {
+      const int n0 = nt * BN;
+      float acc[4][NT][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+      const int ksteps = (K + kBK - 1) / kBK;
+      const int steps = taps * ksteps;
+      // slab `step` into stage step % 3; a group is committed even when there
+      // is no slab left, so that wait_group counts slabs
+      auto fetch = [&](int step) {
+        if (step < steps) {
+          const int tap = step / ksteps, k0 = (step % ksteps) * kBK;
+          B16* ad = ring + (step % L::kStages) * L::kStage;
+          B16* bd = ad + kBM * L::kAS;
+          constexpr int kAChunks = kBK / V;
+          for (int c = tid; c < kBM * kAChunks; c += kThreads) {
+            const int i = c / kAChunks, kc = (c % kAChunks) * V;
+            const int row = rows[tap * kBM + i];
+            const bool ok = row >= 0 && k0 + kc < K;
+            copy16(ad + i * L::kAS + kc, ok ? a + static_cast<size_t>(row) * lda + k0 + kc : a,
+                   ok);
+          }
+          constexpr int kBChunks = BN / V;
+          for (int c = tid; c < kBK * kBChunks; c += kThreads) {
+            const int kk = c / kBChunks, nc = (c % kBChunks) * V;
+            const bool ok = k0 + kk < K && n0 + nc < N;
+            copy16(bd + kk * L::kBS + nc,
+                   ok ? w + (static_cast<size_t>(tap) * K + k0 + kk) * N + n0 + nc : w, ok);
+          }
+        }
+        copy_commit();
+      };
+      fetch(0);
+      fetch(1);
+      for (int step = 0; step < steps; ++step) {
+        copy_wait<1>();  // slab `step` has landed (this thread's copies)
+        __syncthreads();  // everyone's; and stage (step + 2) % 3 is no longer read
+        fetch(step + 2);
+        const B16* as = ring + (step % L::kStages) * L::kStage;
+        const B16* bs = as + kBM * L::kAS;
+#pragma unroll
+        for (int ks = 0; ks < kBK; ks += 16) {
+          uint32_t b[NT / 2][4];
+#pragma unroll
+          for (int j = 0; j < NT / 2; ++j)
+            ldmatrix_x4_trans(b[j], smem_addr(bs + (ks + lane % 8 + ((lane / 8) % 2) * 8) * L::kBS +
+                                              wn * WN + j * 16 + (lane / 16) * 8));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            uint32_t af[4];
+            ldmatrix_x4(af, smem_addr(as + (wm * 64 + i * 16 + lane % 16) * L::kAS + ks +
+                                      (lane / 16) * 8));
+#pragma unroll
+            for (int j = 0; j < NT / 2; ++j) {
+              mma_bf16(acc[i][2 * j], af, b[j][0], b[j][1]);
+              mma_bf16(acc[i][2 * j + 1], af, b[j][2], b[j][3]);
+            }
+          }
+        }
+      }
+      copy_wait<0>();
+      __syncthreads();  // the ring is idle: the sums may take its place
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int r = wm * 64 + i * 16 + lane / 4, c = wn * WN + j * 8 + (lane % 4) * 2;
+          *reinterpret_cast<float2*>(cs + r * L::kCS + c) = make_float2(acc[i][j][0], acc[i][j][1]);
+          *reinterpret_cast<float2*>(cs + (r + 8) * L::kCS + c) =
+              make_float2(acc[i][j][2], acc[i][j][3]);
+        }
+      __syncthreads();
+      for (int idx = tid; idx < kBM * (BN / EV); idx += kThreads) {
+        const int i = idx / (BN / EV), j = (idx % (BN / EV)) * EV;
+        if (m0 + i < M && n0 + j < N) epi(m0 + i, n0 + j, cs + i * L::kCS + j, infos[i]);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Shared memory of a kernel whose convs go through conv_gemm<T, Q, TC>.
+template <typename T, bool Q, bool TC>
+constexpr size_t conv_smem_bytes() {
+  if constexpr (TC && !Q && std::is_same_v<T, __nv_bfloat16>)
+    return TcTile<128>::kBytes > Tile<T>::kBytes ? TcTile<128>::kBytes : Tile<T>::kBytes;
+  return Tile<OpOf<T, Q>>::kBytes;
+}
+
 // One convolution of a fused kernel, in either mode. The conv's input is R
 // rows: row r is row `gather(r)` of `a` (rows of `lda` elements, K used), or
 // zeros where that is -1; output pixel m reads input row `rowfn(m, tap)`
@@ -417,14 +609,21 @@ __device__ void block_gemm(const Op* a, int lda, int K, const Op* __restrict__ w
 // Exact mode: the product reads `a` through both maps. int8 mode: the block
 // first quantises the R input rows with the scale `sx` into `qbuf` (R x K
 // int8, K a multiple of 16), then the product reads those.
-template <typename T, bool Q, typename GatherFn, typename RowFn, typename InfoFn, typename EpiFn>
+// `part` of `parts`: the blocks of a cluster share the conv (block_gemm's
+// split; the quantise step splits its rows likewise), and with more than one
+// part it ends with a cluster barrier, so that every part's output is visible
+// to the whole cluster on return. TC: the exact bf16 mode multiplies through
+// block_gemm_tc (the kernel then has conv_smem_bytes<T, Q, true>() of shared
+// memory); every other mode, and TC false, through block_gemm.
+template <typename T, bool Q, bool TC = false, typename GatherFn, typename RowFn,
+          typename InfoFn, typename EpiFn>
 __device__ void conv_gemm(const T* a, int lda, int K, int R, GatherFn gather, signed char* qbuf,
                           float sx, const void* w, int N, int taps, int M, unsigned char* smem,
-                          RowFn rowfn, InfoFn infofn, EpiFn epi) {
+                          RowFn rowfn, InfoFn infofn, EpiFn epi, int part = 0, int parts = 1) {
   constexpr int EV = 16 / sizeof(T);
   if constexpr (Q) {
     const int chunks = K / 16;
-    for (int idx = threadIdx.x; idx < R * chunks; idx += kThreads) {
+    for (int idx = part * kThreads + threadIdx.x; idx < R * chunks; idx += parts * kThreads) {
       const int r = idx / chunks, c = (idx % chunks) * 16;
       const int row = gather(r);
       union {
@@ -436,25 +635,35 @@ __device__ void conv_gemm(const T* a, int lda, int K, int R, GatherFn gather, si
         const T* src = a + static_cast<size_t>(row) * lda + c;
 #pragma unroll
         for (int v = 0; v < 16 / EV; ++v) {
-          const Vec<T> x = load_vec(src + v * EV);
+          // rows another block of the cluster may have written: through L2
+          const Vec<T> x = parts > 1 ? load_vec_cg(src + v * EV) : load_vec(src + v * EV);
 #pragma unroll
           for (int j = 0; j < EV; ++j) u.q[v * EV + j] = quantize(Num<T>::to_f32(x.v[j]), sx);
         }
       }
       *reinterpret_cast<int4*>(qbuf + static_cast<size_t>(r) * K + c) = u.bits;
     }
-    __syncthreads();
+    sync_parts(parts);
     block_gemm<signed char, EV>(qbuf, K, K, static_cast<const signed char*>(w), N, taps, M, smem,
-                                rowfn, infofn, epi);
+                                rowfn, infofn, epi, part, parts);
   } else {
-    block_gemm<T, EV>(
-        a, lda, K, static_cast<const T*>(w), N, taps, M, smem,
-        [=](int m, int tap) {
-          const int r = rowfn(m, tap);
-          return r < 0 ? -1 : gather(r);
-        },
-        infofn, epi);
+    auto rows = [=](int m, int tap) {
+      const int r = rowfn(m, tap);
+      return r < 0 ? -1 : gather(r);
+    };
+    if constexpr (TC && std::is_same_v<T, __nv_bfloat16>) {
+      if (N >= 128)
+        block_gemm_tc<128>(a, lda, K, static_cast<const T*>(w), N, taps, M, smem, rows, infofn,
+                           epi, part, parts);
+      else
+        block_gemm_tc<64>(a, lda, K, static_cast<const T*>(w), N, taps, M, smem, rows, infofn,
+                          epi, part, parts);
+    } else {
+      block_gemm<T, EV>(a, lda, K, static_cast<const T*>(w), N, taps, M, smem, rows, infofn, epi,
+                        part, parts);
+    }
   }
+  if (parts > 1) cluster_sync();
 }
 
 }  // namespace avcer

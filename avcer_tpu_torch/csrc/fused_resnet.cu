@@ -25,28 +25,49 @@
 // VMEM; one such row of layer1 is 85 KB and a block here has 227 KB of
 // shared memory, so this kernel tiles in both directions. One work item is
 // a tile of TH x TW output pixels of G frames with a halo of one pixel per
-// 3x3 conv of the chain (N = 3 and a 23 x 23 tile: 29^2 / 23^2 = 1.6 times
-// the work, recomputed by neighbouring tiles). Every conv of the chain is
-// computed over the whole haloed region by conv_tile.cuh's block-wide
-// product; each 3x3 makes one more ring of the region meaningless and the
+// 3x3 conv of the chain (1.2 to 2.0 times the work at the main paths'
+// shapes, recomputed by neighbouring tiles). Every conv of the chain is
+// computed over the whole haloed region by conv_tile.cuh's product: in
+// bf16 block_gemm_tc (mma.sync on 128 x 128 tiles where the conv has 128
+// output channels or more, a three-stage cp.async ring), in f32 and int8
+// block_gemm; each 3x3 makes one more ring of the region meaningless and the
 // tile proper is exact at the end. Weights are read from device memory
-// through L2 (layer3's are 2.2 MB a block, the emotion CNN's layer4 8.7 MB:
-// neither fits shared memory, both fit the 50 MB L2). Thread blocks are
-// persistent (at most two an SM) and walk over the work items.
+// through L2 (layer3's are 2.2 MB, the emotion CNN's layer4 8.7 MB: neither
+// fits shared memory, both fit the 50 MB L2).
+//
+// Clusters. A work item belongs to a cluster of C thread blocks, C from the
+// wrapper's plan: clamp(2 x SMs / work items, 1, 4). The deep calls have
+// few work items (64 for the detector's layer3, 86 for the emotion CNN's
+// layer4), which one block each would spread over half the SMs; in clusters
+// of 4 and 3 they fill the card with 256 and 258 blocks. The cluster's
+// blocks split every conv's (m-tile, n-tile) pairs round robin (block_gemm's
+// part / parts), the region copy and the int8 quantise step split their
+// rows, and each conv ends in a cluster barrier (barrier.cluster arrive
+// .release / wait .acquire) that hands its output to the next. Rows another
+// block wrote are read through L2 only (cp.async.cg, ld.global.cg), never
+// through L1 or the read-only path. The work loop's trip count depends on
+// the cluster alone, so every block of a cluster passes every barrier
+// equally often. Each output is summed by the same instructions in the same
+// order whichever block computes it: any C gives the result of C = 1 bit for
+// bit. A call with C = 1 runs an instantiation compiled without clusters (C
+// and the rank constants). Clusters are persistent (at most two blocks an
+// SM) and walk over the work items.
 //
 // Which intermediates live where, for all shapes (detector layers 1-3 at
 // 90 x 160 / 45 x 80 / 23 x 40, emotion layers 1-4 at 55 / 28 / 14 / 7):
 // the region's activations `cur` (c_out channels, updated in place by each
 // block's residual add), t1 and t2 (planes channels) live in a scratch slab
-// of device memory that belongs to the thread block, is allocated by the
-// wrapper and is reused work item after work item, so it stays in L2 while
-// the slabs of all resident blocks fit (0.1 to 0.7 MB a block); two operand
-// slabs in flight (bf16: 128 pixels x 64 channels and 64 x 64 weights each)
-// and the 128 x 64 f32 sums live in shared
-// memory; accumulators in registers. No intermediate is a tensor that
-// PyTorch sees, and one call is one launch. Small frames (32 x 32 and
-// under) are one tile; G frames share a work item so that its pixels fill
-// the 128-row product tiles.
+// of device memory that belongs to the cluster, is allocated by the wrapper
+// and is reused work item after work item. At the main paths' shapes a slab
+// is 0.5 to 2.6 MB (int8, with its quantised plane: 0.6 to 4.9 MB) and a
+// call's slabs add up to 108 to 455 MB (int8: 144 to 862 MB), against a
+// 50 MB L2: the intermediates go to device memory and come back through L2
+// as the next conv gathers them. The operand ring (bf16: three stages of
+// 128 pixels x 64 channels and 64 x 128 weights; f32 and int8: two slabs)
+// and the staged f32 sums live in shared memory; accumulators in registers.
+// No intermediate is a tensor that PyTorch sees, and one call is one launch.
+// Small frames (32 x 32 and under) are one tile; G frames share a work item
+// so that its pixels fill the 128-row product tiles.
 //
 // The int8 mode (avcer_fused_chain_q; the TPU kernel's act_s): every conv
 // multiplies int8 weights with activations quantised by that conv's static
@@ -62,8 +83,10 @@
 // _kernel_flat) of the same file: the stride-1 chains over a band of whole
 // padded rows, flattened to (rows * pitch) pixels by the caller, with the 3x3
 // taps as row offsets into that flat band, the in-frame mask passed in, and
-// the output left flat for the caller to unflatten. It shares every device
-// routine with the kernel above, so in f32 the two agree bit for bit.
+// the output left flat for the caller to unflatten. It multiplies through
+// block_gemm, which the kernel above shares in f32 and whose bf16 sums its
+// block_gemm_tc takes in the same order, so the two agree bit for bit in
+// both.
 
 #include "conv_tile.cuh"
 
@@ -87,8 +110,9 @@ struct ChainP {
   void* out;
   void* scratch;
   const float* act_s;  // int8 mode: one static activation scale per conv
-  long long slab;   // elements of scratch per thread block
-  long long qslab;  // int8 mode: bytes of the quantised plane per thread block
+  long long slab;   // elements of scratch per cluster
+  long long qslab;  // int8 mode: bytes of the quantised plane per cluster
+  int C;            // thread blocks per cluster, all on one work item
   int B, H, W, cout;
   int Ho, Wo;      // the chain's resolution (after a stride-2 entry)
   int TH, TW, tiles_y, tiles_x, G;
@@ -98,7 +122,10 @@ struct ChainP {
   int nwork;
 };
 
-template <typename T, bool Q>
+// kCl: launched in clusters of p.C > 1 blocks. Without it the kernel is
+// compiled with C = 1 and rank 0 as constants: a call that needs no cluster
+// runs the instructions of a kernel that knows none.
+template <typename T, bool Q, bool kCl>
 __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int V = Tile<T>::kVec;
@@ -107,19 +134,26 @@ __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
   const int PR = p.RH * p.RW, PR1 = p.RH1 * p.RW1;
   const int RW = p.RW, RH = p.RH, RW1 = p.RW1;
   const int H = p.H, W = p.W, Ho = p.Ho, Wo = p.Wo, cout = p.cout;
-  T* cur = static_cast<T*>(p.scratch) + static_cast<size_t>(blockIdx.x) * p.slab;
+  // the cluster's blocks share its work items and its slab; `rank` is this
+  // block's place in the cluster and its part of every conv
+  const int C = kCl ? p.C : 1;
+  const int cluster = kCl ? blockIdx.x / C : blockIdx.x, rank = kCl ? blockIdx.x % C : 0;
+  const int clusters = kCl ? gridDim.x / C : gridDim.x;
+  T* cur = static_cast<T*>(p.scratch) + static_cast<size_t>(cluster) * p.slab;
   T* t1 = cur + static_cast<size_t>(p.G) * PR * cout;
   T* t2 = t1 + static_cast<size_t>(p.G) * PR1 * p.planes_max;
-  // the int8 planes follow the slabs of all thread blocks
+  // the int8 planes follow the slabs of all clusters
   signed char* qbuf = reinterpret_cast<signed char*>(static_cast<T*>(p.scratch) +
-                                                     static_cast<size_t>(gridDim.x) * p.slab) +
-                      static_cast<size_t>(blockIdx.x) * p.qslab;
+                                                     static_cast<size_t>(clusters) * p.slab) +
+                      static_cast<size_t>(cluster) * p.qslab;
   const T zero = Num<T>::from_f32(0.0f);
   const int tiles = p.tiles_y * p.tiles_x;
   auto same = [](int r) { return r; };
   auto same_tap = [](int m, int) { return m; };
 
-  for (int work = blockIdx.x; work < p.nwork; work += gridDim.x) {
+  // the trip count depends on the cluster only: every block of a cluster
+  // reaches every cluster barrier equally often
+  for (int work = cluster; work < p.nwork; work += clusters) {
     const int b0 = (work / tiles) * p.G;
     const int gc = min(p.G, p.B - b0);
     const int y0 = ((work % tiles) / p.tiles_x) * p.TH - p.halo;
@@ -154,9 +188,10 @@ __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
       };
 
       if (first && kind == kId) {
-        // the chain's input region into `cur`, zero outside the frame
+        // the chain's input region into `cur`, zero outside the frame, its
+        // rows shared out between the cluster's blocks
         const int chunks = cout / V;
-        for (int idx = threadIdx.x; idx < M * chunks; idx += kThreads) {
+        for (int idx = rank * kThreads + threadIdx.x; idx < M * chunks; idx += C * kThreads) {
           const int m = idx / chunks, c = (idx % chunks) * V;
           const int row = xrow(m, 1);
           int4 val = make_int4(0, 0, 0, 0);
@@ -164,18 +199,19 @@ __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
             val = *reinterpret_cast<const int4*>(x + static_cast<size_t>(row) * cout + c);
           *reinterpret_cast<int4*>(cur + static_cast<size_t>(m) * cout + c) = val;
         }
-        __syncthreads();
+        sync_parts(C);
       }
 
       if (kind != kId) {
         // projection residual bn(conv1x1(x)) -> cur
-        conv_gemm<T, Q>(
+        conv_gemm<T, Q, true>(
             x, cin, cin, M, [=](int r) { return xrow(r, s); }, qbuf, sx(3), cd.w, cout, 1, M, smem,
             same_tap, [](int) { return 0; },
             [=](int m, int n, const float* acc, int) {
               store_vec(cur + static_cast<size_t>(m) * cout + n,
                         fold_vec<T, Q>(acc, cd, n, kLinear, zero));
-            });
+            },
+            rank, C);
       }
 
       // conv1 (1x1) -> t1, zero outside the frame
@@ -186,12 +222,13 @@ __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
           if (yi < 0 || yi >= H || xi < 0 || xi >= W) return -1;
           return ((b0 + m / PR1) * H + yi) * W + xi;
         };
-        conv_gemm<T, Q>(x, cin, cin, gc * PR1, row1, qbuf, sx(0), c1.w, pl, 1, gc * PR1, smem,
-                        same_tap, [=](int m) { return static_cast<int>(row1(m) >= 0); },
-                         [=](int m, int n, const float* acc, int ok) {
-                           store_vec(t1 + static_cast<size_t>(m) * pl + n,
-                                     fold_vec<T, Q>(acc, c1, n, kRelu, zero, ok));
-                         });
+        conv_gemm<T, Q, true>(x, cin, cin, gc * PR1, row1, qbuf, sx(0), c1.w, pl, 1, gc * PR1, smem,
+                              same_tap, [=](int m) { return static_cast<int>(row1(m) >= 0); },
+                              [=](int m, int n, const float* acc, int ok) {
+                                store_vec(t1 + static_cast<size_t>(m) * pl + n,
+                                          fold_vec<T, Q>(acc, c1, n, kRelu, zero, ok));
+                              },
+                              rank, C);
       } else {
         auto ok1 = [=](int m) { return static_cast<int>(inframe(m)); };
         auto epi1 = [=](int m, int n, const float* acc, int ok) {
@@ -199,11 +236,11 @@ __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
                     fold_vec<T, Q>(acc, c1, n, kRelu, zero, ok));
         };
         if (kind == kId)
-          conv_gemm<T, Q>(cur, cout, cin, M, same, qbuf, sx(0), c1.w, pl, 1, M, smem, same_tap,
-                          ok1, epi1);
+          conv_gemm<T, Q, true>(cur, cout, cin, M, same, qbuf, sx(0), c1.w, pl, 1, M, smem,
+                                same_tap, ok1, epi1, rank, C);
         else
-          conv_gemm<T, Q>(x, cin, cin, M, [=](int r) { return xrow(r, s); }, qbuf, sx(0), c1.w,
-                          pl, 1, M, smem, same_tap, ok1, epi1);
+          conv_gemm<T, Q, true>(x, cin, cin, M, [=](int r) { return xrow(r, s); }, qbuf, sx(0),
+                                c1.w, pl, 1, M, smem, same_tap, ok1, epi1, rank, C);
       }
 
       // conv2 (3x3) -> t2
@@ -212,22 +249,22 @@ __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
         store_vec(t2 + static_cast<size_t>(m) * pl + n, fold_vec<T, Q>(acc, c2, n, kRelu, zero));
       };
       if (kind == kS2ds) {
-        conv_gemm<T, Q>(t1, pl, pl, gc * PR1, same, qbuf, sx(1), c2.w, pl, 9, M, smem,
-                        [=](int m, int tap) {
-                          const int q = m % PR;
-                          return (m / PR) * PR1 + (2 * (q / RW) + tap / 3) * RW1 +
-                                 2 * (q % RW) + tap % 3;
-                        },
-                        none, epi2);
+        conv_gemm<T, Q, true>(t1, pl, pl, gc * PR1, same, qbuf, sx(1), c2.w, pl, 9, M, smem,
+                              [=](int m, int tap) {
+                                const int q = m % PR;
+                                return (m / PR) * PR1 + (2 * (q / RW) + tap / 3) * RW1 +
+                                       2 * (q % RW) + tap % 3;
+                              },
+                              none, epi2, rank, C);
       } else {
-        conv_gemm<T, Q>(t1, pl, pl, M, same, qbuf, sx(1), c2.w, pl, 9, M, smem,
-                        [=](int m, int tap) {
-                          const int q = m % PR;
-                          const int r = q / RW + tap / 3 - 1, c = q % RW + tap % 3 - 1;
-                          if (r < 0 || r >= RH || c < 0 || c >= RW) return -1;
-                          return m + (tap / 3 - 1) * RW + tap % 3 - 1;
-                        },
-                        none, epi2);
+        conv_gemm<T, Q, true>(t1, pl, pl, M, same, qbuf, sx(1), c2.w, pl, 9, M, smem,
+                              [=](int m, int tap) {
+                                const int q = m % PR;
+                                const int r = q / RW + tap / 3 - 1, c = q % RW + tap % 3 - 1;
+                                if (r < 0 || r >= RH || c < 0 || c >= RW) return -1;
+                                return m + (tap / 3 - 1) * RW + tap % 3 - 1;
+                              },
+                              none, epi2, rank, C);
       }
 
       // conv3 (1x1) + residual -> cur, or the tile proper -> out
@@ -241,17 +278,19 @@ __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
         if (yo >= Ho || xo >= Wo) return -1;
         return ((b0 + m / PR) * Ho + yo) * Wo + xo;
       };
-      conv_gemm<T, Q>(t2, pl, pl, M, same, qbuf, sx(2), c3.w, cout, 1, M, smem, same_tap,
-                      outrow, [=](int m, int n, const float* acc, int orow) {
-                         if (last && orow < 0) return;
-                         T* res = cur + static_cast<size_t>(m) * cout + n;
-                         Vec<T> v = fold_vec<T, Q>(acc, c3, n, kLinear, zero);
-                         const Vec<T> r = load_vec(res);
+      auto epi3 = [=](int m, int n, const float* acc, int orow) {
+        if (last && orow < 0) return;
+        T* res = cur + static_cast<size_t>(m) * cout + n;
+        Vec<T> v = fold_vec<T, Q>(acc, c3, n, kLinear, zero);
+        // another block of the cluster may have written it
+        const Vec<T> r = kCl ? load_vec_cg(res) : load_vec(res);
 #pragma unroll
-                         for (int j = 0; j < V; ++j)
-                           v.v[j] = activate<T>(Num<T>::add(v.v[j], r.v[j]), kRelu, zero);
-                         store_vec(last ? out + static_cast<size_t>(orow) * cout + n : res, v);
-                       });
+        for (int j = 0; j < V; ++j)
+          v.v[j] = activate<T>(Num<T>::add(v.v[j], r.v[j]), kRelu, zero);
+        store_vec(last ? out + static_cast<size_t>(orow) * cout + n : res, v);
+      };
+      conv_gemm<T, Q, true>(t2, pl, pl, M, same, qbuf, sx(2), c3.w, cout, 1, M, smem, same_tap,
+                            outrow, epi3, rank, C);
     }
   }
 }
@@ -352,14 +391,45 @@ __global__ void __launch_bounds__(kThreads, 2) chain_flat_kernel(const FlatP p) 
   }
 }
 
-template <typename T, bool Q>
-int launch(const ChainP& p, int grid, cudaStream_t stream) {
-  const int smem = static_cast<int>(Tile<OpOf<T, Q>>::kBytes);
-  cudaError_t err = cudaFuncSetAttribute(chain_kernel<T, Q>,
+// The launch of chain_kernel in clusters of `cluster` blocks; with
+// `clusters` and `blocks` non-null it launches nothing and reports how many
+// such clusters the card can hold at once, and how many blocks an SM.
+template <typename T, bool Q, bool kCl>
+int launch_as(const ChainP& p, int grid, int cluster, cudaStream_t stream, int* clusters,
+              int* blocks) {
+  const int smem = static_cast<int>(conv_smem_bytes<T, Q, true>());
+  cudaError_t err = cudaFuncSetAttribute(chain_kernel<T, Q, kCl>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  chain_kernel<T, Q><<<grid, kThreads, smem, stream>>>(p);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters != nullptr) {
+    err = cudaOccupancyMaxActiveClusters(clusters, chain_kernel<T, Q, kCl>, &cfg);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, chain_kernel<T, Q, kCl>,
+                                                          kThreads, smem);
+    return static_cast<int>(err);
+  }
+  err = cudaLaunchKernelEx(&cfg, chain_kernel<T, Q, kCl>, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool Q>
+int launch(const ChainP& p, int grid, int cluster, cudaStream_t stream, int* clusters = nullptr,
+           int* blocks = nullptr) {
+  return cluster > 1 ? launch_as<T, Q, true>(p, grid, cluster, stream, clusters, blocks)
+                     : launch_as<T, Q, false>(p, grid, cluster, stream, clusters, blocks);
 }
 
 template <typename T>
@@ -403,12 +473,14 @@ bool fill_blocks(BlockW* blk, int* planes_max, const void* const* wptrs, const i
 
 int chain(const void* x, void* out, void* scratch, long long scratch_bytes,
           const void* const* wptrs, const int* kinds, const int* cins, const int* planes,
-          int nblocks, int B, int H, int W, int cout, int TH, int TW, int G, int grid, int dtype,
-          const float* act_s, void* stream) {
+          int nblocks, int B, int H, int W, int cout, int TH, int TW, int G, int grid, int cluster,
+          int dtype, const float* act_s, void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
   if (dtype != 0 && dtype != 1) return bad;
   if (H <= 0 || W <= 0 || TH <= 0 || TW <= 0 || G <= 0 || grid <= 0) return bad;
+  // a portable cluster holds at most 8 blocks; the grid is whole clusters
+  if (cluster < 1 || cluster > 8 || grid % cluster) return bad;
   // int8 weights are copied 16 channels at a time
   const int align = act_s != nullptr ? 16 : (dtype == 0 ? 4 : 8);
   ChainP p{};
@@ -424,7 +496,7 @@ int chain(const void* x, void* out, void* scratch, long long scratch_bytes,
   p.B = B, p.H = H, p.W = W, p.cout = cout;
   p.Ho = s2 ? (H + 1) / 2 : H;
   p.Wo = s2 ? (W + 1) / 2 : W;
-  p.TH = TH, p.TW = TW, p.G = G;
+  p.TH = TH, p.TW = TW, p.G = G, p.C = cluster;
   p.tiles_y = (p.Ho + TH - 1) / TH;
   p.tiles_x = (p.Wo + TW - 1) / TW;
   p.halo = kinds[0] == kS2ds ? nblocks - 1 : nblocks;
@@ -440,12 +512,14 @@ int chain(const void* x, void* out, void* scratch, long long scratch_bytes,
   int qch = cins[0] > cout ? cins[0] : cout;
   if (p.planes_max > qch) qch = p.planes_max;
   p.qslab = act_s != nullptr ? pr1 * qch : 0;
-  const long long need = (p.slab * (dtype == 0 ? 4 : 2) + p.qslab) * grid;
+  const long long need = (p.slab * (dtype == 0 ? 4 : 2) + p.qslab) * (grid / cluster);
   if (scratch_bytes < need) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (act_s != nullptr)
-    return dtype == 0 ? launch<float, true>(p, grid, s) : launch<__nv_bfloat16, true>(p, grid, s);
-  return dtype == 0 ? launch<float, false>(p, grid, s) : launch<__nv_bfloat16, false>(p, grid, s);
+    return dtype == 0 ? launch<float, true>(p, grid, cluster, s)
+                      : launch<__nv_bfloat16, true>(p, grid, cluster, s);
+  return dtype == 0 ? launch<float, false>(p, grid, cluster, s)
+                    : launch<__nv_bfloat16, false>(p, grid, cluster, s);
 }
 
 }  // namespace
@@ -454,15 +528,18 @@ int chain(const void* x, void* out, void* scratch, long long scratch_bytes,
 // float32, 1 = bfloat16. wptrs: 12 pointers per block (w, inv, shift of
 // conv1, conv2, conv3 and the projection; the last three null for "id"),
 // w matmul-shaped [ci, co] or [3, 3, ci, co]. kinds: 0 id, 1 ds, 2 s2ds,
-// 3 s2pre. TH, TW, G and grid are the caller's plan; scratch holds grid
-// slabs. Launches on `stream`; returns a CUDA error code (0 = success),
-// cudaErrorInvalidValue for what the kernel does not take.
+// 3 s2pre. TH, TW, G, grid and cluster are the caller's plan: grid blocks in
+// clusters of `cluster` (1 to 8, dividing grid), one work item a cluster at a
+// time; scratch holds grid / cluster slabs. Launches on `stream`; returns a
+// CUDA error code (0 = success), cudaErrorInvalidValue for what the kernel
+// does not take, the launch's own error for a cluster the card refuses.
 extern "C" int avcer_fused_chain(const void* x, void* out, void* scratch, long long scratch_bytes,
                                  const void* const* wptrs, const int* kinds, const int* cins,
                                  const int* planes, int nblocks, int B, int H, int W, int cout,
-                                 int TH, int TW, int G, int grid, int dtype, void* stream) {
+                                 int TH, int TW, int G, int grid, int cluster, int dtype,
+                                 void* stream) {
   return chain(x, out, scratch, scratch_bytes, wptrs, kinds, cins, planes, nblocks, B, H, W, cout,
-               TH, TW, G, grid, dtype, nullptr, stream);
+               TH, TW, G, grid, cluster, dtype, nullptr, stream);
 }
 
 // The int8 mode: as above with w int8, inv (the merged multiply) and shift
@@ -472,10 +549,29 @@ extern "C" int avcer_fused_chain_q(const void* x, void* out, void* scratch,
                                    long long scratch_bytes, const void* const* wptrs,
                                    const int* kinds, const int* cins, const int* planes,
                                    int nblocks, int B, int H, int W, int cout, int TH, int TW,
-                                   int G, int grid, int dtype, const float* act_s, void* stream) {
+                                   int G, int grid, int cluster, int dtype, const float* act_s,
+                                   void* stream) {
   if (act_s == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return chain(x, out, scratch, scratch_bytes, wptrs, kinds, cins, planes, nblocks, B, H, W, cout,
-               TH, TW, G, grid, dtype, act_s, stream);
+               TH, TW, G, grid, cluster, dtype, act_s, stream);
+}
+
+// What the card reports for chain_kernel in clusters of `cluster` blocks
+// (dtype as above; quant 1 for the int8 mode): the clusters it can hold at
+// once (cudaOccupancyMaxActiveClusters) and the blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Launches nothing;
+// returns a CUDA error code.
+extern "C" int avcer_fused_chain_occupancy(int dtype, int quant, int cluster, int* clusters,
+                                           int* blocks) {
+  if ((dtype != 0 && dtype != 1) || cluster < 1 || cluster > 8 || clusters == nullptr ||
+      blocks == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ChainP p{};
+  if (quant)
+    return dtype == 0 ? launch<float, true>(p, cluster, cluster, nullptr, clusters, blocks)
+                      : launch<__nv_bfloat16, true>(p, cluster, cluster, nullptr, clusters, blocks);
+  return dtype == 0 ? launch<float, false>(p, cluster, cluster, nullptr, clusters, blocks)
+                    : launch<__nv_bfloat16, false>(p, cluster, cluster, nullptr, clusters, blocks);
 }
 
 // The flat kernel: xp [B, (hp + 2n) * pitch, cin] is the input padded by n =

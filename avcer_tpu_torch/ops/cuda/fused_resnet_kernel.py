@@ -39,6 +39,8 @@ MAX_BLOCKS = 6
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: resident thread blocks per SM the persistent grid is sized for
 BLOCKS_PER_SM = 2
+#: the most thread blocks a cluster of ``fused_chain`` holds
+MAX_CLUSTER = 4
 #: a work item gathers frames until its region has about this many pixels
 REGION_PIXELS = 256
 
@@ -135,12 +137,19 @@ def tile_edge(dim: int) -> int:
 
 
 def chain_plan(b: int, h: int, w: int, cout: int, planes_max: int, blocks: Sequence[str],
-               itemsize: int, sm_count: int, q_cin: int = 0) -> dict[str, int]:
+               itemsize: int, sm_count: int, q_cin: int = 0,
+               cluster: Optional[int] = None) -> dict[str, int]:
     """Tiling of one call, as ``csrc/fused_resnet.cu`` derives it again from
-    ``th``, ``tw``, ``g`` and ``grid``: output size, tile, halo, frames per
-    work item, grid, and the scratch the thread blocks need. ``q_cin``: in the
-    int8 mode the input's channels (each thread block then also holds an int8
-    plane of its widest conv input), else 0."""
+    ``th``, ``tw``, ``g``, ``grid`` and ``cluster``: output size, tile, halo,
+    frames per work item, the cluster size ``C``, the grid, and the scratch.
+    A cluster of C thread blocks works on one work item at a time, so a call
+    with fewer work items than the card holds blocks (``BLOCKS_PER_SM *
+    sm_count``) spreads each over up to ``MAX_CLUSTER`` blocks: ``C =
+    clamp(BLOCKS_PER_SM * sm_count // nwork, 1, MAX_CLUSTER)``, and the grid
+    is whole clusters, at most ``BLOCKS_PER_SM * sm_count`` blocks. The
+    scratch holds one slab per cluster. ``q_cin``: in the int8 mode the
+    input's channels (each slab then also holds an int8 plane of its widest
+    conv input), else 0. ``cluster`` overrides C (the card tests force it)."""
     s2 = blocks[0] in ("s2ds", "s2pre")
     ho, wo = ((h + 1) // 2, (w + 1) // 2) if s2 else (h, w)
     th, tw = tile_edge(ho), tile_edge(wo)
@@ -149,11 +158,14 @@ def chain_plan(b: int, h: int, w: int, cout: int, planes_max: int, blocks: Seque
     rh1, rw1 = (2 * rh + 1, 2 * rw + 1) if blocks[0] == "s2ds" else (rh, rw)
     g = max(1, min(b, REGION_PIXELS // (rh * rw)))
     nwork = -(-b // g) * -(-ho // th) * -(-wo // tw)
-    grid = max(1, min(nwork, BLOCKS_PER_SM * sm_count))
+    resident = BLOCKS_PER_SM * sm_count
+    c = cluster or min(max(resident // nwork, 1), MAX_CLUSTER)
+    clusters = max(1, min(nwork, resident // c))
     slab = g * (rh * rw * cout + rh1 * rw1 * planes_max + rh * rw * planes_max)
     qslab = g * rh1 * rw1 * max(q_cin, cout, planes_max) if q_cin else 0
     return {"ho": ho, "wo": wo, "th": th, "tw": tw, "halo": halo, "g": g, "nwork": nwork,
-            "grid": grid, "scratch_bytes": (slab * itemsize + qslab) * grid}
+            "cluster": c, "grid": clusters * c,
+            "scratch_bytes": (slab * itemsize + qslab) * clusters}
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, x: torch.Tensor,
@@ -205,12 +217,49 @@ def fused_chain(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequenc
     """A chain of bottlenecks ``[B, H, W, Cin] -> [B, Ho, Wo, Cout]``; with
     ``act_s`` in the int8 mode. ``band`` is the TPU kernel's VMEM tiling and
     does not change the result: the CUDA kernel ignores it.
-    ``fused_chain.launches`` counts kernel launches."""
+    ``fused_chain.launches`` counts kernel launches; ``fused_chain.occupancy``
+    holds what the card reported for each launch configuration (see
+    ``chain_occupancy``)."""
     blocks = tuple(blocks)
     if x.device.type == "cpu":
         return fused_chain_plain(x, folded, blocks, band=band, act_s=act_s)
     if x.device.type != "cuda":
         raise ValueError(f"fused_chain: unsupported device {x.device}")
+    return _fused_chain_cuda(x, folded, blocks, act_s)
+
+
+def chain_occupancy(device: torch.device, dtype: torch.dtype, quant: bool,
+                    cluster: int) -> dict[str, int]:
+    """What the card reports for the chain kernel in ``dtype`` (int8 mode if
+    ``quant``) launched in clusters of ``cluster`` blocks: the clusters it
+    holds at once and the blocks an SM. Asked once per configuration, before
+    its first launch; raises where not one cluster fits."""
+    key = (str(device), DTYPE_CODE[dtype], int(quant), cluster)
+    occ = fused_chain.occupancy.get(key)
+    if occ is None:
+        fn = _build.library("fused_resnet").avcer_fused_chain_occupancy
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.restype = ctypes.c_int
+        clusters, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = fn(DTYPE_CODE[dtype], int(quant), cluster, ctypes.byref(clusters),
+                    ctypes.byref(blocks))
+        if rc != 0 or clusters.value < 1:
+            raise RuntimeError(
+                f"fused_chain: the card holds {clusters.value} clusters of {cluster} blocks "
+                f"(CUDA error {rc})")
+        occ = {"clusters": clusters.value, "blocks_per_sm": blocks.value}
+        fused_chain.occupancy[key] = occ
+    return occ
+
+
+def _fused_chain_cuda(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: tuple,
+                      act_s: Optional[torch.Tensor], cluster: Optional[int] = None
+                      ) -> torch.Tensor:
+    """The launch behind ``fused_chain`` for a CUDA tensor; ``cluster``
+    forces the cluster size instead of the plan's (the card tests compare
+    sizes with it). A cluster the card refuses raises: nothing retries with
+    another size."""
     _check_blocks(blocks, act_s, len(folded))
     if x.dim() != 4 or x.dtype not in DTYPE_CODE or not x.is_contiguous():
         raise ValueError(
@@ -230,16 +279,18 @@ def fused_chain(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequenc
     b, h, w, _ = x.shape
     props = torch.cuda.get_device_properties(x.device)
     plan = chain_plan(b, h, w, cout, max(planes), blocks, x.element_size(),
-                      props.multi_processor_count, q_cin=cins[0] if quant else 0)
+                      props.multi_processor_count, q_cin=cins[0] if quant else 0,
+                      cluster=cluster)
     out = torch.empty((b, plan["ho"], plan["wo"], cout), dtype=x.dtype, device=x.device)
     if b == 0:
         return out
+    chain_occupancy(x.device, x.dtype, quant, plan["cluster"])
     scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=x.device)
     n = len(blocks)
     lib = _build.library("fused_resnet")
     fn = lib.avcer_fused_chain_q if quant else lib.avcer_fused_chain
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 10 + [ctypes.c_void_p] * (2 if quant else 1))
+                   + [ctypes.c_int] * 11 + [ctypes.c_void_p] * (2 if quant else 1))
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -247,7 +298,7 @@ def fused_chain(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequenc
                 (ctypes.c_void_p * (12 * n))(*ptrs),
                 (ctypes.c_int * n)(*[KINDS[k] for k in blocks]),
                 (ctypes.c_int * n)(*cins), (ctypes.c_int * n)(*planes), n,
-                b, h, w, cout, plan["th"], plan["tw"], plan["g"], plan["grid"],
+                b, h, w, cout, plan["th"], plan["tw"], plan["g"], plan["grid"], plan["cluster"],
                 DTYPE_CODE[x.dtype], *((act_s.data_ptr(),) if quant else ()), stream)
     if rc != 0:
         raise RuntimeError(f"fused_chain kernel launch failed: CUDA error {rc}")
@@ -256,6 +307,7 @@ def fused_chain(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequenc
 
 
 fused_chain.launches = 0
+fused_chain.occupancy = {}
 
 
 def fused_layer1(x: torch.Tensor, folded: Sequence[torch.Tensor], band: int = 32) -> torch.Tensor:

@@ -25,7 +25,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    runs of the kernel, its plain version and, where there is one, a library
    yardstick (scaled_dot_product_attention; the port's own unfused section
    for the fused kernels: cuDNN, or in int8 torch._int_mm), and the roofline
-   bound computed from the inputs;
+   bound computed from the inputs; fused_chain at every call shape of the r50
+   main paths, each with its plan (work items, cluster size C, grid) and the
+   clusters the card holds at once, and where C > 1 held bit for bit against
+   the same call at C = 1 (and timed there);
 5. reference: each model's output on the card (bf16, kernels), unfused and
    fused, exact and int8, against the same seeded weights (and the same
    activation scales) in f32 on the CPU (plain versions), on a small input;
@@ -479,18 +482,64 @@ def check_fused(name: str, run, run_plain, x, tol32, case: str) -> float:
 
 
 def chain_cases(detector, emotion) -> list:
+    """Every fused_chain call of the r50 main paths: (label, layer, blocks of
+    the layer, kinds, input shape, runs of the plain version to time). The
+    rows since the cluster plan time their plain versions over 10 runs."""
     body = detector.body
     return [
-        ("detector layer1", body.layer1, [0, 1, 2], ("ds", "id", "id"), (DETECT_BATCH, 90, 160, 64)),
+        ("detector layer1", body.layer1, [0, 1, 2], ("ds", "id", "id"), (DETECT_BATCH, 90, 160, 64),
+         50),
         ("detector layer2", body.layer2, [0, 1, 2, 3], ("s2ds", "id", "id", "id"),
-         (DETECT_BATCH, 90, 160, 256)),
-        ("detector layer3 entry", body.layer3, [0, 1], ("s2ds", "id"), (DETECT_BATCH, 45, 80, 512)),
+         (DETECT_BATCH, 90, 160, 256), 50),
+        ("detector layer3 entry", body.layer3, [0, 1], ("s2ds", "id"), (DETECT_BATCH, 45, 80, 512),
+         50),
         ("detector layer3 tail", body.layer3, [2, 3, 4], ("id", "id", "id"),
-         (DETECT_BATCH, 23, 40, 1024)),
+         (DETECT_BATCH, 23, 40, 1024), 50),
+        ("detector layer3 last", body.layer3, [5], ("id",), (DETECT_BATCH, 23, 40, 1024), 10),
+        ("emotion layer1", emotion.layer1, [0, 1, 2], ("ds", "id", "id"), (CNN_BATCH, 55, 55, 64),
+         10),
         ("emotion layer2", emotion.layer2, [0, 1, 2], ("s2pre", "id", "id"),
-         (CNN_BATCH, 55, 55, 256)),
-        ("emotion layer4 tail", emotion.layer4, [1], ("id",), (CNN_BATCH, 7, 7, 2048)),
+         (CNN_BATCH, 55, 55, 256), 50),
+        ("emotion layer2 last", emotion.layer2, [3], ("id",), (CNN_BATCH, 28, 28, 512), 10),
+        ("emotion layer3", emotion.layer3, [0, 1, 2], ("s2pre", "id", "id"),
+         (CNN_BATCH, 28, 28, 512), 10),
+        ("emotion layer3 tail", emotion.layer3, [3, 4, 5], ("id", "id", "id"),
+         (CNN_BATCH, 14, 14, 1024), 10),
+        ("emotion layer4 tail", emotion.layer4, [1], ("id",), (CNN_BATCH, 7, 7, 2048), 50),
     ]
+
+
+def chain_plan_of(x: torch.Tensor, folded, blocks, quant: bool) -> dict:
+    """The wrapper's plan for this call (work items, C, grid) and what the
+    card reported for that launch configuration before its first launch."""
+    per_block = fused_resnet_kernel.split_folded(folded, blocks)
+    b, h, w, cin = x.shape
+    plan = fused_resnet_kernel.chain_plan(
+        b, h, w, per_block[0][6].shape[-1], max(t[0].shape[1] for t in per_block), blocks,
+        x.element_size(), torch.cuda.get_device_properties(0).multi_processor_count,
+        q_cin=cin if quant else 0)
+    occ = fused_resnet_kernel.chain_occupancy(x.device, x.dtype, quant, plan["cluster"])
+    return {"nwork": plan["nwork"], "cluster": plan["cluster"], "grid": plan["grid"],
+            "max_active_clusters": occ["clusters"], "blocks_per_sm": occ["blocks_per_sm"]}
+
+
+def hold_cluster(name: str, case: str, x: torch.Tensor, folded, blocks, act_s, plan: dict) -> dict:
+    """K3 at the plan's C > 1 against the same call at C = 1, bit for bit
+    (f32 on the first 4 frames, at their own plan's C, and the dtype of ``x``
+    at the full batch), and the time of both; raises if they differ."""
+    launch = fused_resnet_kernel._fused_chain_cuda
+    wide = launch(x, folded[x.dtype], blocks, act_s)
+    one = launch(x, folded[x.dtype], blocks, act_s, cluster=1)
+    x32 = x[:4].float()
+    same32 = torch.equal(launch(x32, folded[torch.float32], blocks, act_s),
+                         launch(x32, folded[torch.float32], blocks, act_s, cluster=1))
+    same = torch.equal(wide, one)
+    one_ms = median_ms(lambda: launch(x, folded[x.dtype], blocks, act_s, cluster=1))
+    log(f"  {name} {case}: C = {plan['cluster']} equals C = 1 bit for bit: {same} (f32, first "
+        f"4 frames: {same32}); C = 1 takes {one_ms:.3f} ms (median of 50)")
+    if not (same and same32):
+        raise AssertionError(f"{name} {case}: C = {plan['cluster']} differs from C = 1")
+    return {"c1_ms": one_ms}
 
 
 def kernels_fused_chain(card: str, detector, emotion, quant: bool = False) -> dict:
@@ -502,7 +551,8 @@ def kernels_fused_chain(card: str, detector, emotion, quant: bool = False) -> di
     rows, worst = [], 0.0
     name = "fused_chain int8" if quant else "fused_chain"
     kind = "int8" if quant else "bf16"
-    for seed, (label, layer, chunk, blocks, shape) in enumerate(chain_cases(detector, emotion)):
+    for seed, (label, layer, chunk, blocks, shape, plain_runs) in enumerate(
+            chain_cases(detector, emotion)):
         x = randn(shape, 100 + seed)
         pairs = [p for bi in chunk for p in layer[bi].fold_pairs()]
         # the int8 fold does not depend on the compute dtype: f32 mult and shift
@@ -518,6 +568,10 @@ def kernels_fused_chain(card: str, detector, emotion, quant: bool = False) -> di
         def run_plain(a, dt):
             return run(a, dt, fused_resnet_kernel.fused_chain_plain)
 
+        plan = chain_plan_of(x, folded[torch.bfloat16][0], blocks, quant)
+        log(f"  {case} {kind}: {plan['nwork']} work items, C = {plan['cluster']}, grid "
+            f"{plan['grid']}; the card holds {plan['max_active_clusters']} such clusters at "
+            f"once, {plan['blocks_per_sm']} blocks an SM")
         worst = max(worst, check_fused(name, run, run_plain, x,
                                        INT8_TOL if quant else dict(atol=2e-4, rtol=1e-3), case))
         with torch.inference_mode():
@@ -526,8 +580,12 @@ def kernels_fused_chain(card: str, detector, emotion, quant: bool = False) -> di
             lib_rel = rel_l2(out, lib)
             ms = median_ms(lambda: run(x, torch.bfloat16))
             # the int8 plain version multiplies in float64: fewer timed runs
-            plain = median_ms(lambda: run_plain(x, torch.bfloat16), runs=10 if quant else 50)
+            plain = median_ms(lambda: run_plain(x, torch.bfloat16),
+                              runs=10 if quant else plain_runs)
             lib_ms = median_ms(lambda: section(x_cl))
+            if plan["cluster"] > 1:
+                plan.update(hold_cluster(name, case, x, {dt: f[0] for dt, f in folded.items()},
+                                         blocks, folded[torch.bfloat16][1], plan))
         b_ms, b_by = bound_ms(*chain_work(x, folded[torch.bfloat16][0], blocks, out), kind)
         log(f"  {case} {kind}: kernel {ms:.3f} ms, plain {plain:.3f} ms, unfused "
             f"{'int8' if quant else 'cuDNN'} section {lib_ms:.3f} ms (relative L2 to it "
@@ -538,7 +596,8 @@ def kernels_fused_chain(card: str, detector, emotion, quant: bool = False) -> di
         if not lib_rel < (0.05 if quant else 0.02):
             raise AssertionError(f"{name} {case}: relative L2 {lib_rel} to the unfused section")
         rows.append({"case": label, "blocks": list(blocks), "shape": list(shape), "ms": ms,
-                     "plain_ms": plain, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
+                     "plain_ms": plain, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     **plan})
     first = rows[0]
     return entry("fused_chain_int8" if quant else "fused_chain", "fused_resnet.cu",
                  "avcer_tpu/ops/pallas/fused_resnet_kernel.py:" + ("219" if quant else "299"),

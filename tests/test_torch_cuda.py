@@ -197,6 +197,31 @@ def test_fused_ssh_heads_kernel(cuda_device, shape, c, leaky, lat, merge, has_up
         torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol)
 
 
+# Convs with N >= 128 output channels, which the bf16 product computes in
+# tiles of 128 x 128 (the narrower ones in 128 x 64): every kind, frames
+# smaller and larger than a tile
+WIDE_CASES = [((2, 24, 20, 512), 128, ("id", "id")), ((2, 23, 17, 64), 64, ("ds", "id")),
+              ((2, 23, 17, 128), 128, ("s2ds", "id")), ((2, 36, 30, 256), 128, ("s2pre", "id")),
+              ((3, 7, 7, 1024), 256, ("id",))]
+
+
+@pytest.mark.parametrize("shape,planes,blocks", WIDE_CASES)
+def test_fused_chain_kernel_bf16_wide(cuda_device, shape, planes, blocks):
+    """The bf16 product on 128 x 128 tiles against the plain version, at the
+    bound of test_fused_chain_kernel_bf16; for a stride-1 chain also against
+    fused_chain_flat, whose 128 x 64 product sums the same terms in the same
+    order: equal bit for bit."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    folded = tensors(chain_weights(rng, shape[-1], planes, blocks), torch.bfloat16, cuda_device)
+    want = fused_resnet_kernel.fused_chain_plain(x, folded, blocks)
+    got = fused_resnet_kernel.fused_chain(x, folded, blocks)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2 ** -5, rtol=2 ** -5)
+    if blocks[0] in ("ds", "id"):
+        assert torch.equal(got, fused_resnet_kernel.fused_chain_flat(x, folded, blocks))
+
+
 # The int8 mode copies its weights 16 channels at a time: channel counts are
 # multiples of 16. Otherwise the geometry of CHAIN_CASES: every frame edge,
 # sizes that are no multiple of the tile, odd stride-2 sizes, the four kinds.
@@ -233,6 +258,55 @@ def test_fused_chain_kernel_int8(cuda_device, shape, planes, blocks, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=2 ** -5, rtol=2 ** -5)
     # and almost everywhere exactly
     assert float((got != want).float().mean()) < 1e-3
+
+
+# Deep, narrow shapes as the detector's layer3 gives them (few work items,
+# wide channels), where the plan spreads a work item over a cluster
+CLUSTER_CASES = [((4, 12, 20, 256), ("id", "id", "id")), ((4, 12, 20, 256), ("s2ds", "id")),
+                 ((3, 7, 7, 256), ("id",))]
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8 f32", "int8 bf16"])
+@pytest.mark.parametrize("shape,blocks", CLUSTER_CASES)
+@pytest.mark.parametrize("cluster", [2, 3, 4])
+def test_fused_chain_cluster_equals_one_block(cuda_device, shape, blocks, cluster, mode):
+    """A work item shared by a cluster of C thread blocks gives the result of
+    one block bit for bit: each output is summed by the same instructions in
+    the same order, whichever block of the cluster computes it. C is forced
+    through the wrapper's private launch path."""
+    rng = np.random.default_rng(10)
+    dtype = torch.bfloat16 if mode.endswith("bf16") else torch.float32
+    x = torch.from_numpy(np.maximum(rng.normal(size=shape), 0).astype(np.float32))
+    x = x.to(cuda_device, dtype)
+    weights = chain_weights(rng, shape[-1], shape[-1] // 4, blocks)
+    act_s = None
+    if mode.startswith("int8"):
+        folded, act_s = quantize_folded(rng, weights)
+        folded = quant_tensors(folded, cuda_device)
+        act_s = torch.from_numpy(act_s).to(cuda_device)
+    else:
+        folded = tensors(weights, dtype, cuda_device)
+    launch = fused_resnet_kernel._fused_chain_cuda
+    one = launch(x, folded, blocks, act_s, cluster=1)
+    before = fused_resnet_kernel.fused_chain.launches
+    got = launch(x, folded, blocks, act_s, cluster=cluster)
+    torch.cuda.synchronize()
+    assert fused_resnet_kernel.fused_chain.launches == before + 1
+    assert torch.equal(got, one)
+    # and the plan's own C, which the public wrapper launches
+    assert torch.equal(fused_resnet_kernel.fused_chain(x, folded, blocks, act_s=act_s), one)
+
+
+def test_fused_chain_refused_cluster_raises(cuda_device):
+    """A cluster size the kernel or the card refuses raises; nothing retries
+    at another size, on the plain version or on the CPU."""
+    rng = np.random.default_rng(11)
+    x = torch.zeros((2, 12, 20, 64), device=cuda_device)
+    folded = tensors(chain_weights(rng, 64, 16, ("id",)), device=cuda_device)
+    before = fused_resnet_kernel.fused_chain.launches
+    with pytest.raises(RuntimeError):
+        fused_resnet_kernel._fused_chain_cuda(x, folded, ("id",), None, cluster=16)
+    assert fused_resnet_kernel.fused_chain.launches == before
 
 
 QSSH_CASES = [

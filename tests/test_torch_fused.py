@@ -279,12 +279,67 @@ def test_chain_plan_geometry():
     assert (p["ho"], p["wo"], p["th"], p["tw"], p["halo"]) == (23, 40, 23, 20, 1)
     p = frk.chain_plan(256, 7, 7, 2048, 512, ("id",), 2, 132)
     assert (p["th"], p["tw"], p["halo"], p["g"], p["nwork"]) == (7, 7, 1, 3, 86)
+    # five work items on a card of 264 resident blocks: clusters of four
     p = frk.chain_plan(5, 55, 55, 512, 128, ("s2pre", "id", "id"), 4, 132)
-    assert (p["ho"], p["wo"], p["th"], p["g"], p["nwork"], p["grid"]) == (28, 28, 28, 1, 5, 5)
+    assert (p["ho"], p["wo"], p["th"], p["g"], p["nwork"], p["grid"]) == (28, 28, 28, 1, 5, 20)
     s = fsk.ssh_plan(32, 12, 20, 256, False, 2, 132)
     assert (s["th"], s["tw"], s["halo"], s["nwork"]) == (12, 20, 3, 32)
     s = fsk.ssh_plan(32, 45, 80, 256, True, 2, 132)
     assert (s["th"], s["tw"], s["halo"], s["nwork"]) == (23, 20, 4, 32 * 2 * 4)
+
+
+# (input shape, cout, planes, blocks, expected C): every fused_chain call of
+# the main paths (detector batch 32, emotion CNN batch 256) on 132 SMs
+MAIN_PATH_CHAINS = [
+    ((32, 90, 160, 64), 256, 64, ("ds", "id", "id"), 1),  # detector layer1
+    ((32, 90, 160, 256), 512, 128, ("s2ds", "id", "id", "id"), 1),  # detector layer2
+    ((32, 45, 80, 512), 1024, 256, ("s2ds", "id"), 4),  # detector layer3 entry
+    ((32, 23, 40, 1024), 1024, 256, ("id", "id", "id"), 4),  # detector layer3 tail
+    ((32, 23, 40, 1024), 1024, 256, ("id",), 4),  # detector layer3 last
+    ((256, 55, 55, 64), 256, 64, ("ds", "id", "id"), 1),  # emotion layer1
+    ((256, 55, 55, 256), 512, 128, ("s2pre", "id", "id"), 1),  # emotion layer2
+    ((256, 28, 28, 512), 512, 128, ("id",), 1),  # emotion layer2 last
+    ((256, 28, 28, 512), 1024, 256, ("s2pre", "id", "id"), 1),  # emotion layer3
+    ((256, 14, 14, 1024), 1024, 256, ("id", "id", "id"), 1),  # emotion layer3 tail
+    ((256, 7, 7, 2048), 2048, 512, ("id",), 3),  # emotion layer4 tail (two calls)
+]
+
+
+@pytest.mark.parametrize("shape,cout,planes,blocks,want_c", MAIN_PATH_CHAINS)
+@pytest.mark.parametrize("itemsize,quant", [(2, False), (2, True), (4, False)])
+def test_chain_plan_clusters(shape, cout, planes, blocks, want_c, itemsize, quant):
+    """The cluster size C = clamp(264 // nwork, 1, 4) at the main paths'
+    shapes: 4 for the detector's layer3, 3 for the emotion CNN's layer4, 1
+    where the work items fill the card; the grid is whole clusters and at
+    most two blocks an SM; the scratch holds one slab per cluster, so a
+    cluster plan needs no more memory than the same call at C = 1."""
+    b, h, w, cin = shape
+    sms = 132
+    q_cin = cin if quant else 0
+    p = frk.chain_plan(b, h, w, cout, planes, blocks, itemsize, sms, q_cin=q_cin)
+    assert p["cluster"] == want_c
+    assert p["grid"] % p["cluster"] == 0 and p["grid"] <= 2 * sms
+    assert p["grid"] == min(p["nwork"], 2 * sms // want_c) * want_c
+    s2ds = blocks[0] == "s2ds"
+    rh, rw = p["th"] + 2 * p["halo"], p["tw"] + 2 * p["halo"]
+    rh1, rw1 = (2 * rh + 1, 2 * rw + 1) if s2ds else (rh, rw)
+    slab = p["g"] * (rh * rw * cout + rh1 * rw1 * planes + rh * rw * planes) * itemsize
+    qslab = p["g"] * rh1 * rw1 * max(cin, cout, planes) if quant else 0
+    assert p["scratch_bytes"] == (slab + qslab) * (p["grid"] // want_c)
+    one = frk.chain_plan(b, h, w, cout, planes, blocks, itemsize, sms, q_cin=q_cin, cluster=1)
+    assert one["cluster"] == 1 and p["scratch_bytes"] <= one["scratch_bytes"]
+    # the tiling does not depend on C
+    assert all(p[k] == one[k] for k in ("ho", "wo", "th", "tw", "halo", "g", "nwork"))
+
+
+def test_chain_plan_forced_cluster():
+    """A forced C (the card tests' private launch path) keeps the grid whole
+    clusters within the card's resident blocks."""
+    for c in (1, 2, 3, 4):
+        p = frk.chain_plan(4, 12, 20, 256, 64, ("id", "id", "id"), 2, 132, cluster=c)
+        assert p["cluster"] == c and p["grid"] == p["nwork"] * c and p["nwork"] == 4
+    p = frk.chain_plan(32, 90, 160, 64, 64, ("ds", "id", "id"), 2, 132, cluster=2)
+    assert (p["grid"], p["scratch_bytes"] % 132) == (264, 0)
 
 
 def test_cli_fused_sets_all_seven_switches():
