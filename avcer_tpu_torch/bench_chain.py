@@ -1,23 +1,29 @@
 """Times ``fused_chain`` (K3) at every call the r50 main paths make, in bf16
-and in the int8 mode, on one NVIDIA GPU:
+and in the int8 mode, or with ``--kernel ssh`` ``fused_ssh_heads`` (K4) at the
+nine calls of the main paths, on one NVIDIA GPU:
 
-    python3 avcer_tpu_torch/bench_chain.py [--root DIR] [--label NAME] [--out FILE]
+    python3 avcer_tpu_torch/bench_chain.py [--kernel chain|ssh] [--root DIR] [--label NAME]
+        [--out FILE] [--sweep]
 
 ``--root`` takes ``avcer_tpu_torch`` from another checkout (an unpacked
-parent commit), so that two versions of the kernel are timed by the same
+parent commit), so that two versions of a kernel are timed by the same
 script in one session; run them in turns (parent, change, change, parent).
 Weights and inputs are random from a fixed seed at the models' widths; the
 time of a call does not depend on their values. Each time is the median of
 50 calls after 5 warm-ups, with CUDA events. Prints one JSON object (also
 written to ``--out``): the card's name and power limit, and per call its
-shape, kinds, the plan's work items, cluster size and grid, and what the
-card reports it holds of that launch (clusters at once, blocks an SM),
-where the version has them, and ms.
+shape, the plan's work items, cluster size and grid, and what the card
+reports it holds of that launch (clusters at once, blocks an SM), where the
+version has them, and ms. K4's calls also carry the SHA-256 of their outputs
+from the seeded inputs: two versions that compute alike give equal hashes.
+``--sweep`` also times every call at each cluster size C = 1 to 4, forced
+through the wrapper's private launch path.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -39,6 +45,21 @@ CALLS = [
     ("emotion layer4 tail", (256, 7, 7, 2048), 2048, 512, ("id",)),
 ]
 
+
+#: (label, input shape, feature channels C, with the merge, leaky slope,
+#: modes): the r50 detector's three scales in the fused order (scale 3 emits
+#: its lateral, scale 2 its merged feature; scales 2 and 1 add ``up``) at its
+#: detect batch of 32, bf16 and int8, and the mobilenet0.25 detector's at
+#: C = 64 with leaky ReLU 0.1, batch 128 at the 640 bucket, int8 (the modes
+#: that ``parity --fused``, ``int8 --fused`` and ``fast --fused`` launch)
+SSH_CALLS = [
+    ("r50 scale 3", (32, 12, 20, 2048), 256, False, 0.0, ("bf16", "int8")),
+    ("r50 scale 2", (32, 23, 40, 1024), 256, True, 0.0, ("bf16", "int8")),
+    ("r50 scale 1", (32, 45, 80, 512), 256, True, 0.0, ("bf16", "int8")),
+    ("mobilenet scale 3", (128, 12, 20, 256), 64, False, 0.1, ("int8",)),
+    ("mobilenet scale 2", (128, 23, 40, 128), 64, True, 0.1, ("int8",)),
+    ("mobilenet scale 1", (128, 45, 80, 64), 64, True, 0.1, ("int8",)),
+]
 
 KEYS = ("nwork", "cluster", "grid", "max_active_clusters", "blocks_per_sm")
 
@@ -72,6 +93,48 @@ def weights(torch, gen, cin: int, cout: int, planes: int, kinds, quant: bool):
     return folded, act_s
 
 
+def ssh_weights(torch, gen, ci: int, c: int, merge: bool, quant: bool):
+    """Keyword arguments of one ``fused_ssh_heads`` call but ``x``, ``up``,
+    ``leaky`` and ``emit_feature``: the lateral, the merge where present, the
+    five SSH convs (int8: (wq, mult, shift) and act_s in that order) and the
+    three heads (bf16)."""
+    dev = "cuda"
+    scales = []
+
+    def conv(shape):
+        co = shape[-1]
+        fan_in = shape[-2] * (9 if len(shape) == 4 else 1)
+        if quant:
+            w = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+            mult = torch.rand((1, co), generator=gen, device=dev) * 2e-4
+            scales.append(0.05)
+        else:
+            w = (torch.randn(shape, generator=gen, device=dev) / fan_in ** 0.5).bfloat16()
+            mult = (torch.rand((1, co), generator=gen, device=dev) + 0.5).bfloat16()
+        shift = torch.randn((1, co), generator=gen, device=dev) * 0.1
+        return [w, mult, shift if quant else shift.bfloat16()]
+
+    q = c // 4
+    lat = conv((ci, c))
+    mrg = conv((3, 3, c, c)) if merge else None
+    convs = sum((conv(s) for s in ((3, 3, c, c // 2), (3, 3, c, q), (3, 3, q, q), (3, 3, q, q),
+                                   (3, 3, q, q))), [])
+    heads = []
+    for n in (8, 4, 20):  # two anchors: box, class, landmarks
+        heads += [(torch.randn((c, n), generator=gen, device=dev) / c ** 0.5).bfloat16(),
+                  (torch.randn((n,), generator=gen, device=dev) * 0.1).bfloat16()]
+    return dict(conv_folded=convs, head_folded=heads, fpn_lat=lat, fpn_merge=mrg,
+                act_s=torch.tensor(scales, device=dev) if quant else None)
+
+
+def digest(torch, outs) -> str:
+    """SHA-256 of the outputs' bytes, in order."""
+    h = hashlib.sha256()
+    for o in outs:
+        h.update(o.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def median_ms(torch, fn, runs: int = 50, warmup: int = 5) -> float:
     for _ in range(warmup):
         fn()
@@ -87,30 +150,15 @@ def median_ms(torch, fn, runs: int = 50, warmup: int = 5) -> float:
     return (times[runs // 2 - 1] + times[runs // 2]) / 2
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    help="checkout whose avcer_tpu_torch is timed (default: this one)")
-    ap.add_argument("--label", default="", help="name of the version in the output")
-    ap.add_argument("--out", default="", help="also write the JSON object here")
-    ap.add_argument("--sweep", action="store_true",
-                    help="also time every call at each cluster size C = 1 to 4, forced through "
-                         "the wrapper's private launch path")
-    args = ap.parse_args()
-    sys.path.insert(0, os.path.abspath(args.root))
-    import torch
+def show(label: str, row: dict) -> None:
+    print(f"{label} {row['call']} {row['mode']}: {row['ms']:.3f} ms "
+          f"({', '.join(f'{k} {row[k]}' for k in KEYS if k in row)})"
+          + (f" sha256 {row['sha256'][:16]}" if "sha256" in row else ""), flush=True)
 
-    if not torch.cuda.is_available():
-        print("bench_chain: needs an NVIDIA GPU (torch.cuda.is_available() is False)",
-              file=sys.stderr)
-        return 1
+
+def bench_chain(torch, args, sms: int, gen) -> list[dict]:
     from avcer_tpu_torch.ops.cuda import fused_resnet_kernel as frk
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True,
-                          timeout=60).stdout.strip().splitlines()[0]
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for label, shape, cout, planes, kinds in CALLS:
         x = torch.randn(shape, generator=gen, device="cuda").relu().bfloat16()
@@ -133,9 +181,7 @@ def main() -> int:
                 occ = frk.chain_occupancy(x.device, x.dtype, quant, plan["cluster"])
                 row.update(max_active_clusters=occ["clusters"], blocks_per_sm=occ["blocks_per_sm"])
             rows.append(row)
-            print(f"{args.label} {label} {row['mode']}: {row['ms']:.3f} ms "
-                  f"({', '.join(f'{k} {row[k]}' for k in KEYS if k in row)})",
-                  flush=True)
+            show(args.label, row)
             if args.sweep:
                 row["sweep"] = {}
                 for c in range(1, frk.MAX_CLUSTER + 1):
@@ -148,8 +194,85 @@ def main() -> int:
                                        "max_active_clusters": occ["clusters"]}
                     print(f"  C = {c}: {ms:.3f} ms (grid {forced['grid']}, the card holds "
                           f"{occ['clusters']} clusters)", flush=True)
-    result = {"label": args.label, "root": os.path.abspath(args.root), "card": card,
-              "calls": rows}
+    return rows
+
+
+def bench_ssh(torch, args, sms: int, gen) -> list[dict]:
+    from avcer_tpu_torch.ops.cuda import fused_ssh_kernel as fsk
+
+    rows = []
+    for label, shape, c, merge, leaky, modes in SSH_CALLS:
+        x = torch.randn(shape, generator=gen, device="cuda").relu().bfloat16()
+        up = (torch.randn(shape[:3] + (c,), generator=gen, device="cuda").relu().bfloat16()
+              if merge else None)
+        emit = label.split()[-1] != "1"
+        for mode in modes:
+            quant = mode == "int8"
+            kw = ssh_weights(torch, gen, shape[-1], c, merge, quant)
+            kw.update(leaky=leaky, up=up, emit_feature=emit)
+
+            def call(**force):
+                if force:
+                    return fsk._fused_ssh_cuda(x, **kw, **force)
+                return fsk.fused_ssh_heads(x, **kw)
+
+            outs = call()
+            if not all(bool(torch.isfinite(o.float()).all()) for o in outs):
+                raise AssertionError(f"bench_chain: {label} {mode} gave non-finite values")
+            row = {"call": label, "shape": list(shape), "c": c, "mode": mode,
+                   "ms": median_ms(torch, call), "sha256": digest(torch, outs)}
+            if hasattr(fsk, "card_plan"):  # the plan from what the card holds
+                plan = fsk.card_plan(x, c, merge, quant)
+                occ = fsk.ssh_occupancy(x.device, x.dtype, quant, plan["cluster"])
+                row["blocks_per_sm"] = occ["blocks_per_sm"]
+            else:  # a version before the cluster plan: one block a work item
+                b, h, w, ci = shape
+                plan = fsk.ssh_plan(b, h, w, c, merge, 2, sms, q_ci=ci if quant else 0)
+            row.update({k: plan[k] for k in ("nwork", "cluster", "grid", "max_active_clusters")
+                        if k in plan})
+            rows.append(row)
+            show(args.label, row)
+            if args.sweep and hasattr(fsk, "_fused_ssh_cuda"):
+                row["sweep"] = {}
+                for n in range(1, fsk.MAX_CLUSTER + 1):
+                    forced = fsk.card_plan(x, c, merge, quant, cluster=n)
+                    ms = median_ms(torch, lambda: call(cluster=n))
+                    same = digest(torch, call(cluster=n)) == row["sha256"]
+                    row["sweep"][n] = {"ms": ms, "grid": forced["grid"], "same": same,
+                                       "max_active_clusters": forced["max_active_clusters"]}
+                    print(f"  C = {n}: {ms:.3f} ms (grid {forced['grid']}, the card holds "
+                          f"{forced['max_active_clusters']} clusters; outputs equal to the "
+                          f"plan's: {same})", flush=True)
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("chain", "ssh"), default="chain",
+                    help="chain: K3 fused_chain (default); ssh: K4 fused_ssh_heads")
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    help="checkout whose avcer_tpu_torch is timed (default: this one)")
+    ap.add_argument("--label", default="", help="name of the version in the output")
+    ap.add_argument("--out", default="", help="also write the JSON object here")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time every call at each cluster size C = 1 to 4, forced through "
+                         "the wrapper's private launch path")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_chain: needs an NVIDIA GPU (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = (bench_ssh if args.kernel == "ssh" else bench_chain)(torch, args, sms, gen)
+    result = {"label": args.label, "kernel": args.kernel, "root": os.path.abspath(args.root),
+              "card": card, "calls": rows}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

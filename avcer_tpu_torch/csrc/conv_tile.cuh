@@ -22,7 +22,7 @@
 // the current one is multiplied), and an epilogue functor turns 16 bytes' worth of
 // neighbouring output channels at a time into the stored values: round to
 // the compute type, times inv, plus shift (each rounded, no FMA across
-// them), activation, mask, residual. K3's bf16 convs go through
+// them), activation, mask, residual. The bf16 convs of K3 and K4 go through
 // block_gemm_tc instead (128 x 128 tiles on mma.sync, three cp.async stages;
 // the same sums bit for bit), and a product may be shared by the blocks of
 // a thread-block cluster (block_gemm's `part` of `parts`).
@@ -454,7 +454,7 @@ __device__ void block_gemm(const Op* a, int lda, int K, const Op* __restrict__ w
   }
 }
 
-// The bf16 product of K3 (fused_resnet.cu's chain_kernel) on mma.sync: the
+// The bf16 product of K3 and K4 (fused_resnet.cu, fused_ssh.cu) on mma.sync: the
 // function of block_gemm<__nv_bfloat16>, on tiles of 128 pixels x BN output
 // channels (BN 128 where N >= 128, else 64). Eight warps in 2 x 4 each own
 // 64 x BN/4 of the tile as 4 x BN/32 fragments of mma.sync m16n8k16 (bf16 x
@@ -592,6 +592,41 @@ __device__ void block_gemm_tc(const __nv_bfloat16* a, int lda, int K,
       __syncthreads();
     }
   }
+}
+
+// Launches `kernel` (kThreads a block, `smem` bytes of dynamic shared memory)
+// on `grid` blocks in clusters of `cluster` (a cluster of one is an ordinary
+// launch); with `clusters` and `blocks` non-null it launches nothing and
+// reports how many such clusters the card can hold at once, and how many
+// blocks an SM. Returns a CUDA error code: a cluster the card refuses
+// returns the launch's own error.
+template <typename P>
+int launch_clusters(void (*kernel)(P), const P& p, int grid, int cluster, size_t smem,
+                    cudaStream_t stream, int* clusters = nullptr, int* blocks = nullptr) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters != nullptr) {
+    err = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem);
+    return static_cast<int>(err);
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Shared memory of a kernel whose convs go through conv_gemm<T, Q, TC>.

@@ -391,45 +391,16 @@ __global__ void __launch_bounds__(kThreads, 2) chain_flat_kernel(const FlatP p) 
   }
 }
 
-// The launch of chain_kernel in clusters of `cluster` blocks; with
-// `clusters` and `blocks` non-null it launches nothing and reports how many
-// such clusters the card can hold at once, and how many blocks an SM.
-template <typename T, bool Q, bool kCl>
-int launch_as(const ChainP& p, int grid, int cluster, cudaStream_t stream, int* clusters,
-              int* blocks) {
-  const int smem = static_cast<int>(conv_smem_bytes<T, Q, true>());
-  cudaError_t err = cudaFuncSetAttribute(chain_kernel<T, Q, kCl>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (clusters != nullptr) {
-    err = cudaOccupancyMaxActiveClusters(clusters, chain_kernel<T, Q, kCl>, &cfg);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, chain_kernel<T, Q, kCl>,
-                                                          kThreads, smem);
-    return static_cast<int>(err);
-  }
-  err = cudaLaunchKernelEx(&cfg, chain_kernel<T, Q, kCl>, p);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
+// chain_kernel in clusters of `cluster` blocks (launch_clusters): with
+// `clusters` and `blocks` non-null it reports what the card holds instead.
 template <typename T, bool Q>
 int launch(const ChainP& p, int grid, int cluster, cudaStream_t stream, int* clusters = nullptr,
            int* blocks = nullptr) {
-  return cluster > 1 ? launch_as<T, Q, true>(p, grid, cluster, stream, clusters, blocks)
-                     : launch_as<T, Q, false>(p, grid, cluster, stream, clusters, blocks);
+  constexpr size_t smem = conv_smem_bytes<T, Q, true>();
+  return cluster > 1 ? launch_clusters(chain_kernel<T, Q, true>, p, grid, cluster, smem, stream,
+                                       clusters, blocks)
+                     : launch_clusters(chain_kernel<T, Q, false>, p, grid, cluster, smem, stream,
+                                       clusters, blocks);
 }
 
 template <typename T>

@@ -22,21 +22,50 @@
 // ([32, 12, 20, 2048], lateral only) 0.017 ms against 0.011 ms. Operations
 // bind all three.
 //
-// Design: as fused_resnet.cu. A work item is a tile of the frame with a halo
-// of 3 pixels (4 with the merge conv); each conv is conv_tile.cuh's
-// block-wide product over the whole haloed region, so the lateral streams
-// its up to 2048 input channels through shared memory in slabs of 32 and
-// only the 256-channel result is kept. f, c5_1, c7_2 and the ReLU'd
-// (c3 | c5 | c7) live in the thread block's slab of device-memory scratch
-// (allocated by the wrapper, reused work item after work item, L2-resident);
-// the heads read that slab and write the narrow outputs, output channel
-// fastest, so a warp's stores are contiguous. The three scales are three
-// launches in sequence on one stream: scale 2 reads what scale 3 emitted.
+// Design. A work item is a tile of TH x TW pixels of G frames with a halo of
+// 3 pixels (4 with the merge conv). Each conv is conv_tile.cuh's block-wide
+// product over the part of the haloed region that a later step reads, as
+// the TPU kernel shrinks its bands: a 3x3 at depth d covers the region less
+// d pixels on every side and reads the rectangle at depth d - 1 (with the
+// merge: lateral 0, merge 1, c5_1 2, c7_2 3, c3 / c5 / c7 4, the tile
+// proper; without it f 0, c5_1 1, c7_2 2, the other three 3). At scale 1
+// that is 216 G multiply-adds a call against 283 over whole regions. Every
+// value that a later step reads is summed as over the whole region. The
+// bf16 product is block_gemm_tc (mma.sync, 128 x 128 tiles where the conv
+// has 128 output channels or more, else 128 x 64, a three-stage cp.async
+// ring); f32 and the int8 option take block_gemm. The lateral streams its up
+// to 2048 input channels through shared memory in slabs of 32 to 64 and only
+// the 256-channel result is kept.
+//
+// Clusters. A work item belongs to a cluster of C thread blocks, C from the
+// wrapper's plan: the size of 1 to 4 with the fewest rounds of work items a
+// block, from what the card reports it holds of each size (scale 1 of the
+// r50 detector: 256 work items, C = 1; scale 2: 64, C = 3; scale 3: 32,
+// C = 4). The cluster's blocks split every conv's (m-tile, n-tile) pairs
+// round robin, and the region copy, the int8 quantise step, the copy of the
+// emitted feature and the heads split their rows; each conv ends in a
+// cluster barrier that hands its output to the next, and the work item ends
+// in one before the slab is reused. Rows another block wrote are read
+// through L2 only (cp.async.cg, ld.global.cg). The work loop's trip count
+// depends on the cluster alone. Each output is summed by the same
+// instructions in the same order whichever block computes it: any C gives
+// the result of C = 1 bit for bit. A call with C = 1 runs an instantiation
+// compiled without clusters.
+//
+// Memory. f, c5_1, c7_2 and the ReLU'd (c3 | c5 | c7) live in the cluster's
+// slab of device-memory scratch (allocated by the wrapper, reused work item
+// after work item): at scale 1 a slab is 1.55 MB (int8, with its quantised
+// plane: 2.0 MB) and a call's slabs add up to 398 MB (int8 512 MB), against a
+// 50 MB L2, so the intermediates go to device memory and come back through L2
+// as the next conv gathers them. The heads are scalar f32 sums on the CUDA
+// cores over `cat` and write the narrow outputs, output channel fastest, so
+// a warp's stores are contiguous. The three scales are three launches in
+// sequence on one stream: scale 2 reads what scale 3 emitted.
 //
 // The int8 option (avcer_fused_ssh_q; the TPU kernel's act_s): the lateral,
 // the merge and the five SSH convs multiply int8 weights with activations
-// quantised by their static scales (once per conv, into an int8 plane of the
-// thread block's scratch) and sum in int32 (conv_tile.cuh), the
+// quantised by their static scales (once per conv, the rows it reads, into
+// an int8 plane of the cluster's scratch) and sum in int32 (conv_tile.cuh), the
 // leaky ReLU acts on the value already rounded to the compute type, and the
 // three heads stay exact f32 sums over the ReLU'd segments. The scales come
 // in the TPU kernel's order: lateral, merge, then the five SSH convs.
@@ -58,15 +87,19 @@ struct SshP {
   void* feat;
   void* scratch;
   const float* act_s;  // int8 option: lateral, merge (where present), five SSH convs
-  long long slab;
-  long long qslab;  // int8 option: bytes of the quantised plane per thread block
+  long long slab;   // elements of scratch per cluster
+  long long qslab;  // int8 option: bytes of the quantised plane per cluster
+  int CL;           // thread blocks per cluster, all on one work item
   int B, H, W, Ci, C;
   int has_lat, has_merge, has_up, emit, act;
   float leaky;
   int TH, TW, tiles_y, tiles_x, G, halo, RH, RW, nwork;
 };
 
-template <typename T, bool Q>
+// kCl: launched in clusters of p.CL > 1 blocks. Without it the kernel is
+// compiled with a cluster of one and rank 0 as constants: a call that needs
+// no cluster runs the instructions of a kernel that knows none.
+template <typename T, bool Q, bool kCl>
 __global__ void __launch_bounds__(kThreads, 2) ssh_kernel(const SshP p) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int V = Tile<T>::kVec;
@@ -76,17 +109,21 @@ __global__ void __launch_bounds__(kThreads, 2) ssh_kernel(const SshP p) {
   const int H = p.H, W = p.W, C = p.C, Ci = p.Ci, C4 = p.C / 4;
   const int act = p.act;
   const T leaky = Num<T>::from_f32(p.leaky);
-  const T zero = Num<T>::from_f32(0.0f);
+  // the cluster's blocks share its work items and its slab; `rank` is this
+  // block's place in the cluster and its part of every conv and row loop
+  const int CL = kCl ? p.CL : 1;
+  const int cluster = kCl ? blockIdx.x / CL : blockIdx.x, rank = kCl ? blockIdx.x % CL : 0;
+  const int clusters = kCl ? gridDim.x / CL : gridDim.x;
   const size_t region = static_cast<size_t>(p.G) * PR;
-  T* f0 = static_cast<T*>(p.scratch) + static_cast<size_t>(blockIdx.x) * p.slab;
+  T* f0 = static_cast<T*>(p.scratch) + static_cast<size_t>(cluster) * p.slab;
   T* f = p.has_merge ? f0 + region * C : f0;
   T* t51 = f + region * C;
   T* t72 = t51 + region * C4;
   T* cat = t72 + region * C4;  // relu(c3 | c5 | c7), C channels
-  // the int8 planes follow the slabs of all thread blocks
+  // the int8 planes follow the slabs of all clusters
   signed char* qbuf = reinterpret_cast<signed char*>(static_cast<T*>(p.scratch) +
-                                                     static_cast<size_t>(gridDim.x) * p.slab) +
-                      static_cast<size_t>(blockIdx.x) * p.qslab;
+                                                     static_cast<size_t>(clusters) * p.slab) +
+                      static_cast<size_t>(cluster) * p.qslab;
   auto same = [](int r) { return r; };
   const int tiles = p.tiles_y * p.tiles_x;
   // the static scale of conv `i` in act_s order
@@ -96,7 +133,9 @@ __global__ void __launch_bounds__(kThreads, 2) ssh_kernel(const SshP p) {
   };
   const int s_ssh = p.has_lat + p.has_merge;  // index of conv3X3's scale
 
-  for (int work = blockIdx.x; work < p.nwork; work += gridDim.x) {
+  // the trip count depends on the cluster only: every block of a cluster
+  // reaches every cluster barrier equally often
+  for (int work = cluster; work < p.nwork; work += clusters) {
     const int b0 = (work / tiles) * p.G;
     const int gc = min(p.G, p.B - b0);
     const int y0 = ((work % tiles) / p.tiles_x) * p.TH - p.halo;
@@ -110,29 +149,40 @@ __global__ void __launch_bounds__(kThreads, 2) ssh_kernel(const SshP p) {
       if (y < 0 || y >= H || xx < 0 || xx >= W) return -1;
       return ((b0 + m / PR) * H + y) * W + xx;
     };
-    auto tap3 = [=](int m, int tap) -> int {
-      const int q = m % PR;
-      const int r = q / RW + tap / 3 - 1, c = q % RW + tap % 3 - 1;
-      if (r < 0 || r >= RH || c < 0 || c >= RW) return -1;
-      return m + (tap / 3 - 1) * RW + tap % 3 - 1;
+    // the region pixel of pixel i of the rectangle at depth d: each frame's
+    // region less d pixels on every side, (RH - 2d) x (RW - 2d) pixels
+    auto pix = [=](int i, int d) -> int {
+      const int rw = RW - 2 * d, pd = (RH - 2 * d) * rw;
+      const int q = i % pd;
+      return (i / pd) * PR + (d + q / rw) * RW + d + q % rw;
     };
-    // a 3x3 ConvBN from `src` to `dst` (channel offset `off` of rows of `ldd`);
-    // `a` its activation; `mask` zeroes the result outside the frame
+    // a 3x3 ConvBN from `src` to `dst` (channel offset `off` of rows of `ldd`,
+    // both at region pixels) over the rectangle at depth d, which reads the
+    // one at depth d - 1: its input rows; `a` its activation; `mask` zeroes
+    // the result outside the frame
     auto conv3x3 = [&](const T* src, int k, const ConvW& cw, float scale, int n, T* dst, int ldd,
-                       int off, int a, bool mask) {
-      conv_gemm<T, Q>(
-          src, k, k, M, same, qbuf, scale, cw.w, n, 9, M, smem, tap3,
-          [=](int m) { return static_cast<int>(!mask || xrow(m) >= 0); },
-          [=](int m, int j, const float* acc, int ok) {
-            store_vec(dst + static_cast<size_t>(m) * ldd + off + j,
+                       int off, int a, bool mask, int d) {
+      const int rh = RH - 2 * d, rw = RW - 2 * d, pd = rh * rw;
+      const int rwi = rw + 2, pdi = (rh + 2) * rwi;
+      conv_gemm<T, Q, true>(
+          src, k, k, gc * pdi, [=](int r) { return pix(r, d - 1); }, qbuf, scale, cw.w, n, 9,
+          gc * pd, smem,
+          [=](int i, int tap) {
+            const int q = i % pd;
+            return (i / pd) * pdi + (q / rw + tap / 3) * rwi + q % rw + tap % 3;
+          },
+          [=](int i) { return static_cast<int>(!mask || xrow(pix(i, d)) >= 0); },
+          [=](int i, int j, const float* acc, int ok) {
+            store_vec(dst + static_cast<size_t>(pix(i, d)) * ldd + off + j,
                       fold_vec<T, Q>(acc, cw, j, a, leaky, ok));
-          });
+          },
+          rank, CL);
     };
 
     if (p.has_lat) {
       const ConvW lat = p.lat;
       const bool has_up = p.has_up;
-      conv_gemm<T, Q>(
+      conv_gemm<T, Q, true>(
           x, Ci, Ci, M, xrow, qbuf, sx(0), lat.w, C, 1, M, smem, [](int m, int) { return m; }, xrow,
           [=](int m, int j, const float* acc, int row) {
             Vec<T> v = fold_vec<T, Q>(acc, lat, j, act, leaky, row >= 0);
@@ -142,19 +192,22 @@ __global__ void __launch_bounds__(kThreads, 2) ssh_kernel(const SshP p) {
               for (int e = 0; e < V; ++e) v.v[e] = Num<T>::add(v.v[e], u.v[e]);
             }
             store_vec(f0 + static_cast<size_t>(m) * C + j, v);
-          });
+          },
+          rank, CL);
     } else {
+      // the input region into f0, zero outside the frame, its rows shared
+      // out between the cluster's blocks
       const int chunks = C / V;
-      for (int idx = threadIdx.x; idx < M * chunks; idx += kThreads) {
+      for (int idx = rank * kThreads + threadIdx.x; idx < M * chunks; idx += CL * kThreads) {
         const int m = idx / chunks, c = (idx % chunks) * V;
         const int row = xrow(m);
         int4 val = make_int4(0, 0, 0, 0);
         if (row >= 0) val = *reinterpret_cast<const int4*>(x + static_cast<size_t>(row) * C + c);
         *reinterpret_cast<int4*>(f0 + static_cast<size_t>(m) * C + c) = val;
       }
-      __syncthreads();
+      sync_parts(CL);
     }
-    if (p.has_merge) conv3x3(f0, C, p.merge, sx(1), C, f, C, 0, act, true);
+    if (p.has_merge) conv3x3(f0, C, p.merge, sx(1), C, f, C, 0, act, true, 1);
 
     const int halo = p.halo, TH = p.TH, TW = p.TW;
     // the tile proper: pixel i of TH x TW x gc -> region pixel, frame pixel
@@ -165,28 +218,39 @@ __global__ void __launch_bounds__(kThreads, 2) ssh_kernel(const SshP p) {
       const int y = y0 + r, xx = x0 + c;
       *row = (y < H && xx < W) ? ((b0 + g) * H + y) * W + xx : -1;
     };
+    // f is complete here: the conv or copy that wrote it ended in the
+    // cluster's barrier
     if (p.emit) {
       T* feat = static_cast<T*>(p.feat);
       const int chunks = C / V;
-      for (int idx = threadIdx.x; idx < gc * TH * TW * chunks; idx += kThreads) {
+      for (int idx = rank * kThreads + threadIdx.x; idx < gc * TH * TW * chunks;
+           idx += CL * kThreads) {
         int m, row;
         central(idx / chunks, &m, &row);
         if (row < 0) continue;
         const int c = (idx % chunks) * V;
-        *reinterpret_cast<int4*>(feat + static_cast<size_t>(row) * C + c) =
-            *reinterpret_cast<const int4*>(f + static_cast<size_t>(m) * C + c);
+        // rows another block of the cluster may have written: through L2
+        const T* src = f + static_cast<size_t>(m) * C + c;
+        store_vec(feat + static_cast<size_t>(row) * C + c, kCl ? load_vec_cg(src) : load_vec(src));
       }
     }
 
-    conv3x3(f, C, p.conv[0], sx(s_ssh), C / 2, cat, C, 0, kRelu, false);             // relu(c3)
-    conv3x3(f, C, p.conv[1], sx(s_ssh + 1), C4, t51, C4, 0, act, true);              // c5_1
-    conv3x3(t51, C4, p.conv[2], sx(s_ssh + 2), C4, cat, C, C / 2, kRelu, false);     // relu(c5)
-    conv3x3(t51, C4, p.conv[3], sx(s_ssh + 3), C4, t72, C4, 0, act, true);           // c7_2
-    conv3x3(t72, C4, p.conv[4], sx(s_ssh + 4), C4, cat, C, C / 2 + C4, kRelu, false);  // relu(c7)
+    // f is exact at depth d0; each conv is computed at the depth of what
+    // reads it: c5_1 one deeper, c7_2 two, the three that feed the heads at
+    // the tile proper (depth halo = d0 + 3)
+    const int d0 = p.has_merge;
+    conv3x3(f, C, p.conv[0], sx(s_ssh), C / 2, cat, C, 0, kRelu, false, halo);  // relu(c3)
+    conv3x3(f, C, p.conv[1], sx(s_ssh + 1), C4, t51, C4, 0, act, true, d0 + 1);   // c5_1
+    conv3x3(t51, C4, p.conv[2], sx(s_ssh + 2), C4, cat, C, C / 2, kRelu, false, halo);  // relu(c5)
+    conv3x3(t51, C4, p.conv[3], sx(s_ssh + 3), C4, t72, C4, 0, act, true, d0 + 2);  // c7_2
+    conv3x3(t72, C4, p.conv[4], sx(s_ssh + 4), C4, cat, C, C / 2 + C4, kRelu, false,
+            halo);  // relu(c7)
 
-    // the three heads over the tile proper, output channel fastest
+    // the three heads over the tile proper, output channel fastest; each
+    // output summed by one thread in k order
     const int n_out = p.hn[0] + p.hn[1] + p.hn[2];
-    for (int idx = threadIdx.x; idx < gc * TH * TW * n_out; idx += kThreads) {
+    for (int idx = rank * kThreads + threadIdx.x; idx < gc * TH * TW * n_out;
+         idx += CL * kThreads) {
       int m, row;
       central(idx / n_out, &m, &row);
       if (row < 0) continue;
@@ -196,33 +260,41 @@ __global__ void __launch_bounds__(kThreads, 2) ssh_kernel(const SshP p) {
       const T* w = static_cast<const T*>(p.hw[hd]);
       const T* src = cat + static_cast<size_t>(m) * C;
       float acc = 0.0f;
-      for (int k = 0; k < C; ++k)
-        acc = fmaf(Num<T>::to_f32(src[k]), Num<T>::to_f32(w[k * n + o]), acc);
+      for (int k = 0; k < C; k += V) {
+        const Vec<T> s = kCl ? load_vec_cg(src + k) : load_vec(src + k);
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          acc = fmaf(Num<T>::to_f32(s.v[e]), Num<T>::to_f32(w[(k + e) * n + o]), acc);
+      }
       static_cast<T*>(p.out[hd])[static_cast<size_t>(row) * n + o] =
           Num<T>::add(Num<T>::from_f32(acc), static_cast<const T*>(p.hb[hd])[o]);
     }
-    __syncthreads();  // the slab is reused by the next work item
+    sync_parts(CL);  // the slab is reused by the next work item
   }
 }
 
+// ssh_kernel in clusters of `cluster` blocks (launch_clusters): with
+// `clusters` and `blocks` non-null it reports what the card holds instead.
 template <typename T, bool Q>
-int launch(const SshP& p, int grid, cudaStream_t stream) {
-  const int smem = static_cast<int>(Tile<OpOf<T, Q>>::kBytes);
-  cudaError_t err = cudaFuncSetAttribute(ssh_kernel<T, Q>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssh_kernel<T, Q><<<grid, kThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+int launch(const SshP& p, int grid, int cluster, cudaStream_t stream, int* clusters = nullptr,
+           int* blocks = nullptr) {
+  constexpr size_t smem = conv_smem_bytes<T, Q, true>();
+  return cluster > 1 ? launch_clusters(ssh_kernel<T, Q, true>, p, grid, cluster, smem, stream,
+                                       clusters, blocks)
+                     : launch_clusters(ssh_kernel<T, Q, false>, p, grid, cluster, smem, stream,
+                                       clusters, blocks);
 }
 
 int ssh(const void* x, const void* up, const void* const* wptrs, const int* head_n,
         void* const* outs, void* scratch, long long scratch_bytes, int B, int H, int W, int Ci,
-        int C, float leaky, int TH, int TW, int G, int grid, int dtype, const float* act_s,
-        void* stream) {
+        int C, float leaky, int TH, int TW, int G, int grid, int cluster, int dtype,
+        const float* act_s, void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
   if (dtype != 0 && dtype != 1) return bad;
   if (H <= 0 || W <= 0 || TH <= 0 || TW <= 0 || G <= 0 || grid <= 0) return bad;
+  // a portable cluster holds at most 8 blocks; the grid is whole clusters
+  if (cluster < 1 || cluster > 8 || grid % cluster) return bad;
   const int vec = dtype == 0 ? 4 : 8;
   // int8 weights are copied 16 channels at a time
   const int align = act_s != nullptr ? 16 : vec;
@@ -252,7 +324,7 @@ int ssh(const void* x, const void* up, const void* const* wptrs, const int* head
   p.scratch = scratch;
   p.act_s = act_s;
   p.B = B, p.H = H, p.W = W, p.Ci = Ci, p.C = C;
-  p.TH = TH, p.TW = TW, p.G = G;
+  p.TH = TH, p.TW = TW, p.G = G, p.CL = cluster;
   p.tiles_y = (H + TH - 1) / TH;
   p.tiles_x = (W + TW - 1) / TW;
   p.halo = p.has_merge ? 4 : 3;
@@ -262,11 +334,13 @@ int ssh(const void* x, const void* up, const void* const* wptrs, const int* head
   p.nwork = ((B + G - 1) / G) * p.tiles_y * p.tiles_x;
   // the int8 plane holds the widest conv input: the lateral's, or C channels
   p.qslab = act_s != nullptr ? static_cast<long long>(G) * p.RH * p.RW * (Ci > C ? Ci : C) : 0;
-  if (scratch_bytes < (p.slab * (dtype == 0 ? 4 : 2) + p.qslab) * grid) return bad;
+  if (scratch_bytes < (p.slab * (dtype == 0 ? 4 : 2) + p.qslab) * (grid / cluster)) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (act_s != nullptr)
-    return dtype == 0 ? launch<float, true>(p, grid, s) : launch<__nv_bfloat16, true>(p, grid, s);
-  return dtype == 0 ? launch<float, false>(p, grid, s) : launch<__nv_bfloat16, false>(p, grid, s);
+    return dtype == 0 ? launch<float, true>(p, grid, cluster, s)
+                      : launch<__nv_bfloat16, true>(p, grid, cluster, s);
+  return dtype == 0 ? launch<float, false>(p, grid, cluster, s)
+                    : launch<__nv_bfloat16, false>(p, grid, cluster, s);
 }
 
 }  // namespace
@@ -276,15 +350,19 @@ int ssh(const void* x, const void* up, const void* const* wptrs, const int* head
 // NHWC contiguous, dtype 0 = float32, 1 = bfloat16. wptrs: (w, inv, shift) of
 // the lateral [Ci, C], the merge [3, 3, C, C] (null triples where absent) and
 // the five SSH convs, then (w [C, n], bias [n]) of the three heads: 27
-// pointers. TH, TW, G and grid are the caller's plan; scratch holds grid
-// slabs. Launches on `stream`; returns a CUDA error code (0 = success).
+// pointers. TH, TW, G, grid and cluster are the caller's plan: grid blocks
+// in clusters of `cluster` (1 to 8, dividing grid), one work item a cluster
+// at a time; scratch holds grid / cluster slabs. Launches on `stream`;
+// returns a CUDA error code (0 = success), cudaErrorInvalidValue for what the
+// kernel does not take, the launch's own error for a cluster the card
+// refuses.
 extern "C" int avcer_fused_ssh(const void* x, const void* up, const void* const* wptrs,
                                const int* head_n, void* const* outs, void* scratch,
                                long long scratch_bytes, int B, int H, int W, int Ci, int C,
-                               float leaky, int TH, int TW, int G, int grid, int dtype,
-                               void* stream) {
+                               float leaky, int TH, int TW, int G, int grid, int cluster,
+                               int dtype, void* stream) {
   return ssh(x, up, wptrs, head_n, outs, scratch, scratch_bytes, B, H, W, Ci, C, leaky, TH, TW, G,
-             grid, dtype, nullptr, stream);
+             grid, cluster, dtype, nullptr, stream);
 }
 
 // The int8 option: as above with the conv weights int8, their inv (the merged
@@ -294,9 +372,27 @@ extern "C" int avcer_fused_ssh(const void* x, const void* up, const void* const*
 extern "C" int avcer_fused_ssh_q(const void* x, const void* up, const void* const* wptrs,
                                  const int* head_n, void* const* outs, void* scratch,
                                  long long scratch_bytes, int B, int H, int W, int Ci, int C,
-                                 float leaky, int TH, int TW, int G, int grid, int dtype,
-                                 const float* act_s, void* stream) {
+                                 float leaky, int TH, int TW, int G, int grid, int cluster,
+                                 int dtype, const float* act_s, void* stream) {
   if (act_s == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return ssh(x, up, wptrs, head_n, outs, scratch, scratch_bytes, B, H, W, Ci, C, leaky, TH, TW, G,
-             grid, dtype, act_s, stream);
+             grid, cluster, dtype, act_s, stream);
+}
+
+// What the card reports for ssh_kernel in clusters of `cluster` blocks
+// (dtype as above; quant 1 for the int8 option): the clusters it can hold at
+// once (cudaOccupancyMaxActiveClusters) and the blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Launches nothing;
+// returns a CUDA error code.
+extern "C" int avcer_fused_ssh_occupancy(int dtype, int quant, int cluster, int* clusters,
+                                         int* blocks) {
+  if ((dtype != 0 && dtype != 1) || cluster < 1 || cluster > 8 || clusters == nullptr ||
+      blocks == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SshP p{};
+  if (quant)
+    return dtype == 0 ? launch<float, true>(p, cluster, cluster, nullptr, clusters, blocks)
+                      : launch<__nv_bfloat16, true>(p, cluster, cluster, nullptr, clusters, blocks);
+  return dtype == 0 ? launch<float, false>(p, cluster, cluster, nullptr, clusters, blocks)
+                    : launch<__nv_bfloat16, false>(p, cluster, cluster, nullptr, clusters, blocks);
 }

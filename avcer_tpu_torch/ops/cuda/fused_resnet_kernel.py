@@ -228,16 +228,17 @@ def fused_chain(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequenc
     return _fused_chain_cuda(x, folded, blocks, act_s)
 
 
-def chain_occupancy(device: torch.device, dtype: torch.dtype, quant: bool,
-                    cluster: int) -> dict[str, int]:
-    """What the card reports for the chain kernel in ``dtype`` (int8 mode if
-    ``quant``) launched in clusters of ``cluster`` blocks: the clusters it
-    holds at once and the blocks an SM. Asked once per configuration, before
-    its first launch; raises where not one cluster fits."""
+def card_occupancy(lib: str, name: str, cache: dict, device: torch.device, dtype: torch.dtype,
+                   quant: bool, cluster: int) -> dict[str, int]:
+    """What the card reports for kernel ``name`` of library ``lib`` in
+    ``dtype`` (int8 mode if ``quant``) launched in clusters of ``cluster``
+    blocks (its C entry ``avcer_<name>_occupancy``): the clusters it holds at
+    once and the blocks an SM. Asked once per configuration and kept in
+    ``cache``; raises where not one cluster fits."""
     key = (str(device), DTYPE_CODE[dtype], int(quant), cluster)
-    occ = fused_chain.occupancy.get(key)
+    occ = cache.get(key)
     if occ is None:
-        fn = _build.library("fused_resnet").avcer_fused_chain_occupancy
+        fn = getattr(_build.library(lib), f"avcer_{name}_occupancy")
         fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
         fn.restype = ctypes.c_int
         clusters, blocks = ctypes.c_int(0), ctypes.c_int(0)
@@ -246,11 +247,19 @@ def chain_occupancy(device: torch.device, dtype: torch.dtype, quant: bool,
                     ctypes.byref(blocks))
         if rc != 0 or clusters.value < 1:
             raise RuntimeError(
-                f"fused_chain: the card holds {clusters.value} clusters of {cluster} blocks "
+                f"{name}: the card holds {clusters.value} clusters of {cluster} blocks "
                 f"(CUDA error {rc})")
         occ = {"clusters": clusters.value, "blocks_per_sm": blocks.value}
-        fused_chain.occupancy[key] = occ
+        cache[key] = occ
     return occ
+
+
+def chain_occupancy(device: torch.device, dtype: torch.dtype, quant: bool,
+                    cluster: int) -> dict[str, int]:
+    """``card_occupancy`` of the chain kernel, kept in ``fused_chain.occupancy``;
+    asked before a configuration's first launch."""
+    return card_occupancy("fused_resnet", "fused_chain", fused_chain.occupancy, device, dtype,
+                          quant, cluster)
 
 
 def _fused_chain_cuda(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: tuple,

@@ -23,16 +23,16 @@ call) or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from avcer_tpu_torch import _build
-from avcer_tpu_torch.ops.cuda.fused_resnet_kernel import (BLOCKS_PER_SM, DTYPE_CODE,
-                                                          REGION_PIXELS, check_cuda_tensor,
-                                                          conv_bn_plain, conv_bn_plain_q,
-                                                          tile_edge)
+from avcer_tpu_torch.ops.cuda.fused_resnet_kernel import (DTYPE_CODE, MAX_CLUSTER,
+                                                          REGION_PIXELS, card_occupancy,
+                                                          check_cuda_tensor, conv_bn_plain,
+                                                          conv_bn_plain_q, tile_edge)
 
 
 def _check_args(conv_folded, head_folded, fpn_lat, fpn_merge, act_s) -> None:
@@ -95,21 +95,65 @@ def fused_ssh_heads_plain(
 
 
 def ssh_plan(b: int, h: int, w: int, c: int, has_merge: bool, itemsize: int,
-             sm_count: int, q_ci: int = 0) -> dict[str, int]:
+             held: Mapping[int, int], q_ci: int = 0,
+             cluster: Optional[int] = None) -> dict[str, int]:
     """Tiling of one call, as ``csrc/fused_ssh.cu`` derives it again from
-    ``th``, ``tw``, ``g`` and ``grid``. ``q_ci``: with the int8 option the
-    input's channels (each thread block then also holds an int8 plane of its
-    widest conv input), else 0."""
+    ``th``, ``tw``, ``g``, ``grid`` and ``cluster``: tile, halo, frames per
+    work item, the cluster size ``C``, the grid and the scratch.
+
+    A cluster of C thread blocks works on one work item at a time. ``held[C]``
+    is how many clusters of C blocks the card holds at once (what
+    ``ssh_occupancy`` reports). C is the size from 1 to ``MAX_CLUSTER`` with
+    the fewest rounds of work items a block, ``ceil(nwork / held[C]) / C``,
+    ties to the smaller C; the grid is ``min(nwork, held[C])`` clusters, and
+    the scratch holds one slab per cluster. ``q_ci``: with the int8 option
+    the input's channels (each slab then also holds an int8 plane of its
+    widest conv input), else 0. ``cluster`` overrides C (the card tests force
+    it).
+
+    ``depths`` and ``rows``: each conv's depth d, and the pixels of a work
+    item it computes, ``g * (rh - 2d) * (rw - 2d)``: the region less d pixels
+    on every side, what the next step reads (``lateral`` is the copy of the
+    input where there is no lateral)."""
     th, tw = tile_edge(h), tile_edge(w)
     halo = 4 if has_merge else 3
     rh, rw = th + 2 * halo, tw + 2 * halo
     g = max(1, min(b, REGION_PIXELS // (rh * rw)))
     nwork = -(-b // g) * -(-h // th) * -(-w // tw)
-    grid = max(1, min(nwork, BLOCKS_PER_SM * sm_count))
+    cl = cluster or min(range(1, MAX_CLUSTER + 1),
+                        key=lambda n: (-(-nwork // held[n]) / n, n))
+    clusters = max(1, min(nwork, held[cl]))
     slab = g * rh * rw * (c * (3 if has_merge else 2) + c // 2)
     qslab = g * rh * rw * max(q_ci, c) if q_ci else 0
-    return {"th": th, "tw": tw, "halo": halo, "g": g, "nwork": nwork, "grid": grid,
-            "scratch_bytes": (slab * itemsize + qslab) * grid}
+    d0 = halo - 3  # where f is exact: after the merge, or the lateral's own output
+    depths = {"lateral": 0, **({"merge": 1} if has_merge else {}), "c3": halo,
+              "c5_1": d0 + 1, "c5": halo, "c7_2": d0 + 2, "c7": halo}
+    return {"th": th, "tw": tw, "halo": halo, "g": g, "nwork": nwork, "cluster": cl,
+            "grid": clusters * cl, "scratch_bytes": (slab * itemsize + qslab) * clusters,
+            "depths": depths,
+            "rows": {k: g * (rh - 2 * d) * (rw - 2 * d) for k, d in depths.items()}}
+
+
+def ssh_occupancy(device: torch.device, dtype: torch.dtype, quant: bool,
+                  cluster: int) -> dict[str, int]:
+    """``card_occupancy`` of this kernel (int8 option if ``quant``), kept in
+    ``fused_ssh_heads.occupancy``."""
+    return card_occupancy("fused_ssh", "fused_ssh", fused_ssh_heads.occupancy, device, dtype,
+                          quant, cluster)
+
+
+def card_plan(x: torch.Tensor, c: int, has_merge: bool, quant: bool,
+              cluster: Optional[int] = None) -> dict[str, int]:
+    """``ssh_plan`` for a call on ``x``'s card, with what the card holds of
+    each cluster size, and the clusters it holds of the chosen one
+    (``max_active_clusters``)."""
+    b, h, w, ci = x.shape
+    sizes = (cluster,) if cluster else range(1, MAX_CLUSTER + 1)
+    held = {n: ssh_occupancy(x.device, x.dtype, quant, n)["clusters"] for n in sizes}
+    plan = ssh_plan(b, h, w, c, has_merge, x.element_size(), held, q_ci=ci if quant else 0,
+                    cluster=cluster)
+    plan["max_active_clusters"] = held[plan["cluster"]]
+    return plan
 
 
 def fused_ssh_heads(
@@ -121,13 +165,29 @@ def fused_ssh_heads(
     """One FPN scale: optional lateral + top-down add + merge, the SSH
     module, the three heads; with ``act_s`` the convs in int8. ``band`` is the
     TPU kernel's VMEM tiling and is ignored by the CUDA kernel.
-    ``fused_ssh_heads.launches`` counts kernel launches, and
-    ``fused_ssh_heads.launches_by_leaky`` the same launches by their slope."""
+    ``fused_ssh_heads.launches`` counts kernel launches,
+    ``fused_ssh_heads.launches_by_leaky`` the same launches by their slope,
+    and ``fused_ssh_heads.occupancy`` holds what the card reported for each
+    launch configuration (see ``ssh_occupancy``)."""
     if x.device.type == "cpu":
         return fused_ssh_heads_plain(x, conv_folded, head_folded, leaky, fpn_lat, fpn_merge,
                                      up, emit_feature, band, act_s)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ssh_heads: unsupported device {x.device}")
+    return _fused_ssh_cuda(x, conv_folded, head_folded, leaky, fpn_lat, fpn_merge, up,
+                           emit_feature, act_s)
+
+
+def _fused_ssh_cuda(x: torch.Tensor, conv_folded: Sequence[torch.Tensor],
+                    head_folded: Sequence[torch.Tensor], leaky: float = 0.0,
+                    fpn_lat: Optional[Sequence[torch.Tensor]] = None,
+                    fpn_merge: Optional[Sequence[torch.Tensor]] = None,
+                    up: Optional[torch.Tensor] = None, emit_feature: bool = False, act_s=None,
+                    cluster: Optional[int] = None) -> tuple[torch.Tensor, ...]:
+    """The launch behind ``fused_ssh_heads`` for a CUDA tensor; ``cluster``
+    forces the cluster size instead of the plan's (the card tests compare
+    sizes with it). A cluster the card refuses raises: nothing retries with
+    another size."""
     _check_args(conv_folded, head_folded, fpn_lat, fpn_merge, act_s)
     if x.dim() != 4 or x.dtype not in DTYPE_CODE or not x.is_contiguous():
         raise ValueError(
@@ -174,9 +234,7 @@ def fused_ssh_heads(
         outs.append(torch.empty((b, h, w, c), dtype=x.dtype, device=x.device))
     if b == 0:
         return tuple(outs)
-    props = torch.cuda.get_device_properties(x.device)
-    plan = ssh_plan(b, h, w, c, fpn_merge is not None, x.element_size(),
-                    props.multi_processor_count, q_ci=ci if quant else 0)
+    plan = card_plan(x, c, fpn_merge is not None, quant, cluster)
     scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=x.device)
     ptrs = ([t.data_ptr() for t in fpn_lat] if fpn_lat is not None else [None] * 3)
     ptrs += ([t.data_ptr() for t in fpn_merge] if fpn_merge is not None else [None] * 3)
@@ -185,7 +243,7 @@ def fused_ssh_heads(
     lib = _build.library("fused_ssh")
     fn = lib.avcer_fused_ssh_q if quant else lib.avcer_fused_ssh
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * 5
+                   + [ctypes.c_float] + [ctypes.c_int] * 6
                    + [ctypes.c_void_p] * (2 if quant else 1))
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
@@ -194,7 +252,8 @@ def fused_ssh_heads(
                 (ctypes.c_void_p * 27)(*ptrs), (ctypes.c_int * 3)(*head_n),
                 (ctypes.c_void_p * 4)(*out_ptrs), scratch.data_ptr(), plan["scratch_bytes"],
                 b, h, w, ci, c, float(leaky), plan["th"], plan["tw"], plan["g"], plan["grid"],
-                DTYPE_CODE[x.dtype], *((act_s.data_ptr(),) if quant else ()), stream)
+                plan["cluster"], DTYPE_CODE[x.dtype], *((act_s.data_ptr(),) if quant else ()),
+                stream)
     if rc != 0:
         raise RuntimeError(f"fused_ssh_heads kernel launch failed: CUDA error {rc}")
     fused_ssh_heads.launches += 1
@@ -205,3 +264,4 @@ def fused_ssh_heads(
 
 fused_ssh_heads.launches = 0
 fused_ssh_heads.launches_by_leaky = {}
+fused_ssh_heads.occupancy = {}

@@ -28,7 +28,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    bound computed from the inputs; fused_chain at every call shape of the r50
    main paths, each with its plan (work items, cluster size C, grid) and the
    clusters the card holds at once, and where C > 1 held bit for bit against
-   the same call at C = 1 (and timed there);
+   the same call at C = 1 (and timed there); fused_ssh_heads likewise at each
+   of its calls (the r50 detector's scales 2 and 3 in clusters of at least
+   128 blocks in all);
 5. reference: each model's output on the card (bf16, kernels), unfused and
    fused, exact and int8, against the same seeded weights (and the same
    activation scales) in f32 on the CPU (plain versions), on a small input;
@@ -523,21 +525,21 @@ def chain_plan_of(x: torch.Tensor, folded, blocks, quant: bool) -> dict:
             "max_active_clusters": occ["clusters"], "blocks_per_sm": occ["blocks_per_sm"]}
 
 
-def hold_cluster(name: str, case: str, x: torch.Tensor, folded, blocks, act_s, plan: dict) -> dict:
-    """K3 at the plan's C > 1 against the same call at C = 1, bit for bit
-    (f32 on the first 4 frames, at their own plan's C, and the dtype of ``x``
-    at the full batch), and the time of both; raises if they differ."""
-    launch = fused_resnet_kernel._fused_chain_cuda
-    wide = launch(x, folded[x.dtype], blocks, act_s)
-    one = launch(x, folded[x.dtype], blocks, act_s, cluster=1)
-    x32 = x[:4].float()
-    same32 = torch.equal(launch(x32, folded[torch.float32], blocks, act_s),
-                         launch(x32, folded[torch.float32], blocks, act_s, cluster=1))
-    same = torch.equal(wide, one)
-    one_ms = median_ms(lambda: launch(x, folded[x.dtype], blocks, act_s, cluster=1))
-    log(f"  {name} {case}: C = {plan['cluster']} equals C = 1 bit for bit: {same} (f32, first "
-        f"4 frames: {same32}); C = 1 takes {one_ms:.3f} ms (median of 50)")
-    if not (same and same32):
+def hold_cluster(name: str, case: str, x: torch.Tensor, run, plan: dict) -> dict:
+    """A fused kernel at the plan's C > 1 against the same call at C = 1, bit
+    for bit (f32 on the first 4 frames, at their own plan's C, and the dtype
+    of ``x`` at the full batch), and the time of both; raises if they differ.
+    ``run(a, dtype, cluster)`` launches the kernel through its private launch
+    path (``cluster`` None: the plan's C) and returns a tuple of tensors."""
+    def same(a, dt):
+        return all(torch.equal(g, o) for g, o in zip(run(a, dt, None), run(a, dt, 1)))
+
+    wide = same(x, x.dtype)
+    wide32 = same(x[:4].float(), torch.float32)
+    one_ms = median_ms(lambda: run(x, x.dtype, 1))
+    log(f"  {name} {case}: C = {plan['cluster']} equals C = 1 bit for bit: {wide} (f32, first "
+        f"4 frames: {wide32}); C = 1 takes {one_ms:.3f} ms (median of 50)")
+    if not (wide and wide32):
         raise AssertionError(f"{name} {case}: C = {plan['cluster']} differs from C = 1")
     return {"c1_ms": one_ms}
 
@@ -568,6 +570,10 @@ def kernels_fused_chain(card: str, detector, emotion, quant: bool = False) -> di
         def run_plain(a, dt):
             return run(a, dt, fused_resnet_kernel.fused_chain_plain)
 
+        def launch(a, dt, cluster):
+            w, act_s = folded[dt]
+            return (fused_resnet_kernel._fused_chain_cuda(a, w, blocks, act_s, cluster=cluster),)
+
         plan = chain_plan_of(x, folded[torch.bfloat16][0], blocks, quant)
         log(f"  {case} {kind}: {plan['nwork']} work items, C = {plan['cluster']}, grid "
             f"{plan['grid']}; the card holds {plan['max_active_clusters']} such clusters at "
@@ -584,8 +590,7 @@ def kernels_fused_chain(card: str, detector, emotion, quant: bool = False) -> di
                               runs=10 if quant else plain_runs)
             lib_ms = median_ms(lambda: section(x_cl))
             if plan["cluster"] > 1:
-                plan.update(hold_cluster(name, case, x, {dt: f[0] for dt, f in folded.items()},
-                                         blocks, folded[torch.bfloat16][1], plan))
+                plan.update(hold_cluster(name, case, x, launch, plan))
         b_ms, b_by = bound_ms(*chain_work(x, folded[torch.bfloat16][0], blocks, out), kind)
         log(f"  {case} {kind}: kernel {ms:.3f} ms, plain {plain:.3f} ms, unfused "
             f"{'int8' if quant else 'cuDNN'} section {lib_ms:.3f} ms (relative L2 to it "
@@ -656,6 +661,9 @@ def kernels_fused_ssh(card: str, detector, quant: bool = False) -> dict:
         def run(a, dt):
             return fused_ssh_kernel.fused_ssh_heads(a, **args(dt, a.shape[0]))
 
+        def launch(a, dt, cluster):
+            return fused_ssh_kernel._fused_ssh_cuda(a, **args(dt, a.shape[0]), cluster=cluster)
+
         def run_plain(a, dt):
             return fused_ssh_kernel.fused_ssh_heads_plain(a, **args(dt, a.shape[0]))
 
@@ -673,6 +681,13 @@ def kernels_fused_ssh(card: str, detector, quant: bool = False) -> dict:
         label = "scale 1 after the unfused FPN" if alone else f"scale {i + 1} with the FPN"
         case = f"{label} {list(x.shape)}" + (" + up" if up is not None else "") + (
             " -> feature" if emit else "")
+        a = args(torch.bfloat16)
+        plan = fused_ssh_kernel.card_plan(x, c, a["fpn_merge"] is not None, quant)
+        plan = {k: plan[k] for k in ("nwork", "cluster", "grid", "max_active_clusters")}
+        log(f"  {case} {kind}: {plan['nwork']} work items, C = {plan['cluster']}, grid "
+            f"{plan['grid']}; the card holds {plan['max_active_clusters']} such clusters at once")
+        if not mobile and not alone and i > 0 and plan["grid"] < 128:
+            raise AssertionError(f"{name} {case}: a grid of {plan['grid']} blocks")
         # the sums run over up to 9 x 256 terms after a 2048-term lateral
         worst = max(worst, check_fused(name, run, run_plain, x,
                                        INT8_TOL if quant else dict(atol=2e-5, rtol=1e-4), case))
@@ -685,7 +700,8 @@ def kernels_fused_ssh(card: str, detector, quant: bool = False) -> dict:
             ms = median_ms(lambda: run(x, torch.bfloat16))
             plain = median_ms(lambda: run_plain(x, torch.bfloat16), runs=10 if quant else 50)
             lib_ms = median_ms(lambda: library(x_cl, up_cl))
-        a = args(torch.bfloat16)
+            if plan["cluster"] > 1:
+                plan.update(hold_cluster(name, case, x, launch, plan))
         b_ms, b_by = bound_ms(*ssh_work(x, a["conv_folded"], a["head_folded"], a["fpn_lat"],
                                         a["fpn_merge"], up, outs), kind)
         log(f"  {case} {kind}: kernel {ms:.3f} ms, plain {plain:.3f} ms, unfused "
@@ -696,7 +712,7 @@ def kernels_fused_ssh(card: str, detector, quant: bool = False) -> dict:
         if emit:
             feat_prev = outs[3]
         rows.append({"case": label, "shape": list(x.shape), "ms": ms, "plain_ms": plain,
-                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
+                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by, **plan})
     main = rows[2]  # scale 1 with the FPN: the largest of the three calls
     return entry("fused_ssh_heads" + ("_c64" if mobile else "") + ("_int8" if quant else ""),
                  "fused_ssh.cu",

@@ -172,6 +172,10 @@ SSH_CASES = [
     ((128, 23, 40, 128), 64, 0.1, True, True, True, True),
     ((8, 32, 56, 64), 64, 0.1, True, True, True, False),
     ((8, 8, 14, 256), 64, 0.1, True, False, False, True),
+    # the r50 detector's 256 channels: the lateral and the merge (N = 256) and
+    # c3 (N = 128) on the bf16 product's 128 x 128 tiles, the C/4 convs on
+    # its 128 x 64 tiles
+    ((2, 12, 20, 512), 256, 0.0, True, True, True, True),
 ]
 
 
@@ -355,6 +359,74 @@ def test_fused_ssh_heads_kernel_int8(cuda_device, shape, c, leaky, lat, merge, h
     assert len(got) == len(want) == 3 + emit
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), atol=2 ** -5, rtol=2 ** -5)
+
+
+# Few work items, as the r50 detector's scales 2 and 3 give them: with and
+# without the lateral, the merge, up and the emitted feature; C = 256 on the
+# bf16 product's 128 x 128 tiles
+SSH_CLUSTER_CASES = [((3, 12, 20, 128), 64, True, False, True),
+                     ((2, 23, 40, 64), 64, True, True, True),
+                     ((2, 12, 9, 64), 64, False, False, False),
+                     ((2, 12, 20, 512), 256, True, True, True)]
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8 f32", "int8 bf16"])
+@pytest.mark.parametrize("shape,c,lat,merge,emit", SSH_CLUSTER_CASES)
+@pytest.mark.parametrize("cluster", [2, 3, 4])
+def test_fused_ssh_cluster_equals_one_block(cuda_device, shape, c, lat, merge, emit, cluster,
+                                            mode):
+    """A work item of fused_ssh_heads shared by a cluster of C thread blocks
+    gives the result of one block bit for bit: every conv output and every
+    head output is summed by the same instructions in the same order,
+    whichever block computes it. C is forced through the wrapper's private
+    launch path."""
+    rng = np.random.default_rng(13)
+    dtype = torch.bfloat16 if mode.endswith("bf16") else torch.float32
+    x = torch.from_numpy(np.maximum(rng.normal(size=shape), 0).astype(np.float32))
+    x = x.to(cuda_device, dtype)
+    up = (torch.from_numpy(rng.normal(size=shape[:3] + (c,)).astype(np.float32))
+          .to(cuda_device, dtype) if merge else None)
+    convs, heads, fl, fm = ssh_weights(rng, shape[-1], c, lat, merge)
+    act_s = None
+    if mode.startswith("int8"):
+        scales = []
+        if lat:
+            fl, sx = quantize_folded(rng, fl)
+            scales.append(sx)
+        if merge:
+            fm, sx = quantize_folded(rng, fm)
+            scales.append(sx)
+        convs, sx = quantize_folded(rng, convs)
+        act_s = torch.from_numpy(np.concatenate(scales + [sx])).to(cuda_device)
+        convs, fl, fm = (quant_tensors(t, cuda_device) for t in (convs, fl, fm))
+    else:
+        convs, fl, fm = (tensors(t, dtype, cuda_device) for t in (convs, fl, fm))
+    heads = tensors(heads, dtype, cuda_device)
+    kw = dict(leaky=0.0, fpn_lat=fl, fpn_merge=fm, up=up, emit_feature=emit, act_s=act_s)
+    launch = fused_ssh_kernel._fused_ssh_cuda
+    one = launch(x, convs, heads, cluster=1, **kw)
+    before = fused_ssh_kernel.fused_ssh_heads.launches
+    got = launch(x, convs, heads, cluster=cluster, **kw)
+    torch.cuda.synchronize()
+    assert fused_ssh_kernel.fused_ssh_heads.launches == before + 1
+    assert len(got) == len(one) == 3 + emit
+    assert all(torch.equal(g, o) for g, o in zip(got, one))
+    # and the plan's own C, which the public wrapper launches
+    assert all(torch.equal(g, o) for g, o in zip(
+        fused_ssh_kernel.fused_ssh_heads(x, convs, heads, **kw), one))
+
+
+def test_fused_ssh_refused_cluster_raises(cuda_device):
+    """A cluster size the kernel or the card refuses raises; nothing retries
+    at another size, on the plain version or on the CPU."""
+    rng = np.random.default_rng(14)
+    x = torch.zeros((2, 12, 20, 64), device=cuda_device)
+    convs, heads, _, _ = (tensors(t, device=cuda_device)
+                          for t in ssh_weights(rng, 64, 64, False, False))
+    before = fused_ssh_kernel.fused_ssh_heads.launches
+    with pytest.raises(RuntimeError):
+        fused_ssh_kernel._fused_ssh_cuda(x, convs, heads, cluster=16)
+    assert fused_ssh_kernel.fused_ssh_heads.launches == before
 
 
 # the three cases of the JAX package's test of its flat kernel, and two more:

@@ -282,9 +282,9 @@ def test_chain_plan_geometry():
     # five work items on a card of 264 resident blocks: clusters of four
     p = frk.chain_plan(5, 55, 55, 512, 128, ("s2pre", "id", "id"), 4, 132)
     assert (p["ho"], p["wo"], p["th"], p["g"], p["nwork"], p["grid"]) == (28, 28, 28, 1, 5, 20)
-    s = fsk.ssh_plan(32, 12, 20, 256, False, 2, 132)
+    s = fsk.ssh_plan(32, 12, 20, 256, False, 2, HELD["measured"])
     assert (s["th"], s["tw"], s["halo"], s["nwork"]) == (12, 20, 3, 32)
-    s = fsk.ssh_plan(32, 45, 80, 256, True, 2, 132)
+    s = fsk.ssh_plan(32, 45, 80, 256, True, 2, HELD["measured"])
     assert (s["th"], s["tw"], s["halo"], s["nwork"]) == (23, 20, 4, 32 * 2 * 4)
 
 
@@ -340,6 +340,81 @@ def test_chain_plan_forced_cluster():
         assert p["cluster"] == c and p["grid"] == p["nwork"] * c and p["nwork"] == 4
     p = frk.chain_plan(32, 90, 160, 64, 64, ("ds", "id", "id"), 2, 132, cluster=2)
     assert (p["grid"], p["scratch_bytes"] % 132) == (264, 0)
+
+
+# What the card holds of the K4 kernel, clusters of C blocks at once: two
+# blocks an SM on 132 SMs, with the cluster counts K3 measured at 112 KB a
+# block (62 of 4, 79 of 3), and a card that holds more of them
+HELD = {"measured": {1: 264, 2: 132, 3: 79, 4: 62}, "roomier": {1: 264, 2: 132, 3: 88, 4: 66}}
+
+# (input shape, C, with the merge, int8, expected (C, grid) for each HELD):
+# the nine fused_ssh_heads calls of the main paths: the r50 detector's three
+# scales at its detect batch of 32, bf16 and int8, and the mobilenet0.25
+# detector's at C = 64, batch 128, int8
+MAIN_PATH_SSH = [
+    ((32, 12, 20, 2048), 256, False, False, {"measured": (4, 128), "roomier": (4, 128)}),
+    ((32, 23, 40, 1024), 256, True, False, {"measured": (3, 192), "roomier": (4, 256)}),
+    ((32, 45, 80, 512), 256, True, False, {"measured": (1, 256), "roomier": (1, 256)}),
+    ((32, 12, 20, 2048), 256, False, True, {"measured": (4, 128), "roomier": (4, 128)}),
+    ((32, 23, 40, 1024), 256, True, True, {"measured": (3, 192), "roomier": (4, 256)}),
+    ((32, 45, 80, 512), 256, True, True, {"measured": (1, 256), "roomier": (1, 256)}),
+    ((128, 12, 20, 256), 64, False, True, {"measured": (2, 256), "roomier": (2, 256)}),
+    ((128, 23, 40, 128), 64, True, True, {"measured": (1, 256), "roomier": (1, 256)}),
+    ((128, 45, 80, 64), 64, True, True, {"measured": (1, 264), "roomier": (1, 264)}),
+]
+
+
+@pytest.mark.parametrize("held", sorted(HELD))
+@pytest.mark.parametrize("shape,c,merge,quant,want", MAIN_PATH_SSH)
+def test_ssh_plan_clusters(shape, c, merge, quant, want, held):
+    """K4's cluster size is the C of 1 to 4 with the fewest rounds of work
+    items a block, ceil(nwork / held[C]) / C, ties to the smaller C: scale 1
+    of the r50 detector keeps one block a work item, scales 2 and 3 fill the
+    card with at least 128 blocks in one round. The grid is whole clusters,
+    at most what the card holds; the scratch holds one slab per cluster."""
+    b, h, w, ci = shape
+    p = fsk.ssh_plan(b, h, w, c, merge, 2, HELD[held], q_ci=ci if quant else 0)
+    assert (p["cluster"], p["grid"]) == want[held]
+    clusters = p["grid"] // p["cluster"]
+    assert clusters == min(p["nwork"], HELD[held][p["cluster"]])
+    assert -(-p["nwork"] // clusters) == 1 or p["cluster"] == 1
+    rh, rw = p["th"] + 2 * p["halo"], p["tw"] + 2 * p["halo"]
+    slab = p["g"] * rh * rw * (c * (3 if merge else 2) + c // 2) * 2
+    qslab = p["g"] * rh * rw * max(ci, c) if quant else 0
+    assert p["scratch_bytes"] == (slab + qslab) * clusters
+    one = fsk.ssh_plan(b, h, w, c, merge, 2, HELD[held], q_ci=ci if quant else 0, cluster=1)
+    assert one["cluster"] == 1 and p["scratch_bytes"] <= one["scratch_bytes"]
+    # the tiling does not depend on C
+    assert all(p[k] == one[k] for k in ("th", "tw", "halo", "g", "nwork"))
+
+
+@pytest.mark.parametrize("merge", [False, True])
+def test_ssh_plan_depths(merge):
+    """Each conv of K4 covers only what the next step reads: the band shapes
+    of the TPU kernel (avcer_tpu/ops/pallas/fused_ssh_kernel.py ``_kernel``:
+    with n = 4 (merge) or 3 halo rows, the input band th + 2n, the merge's
+    th + 6, c5_1 th + 4, c7_2 th + 2, c3, c5 and c7 th), here in both
+    directions."""
+    p = fsk.ssh_plan(32, 45, 80, 256, merge, 2, HELD["measured"])
+    th, tw, n = p["th"], p["tw"], p["halo"]
+    assert n == (4 if merge else 3)
+    bands = {"lateral": th + 2 * n, "merge": th + 6, "c5_1": th + 4, "c7_2": th + 2,
+             "c3": th, "c5": th, "c7": th}
+    if not merge:
+        del bands["merge"]
+    assert set(p["depths"]) == set(bands)
+    for conv, rows in bands.items():
+        d = p["depths"][conv]
+        assert th + 2 * (n - d) == rows, conv
+        assert p["rows"][conv] == p["g"] * rows * (tw + 2 * (n - d)), conv
+    # the multiply-adds of a call of the r50 detector's scale 1: 283 G over
+    # whole regions, 216 G trimmed
+    macs = {"lateral": 512 * 256, "merge": 9 * 256 * 256, "c3": 9 * 256 * 128,
+            "c5_1": 9 * 256 * 64, "c5": 9 * 64 * 64, "c7_2": 9 * 64 * 64, "c7": 9 * 64 * 64}
+    if merge:
+        trimmed = sum(p["rows"][k] * macs[k] for k in bands) * p["nwork"]
+        whole = p["rows"]["lateral"] * sum(macs.values()) * p["nwork"]
+        assert (round(whole / 1e9), round(trimmed / 1e9)) == (283, 216)
 
 
 def test_cli_fused_sets_all_seven_switches():
