@@ -1,9 +1,13 @@
 """Times ``fused_chain`` (K3) at every call the r50 main paths make, in bf16
 and in the int8 mode, or with ``--kernel ssh`` ``fused_ssh_heads`` (K4) at the
-nine calls of the main paths, on one NVIDIA GPU:
+nine calls of the main paths, with ``--kernel flat`` ``fused_chain_flat`` (K5)
+beside ``fused_chain`` at the seven stride-1 chains of the main paths (bf16)
+and the three small f32 cases of the JAX package's test of its flat kernel,
+or with ``--kernel nms`` ``nms_mask`` (K1) at the main paths' detect batches,
+on one NVIDIA GPU:
 
-    python3 avcer_tpu_torch/bench_chain.py [--kernel chain|ssh] [--root DIR] [--label NAME]
-        [--out FILE] [--sweep]
+    python3 avcer_tpu_torch/bench_chain.py [--kernel chain|ssh|flat|nms] [--root DIR]
+        [--label NAME] [--out FILE] [--sweep]
 
 ``--root`` takes ``avcer_tpu_torch`` from another checkout (an unpacked
 parent commit), so that two versions of a kernel are timed by the same
@@ -14,10 +18,14 @@ time of a call does not depend on their values. Each time is the median of
 written to ``--out``): the card's name and power limit, and per call its
 shape, the plan's work items, cluster size and grid, and what the card
 reports it holds of that launch (clusters at once, blocks an SM), where the
-version has them, and ms. K4's calls also carry the SHA-256 of their outputs
-from the seeded inputs: two versions that compute alike give equal hashes.
-``--sweep`` also times every call at each cluster size C = 1 to 4, forced
-through the wrapper's private launch path.
+version has them, and ms. K4's, K5's and K1's calls also carry the SHA-256
+of their outputs from the seeded inputs: two versions that compute alike give
+equal hashes (K5's must equal K3's, ``same_as_chain``). K1's calls also carry
+``device_ms``, the kernel's own time in a ``torch.profiler`` trace of 50
+calls, beside ``ms`` a call (host work of the wrapper included). ``--sweep``
+also times every call at each cluster size C = 1 to 4, forced through the
+wrapper's private launch path (K5's also at every band height of at most
+32 rows).
 """
 
 from __future__ import annotations
@@ -61,11 +69,24 @@ SSH_CALLS = [
     ("mobilenet scale 1", (128, 45, 80, 64), 64, True, 0.1, ("int8",)),
 ]
 
-KEYS = ("nwork", "cluster", "grid", "max_active_clusters", "blocks_per_sm")
+#: the stride-1 chains of CALLS (K5's shapes) and the three cases of the JAX
+#: package's test of its flat kernel, f32: (label, shape, cout, planes, kinds)
+FLAT_CALLS = [c for c in CALLS if set(c[4]) <= {"ds", "id"}]
+FLAT_F32 = [("jax test case 1", (2, 13, 17, 64), 64, 24, ("ds", "id", "id")),
+            ("jax test case 2", (1, 37, 29, 128), 128, 24, ("id", "id")),
+            ("jax test case 3", (1, 24, 16, 64), 64, 24, ("ds",))]
+#: K1: (label, detect batch, candidates a frame)
+NMS_CALLS = [("r50 detect batch", 32, 64), ("mobilenet detect batch", 128, 64),
+             ("K = 1000", 2, 1000)]
+
+KEYS = ("nwork", "cluster", "grid", "max_active_clusters", "blocks_per_sm", "th")
 
 
-def weights(torch, gen, cin: int, cout: int, planes: int, kinds, quant: bool):
-    """Flat (w, inv, shift) per conv (int8: (wq, mult, shift)) and act_s."""
+def weights(torch, gen, cin: int, cout: int, planes: int, kinds, quant: bool,
+            dtype=None):
+    """Flat (w, inv, shift) per conv (int8: (wq, mult, shift)) and act_s;
+    exact weights in ``dtype`` (default bf16)."""
+    dtype = dtype or torch.bfloat16
     dev = "cuda"
     folded, scales = [], []
 
@@ -77,10 +98,10 @@ def weights(torch, gen, cin: int, cout: int, planes: int, kinds, quant: bool):
             scales.append(0.05)
         else:
             w = (torch.randn(shape, generator=gen, device=dev) / (ci * (9 if len(shape) == 4 else 1))
-                 ** 0.5).bfloat16()
-            mult = (torch.rand((1, co), generator=gen, device=dev) + 0.5).bfloat16()
+                 ** 0.5).to(dtype)
+            mult = (torch.rand((1, co), generator=gen, device=dev) + 0.5).to(dtype)
         shift = torch.randn((1, co), generator=gen, device=dev) * 0.1
-        folded.extend([w, mult, shift if quant else shift.bfloat16()])
+        folded.extend([w, mult, shift if quant else shift.to(dtype)])
 
     for kind in kinds:
         conv((cin, planes))
@@ -148,6 +169,27 @@ def median_ms(torch, fn, runs: int = 50, warmup: int = 5) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return (times[runs // 2 - 1] + times[runs // 2]) / 2
+
+
+def device_ms(torch, fn, path: str, runs: int = 50) -> float:
+    """The kernels' own time a call: their durations in a ``torch.profiler``
+    trace of ``runs`` calls (after 5 warm-ups), summed, over ``runs``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("bench_chain: the profiler's trace holds no device kernel")
+    return sum(float(e["dur"]) for e in kernels) / runs * 1e-3
 
 
 def show(label: str, row: dict) -> None:
@@ -246,18 +288,98 @@ def bench_ssh(torch, args, sms: int, gen) -> list[dict]:
     return rows
 
 
+def bench_flat(torch, args, sms: int, gen) -> list[dict]:
+    from avcer_tpu_torch.ops.cuda import fused_resnet_kernel as frk
+
+    rows = []
+    for label, shape, cout, planes, kinds in FLAT_CALLS + FLAT_F32:
+        dtype = torch.float32 if label.startswith("jax") else torch.bfloat16
+        x = torch.randn(shape, generator=gen, device="cuda").relu().to(dtype)
+        folded, _ = weights(torch, gen, shape[-1], cout, planes, kinds, False, dtype)
+
+        def call(**force):
+            if force:
+                return frk._fused_chain_flat_cuda(x, folded, kinds, **force)
+            return frk.fused_chain_flat(x, folded, kinds)
+
+        out = call()
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"bench_chain: {label} gave non-finite values")
+        sha = digest(torch, [out])
+        row = {"call": label, "shape": list(shape), "kinds": list(kinds),
+               "mode": "f32" if dtype == torch.float32 else "bf16", "ms": median_ms(torch, call),
+               "sha256": sha,
+               "same_as_chain": sha == digest(torch, [frk.fused_chain(x, folded, kinds)]),
+               "chain_ms": median_ms(torch, lambda: frk.fused_chain(x, folded, kinds))}
+        if hasattr(frk, "flat_card_plan"):  # the plan from what the card holds
+            plan = frk.flat_card_plan(x, folded, kinds)
+            row.update({k: plan[k] for k in KEYS if k in plan})
+        rows.append(row)
+        show(args.label, row)
+        print(f"  fused_chain {row['chain_ms']:.3f} ms; equal to it: {row['same_as_chain']}",
+              flush=True)
+        if args.sweep and hasattr(frk, "flat_card_plan"):
+            row["sweep"] = {}
+            # every band height of at most 32 rows down to 4 x 264 bands a call
+            for th in frk.band_heights(shape[1], 32):
+                if shape[0] * -(-shape[1] // th) > 4 * 264:
+                    continue
+                for c in range(1, frk.MAX_CLUSTER + 1):
+                    ms = median_ms(torch, lambda: call(cluster=c, th=th), runs=20, warmup=2)
+                    same = digest(torch, [call(cluster=c, th=th)]) == sha
+                    row["sweep"][f"th {th} C {c}"] = {"ms": ms, "same": same}
+                    print(f"  th {th}, C = {c}: {ms:.3f} ms (outputs equal to the plan's: "
+                          f"{same})", flush=True)
+    return rows
+
+
+def bench_nms(torch, args, sms: int, gen) -> list[dict]:
+    import numpy as np
+    from avcer_tpu_torch.ops.cuda import nms_kernel
+
+    rows = []
+    for label, b, k in NMS_CALLS:
+        # boxes as chip_smoke.py's nms_case makes them (seeded numpy)
+        rng = np.random.default_rng(k)
+        cx, cy = (rng.uniform(0, 200, (b, k)).astype(np.float32) for _ in range(2))
+        w, h = (rng.uniform(5, 80, (b, k)).astype(np.float32) for _ in range(2))
+        boxes = torch.from_numpy(np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
+                                          axis=-1)).cuda()
+        valid = torch.from_numpy(-np.sort(-rng.random((b, k)).astype(np.float32), axis=1)
+                                 > 0.3).cuda()
+
+        def call():
+            return nms_kernel.nms_mask(boxes, valid, 0.4)
+
+        keep = call()
+        plain = nms_kernel.nms_mask_plain(boxes, valid, 0.4)
+        row = {"call": label, "shape": [b, k, 4], "mode": "f32", "ms": median_ms(torch, call),
+               "device_ms": device_ms(torch, call, os.path.join(
+                   args.trace_dir, f"nms_{b}_{k}_{args.label or 'tree'}.json")),
+               "sha256": digest(torch, [keep]), "same_as_plain": bool(torch.equal(keep, plain))}
+        rows.append(row)
+        show(args.label, row)
+        print(f"  device time {row['device_ms']:.4f} ms; equal to plain: {row['same_as_plain']}",
+              flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("chain", "ssh"), default="chain",
-                    help="chain: K3 fused_chain (default); ssh: K4 fused_ssh_heads")
+    ap.add_argument("--kernel", choices=("chain", "ssh", "flat", "nms"), default="chain",
+                    help="chain: K3 fused_chain (default); ssh: K4 fused_ssh_heads; flat: K5 "
+                         "fused_chain_flat beside K3; nms: K1 nms_mask")
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     help="checkout whose avcer_tpu_torch is timed (default: this one)")
     ap.add_argument("--label", default="", help="name of the version in the output")
     ap.add_argument("--out", default="", help="also write the JSON object here")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time every call at each cluster size C = 1 to 4, forced through "
-                         "the wrapper's private launch path")
+                    help="also time every call at each cluster size C = 1 to 4 (with --kernel "
+                         "flat at every band height too), forced through the wrapper's private "
+                         "launch path")
     args = ap.parse_args()
+    args.trace_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                  "build", "bench_traces")
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
 
@@ -270,7 +392,8 @@ def main() -> int:
                           timeout=60).stdout.strip().splitlines()[0]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = (bench_ssh if args.kernel == "ssh" else bench_chain)(torch, args, sms, gen)
+    bench = {"chain": bench_chain, "ssh": bench_ssh, "flat": bench_flat, "nms": bench_nms}
+    rows = bench[args.kernel](torch, args, sms, gen)
     result = {"label": args.label, "kernel": args.kernel, "root": os.path.abspath(args.root),
               "card": card, "calls": rows}
     if args.out:

@@ -80,13 +80,22 @@
 // block.
 //
 // avcer_fused_chain_flat replaces the TPU kernel fused_chain_flat (body
-// _kernel_flat) of the same file: the stride-1 chains over a band of whole
-// padded rows, flattened to (rows * pitch) pixels by the caller, with the 3x3
-// taps as row offsets into that flat band, the in-frame mask passed in, and
-// the output left flat for the caller to unflatten. It multiplies through
-// block_gemm, which the kernel above shares in f32 and whose bf16 sums its
-// block_gemm_tc takes in the same order, so the two agree bit for bit in
-// both.
+// _kernel_flat) of the same file: the stride-1 chains over bands of whole
+// rows, each band computed flat, (th + 2n) rows of pitch W + 2n pixels (n =
+// the number of blocks: halo rows and columns), with the 3x3 taps as row
+// offsets into the flat band. Bound by operations as above (detector layer1
+// 0.20 ms). The TPU kernel's pitch was rounded up to its 8-sublane tile and
+// its caller padded, flattened, masked and unflattened the frame in device
+// memory; here a row is one pixel of C contiguous channels, so the pitch is
+// W + 2n, the kernel gathers the band's pixels from the NHWC input itself
+// (zeros outside the frame), computes the frame mask from (row, column), and
+// stores the central rows' in-frame pixels at their NHWC rows. Its convs go
+// through conv_gemm as K3's do (bf16: block_gemm_tc; f32: block_gemm), the
+// same terms in the same order, so it equals fused_chain bit for bit. A band
+// belongs to a cluster of C blocks that split every conv as chain_kernel's
+// do; the wrapper's plan chooses the band height th and C together from
+// what the card holds (taller bands recompute fewer halo rows but leave
+// fewer work items, which clusters then spread over more SMs).
 
 #include "conv_tile.cuh"
 
@@ -298,42 +307,50 @@ __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
 struct FlatP {
   BlockW blk[kMaxBlocks];
   int nblocks;
-  const void* xp;     // [B, (hp + 2n) * pitch, cin]: the padded input, flat
-  const float* mask;  // [nb, rows * pitch]: 1 inside the frame, 0 outside
-  void* out;          // [B, hp * pitch, cout]: flat
+  const void* x;  // [B, H, W, cin] NHWC
+  void* out;      // [B, H, W, cout] NHWC
   void* scratch;
-  long long slab;
-  int B, nb, th, n, pitch, hp, cin, cout, planes_max;
+  long long slab;  // elements of scratch per cluster
+  int C;           // thread blocks per cluster, all on one work item
+  int B, H, W, th, nb, n, pitch, cin, cout, planes_max;
 };
 
-// One work item is one band of one frame: M = (th + 2n) * pitch flat pixels.
-template <typename T>
+// One work item is one band of one frame: M = (th + 2n) * pitch flat pixels,
+// flat row m the pixel (rb * th - n + m / pitch, m % pitch - n) of frame b.
+// kCl: launched in clusters of p.C > 1 blocks (as chain_kernel).
+template <typename T, bool kCl>
 __global__ void __launch_bounds__(kThreads, 2) chain_flat_kernel(const FlatP p) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int V = Tile<T>::kVec;
-  const int pitch = p.pitch, cout = p.cout;
-  const int M = (p.th + 2 * p.n) * pitch;
-  T* cur = static_cast<T*>(p.scratch) + static_cast<size_t>(blockIdx.x) * p.slab;
+  const int pitch = p.pitch, cout = p.cout, n = p.n, H = p.H, W = p.W, th = p.th;
+  const int M = (th + 2 * n) * pitch;
+  const T* x = static_cast<const T*>(p.x);
+  T* out = static_cast<T*>(p.out);
+  const int C = kCl ? p.C : 1;
+  const int cluster = kCl ? blockIdx.x / C : blockIdx.x, rank = kCl ? blockIdx.x % C : 0;
+  const int clusters = kCl ? gridDim.x / C : gridDim.x;
+  T* cur = static_cast<T*>(p.scratch) + static_cast<size_t>(cluster) * p.slab;
   T* t1 = cur + static_cast<size_t>(M) * cout;
   T* t2 = t1 + static_cast<size_t>(M) * p.planes_max;
   const T zero = Num<T>::from_f32(0.0f);
+  auto same = [](int r) { return r; };
+  auto same_tap = [](int m, int) { return m; };
+  auto none = [](int) { return 0; };
 
-  for (int work = blockIdx.x; work < p.B * p.nb; work += gridDim.x) {
-    const int b = work / p.nb, rb = work % p.nb;
-    // the band is one contiguous slice of the flat padded frame
-    const T* xb = static_cast<const T*>(p.xp) +
-                  (static_cast<size_t>(b) * (p.hp + 2 * p.n) + rb * p.th) * pitch * p.cin;
-    const float* mk = p.mask + static_cast<size_t>(rb) * M;
-    T* ob = static_cast<T*>(p.out) +
-            (static_cast<size_t>(b) * p.hp + rb * p.th) * pitch * cout;
-    auto same = [](int r) { return r; };
-    auto same_tap = [](int m, int) { return m; };
-    auto none = [](int) { return 0; };
-    // a conv of the exact mode over the band's M rows
-    auto conv = [&](const T* a, int lda, int K, const ConvW& cw, int N, int taps, auto rowfn,
-                    auto infofn, auto epi) {
-      conv_gemm<T, false>(a, lda, K, M, same, nullptr, 0.0f, cw.w, N, taps, M, smem, rowfn,
-                          infofn, epi);
+  // the trip count depends on the cluster only: every block of a cluster
+  // reaches every cluster barrier equally often
+  for (int work = cluster; work < p.B * p.nb; work += clusters) {
+    const int b = work / p.nb, r0 = (work % p.nb) * th - n;
+    // the NHWC row of flat row m, or -1 outside the frame (which reads zeros)
+    auto pixel = [=](int m) -> int {
+      const int r = r0 + m / pitch, c = m % pitch - n;
+      return r >= 0 && r < H && c >= 0 && c < W ? (b * H + r) * W + c : -1;
+    };
+    // a conv of the exact mode over the band's M rows, shared by the cluster
+    auto conv = [&](const T* a, int lda, int K, auto gather, const ConvW& cw, int N, int taps,
+                    auto rowfn, auto infofn, auto epi) {
+      conv_gemm<T, false, true>(a, lda, K, M, gather, nullptr, 0.0f, cw.w, N, taps, M, smem,
+                                rowfn, infofn, epi, rank, C);
     };
 
     for (int k = 0; k < p.nblocks; ++k) {
@@ -341,51 +358,63 @@ __global__ void __launch_bounds__(kThreads, 2) chain_flat_kernel(const FlatP p) 
       const int kind = bw.kind, cin = bw.cin, pl = bw.planes;
       const bool first = k == 0, last = k == p.nblocks - 1;
       const ConvW c1 = bw.c1, c2 = bw.c2, c3 = bw.c3, cd = bw.ds;
-      const T* src = first ? xb : cur;
-      const int lds = first ? p.cin : cout;
 
       if (first && kind == kId) {
-        for (int idx = threadIdx.x; idx < M * (cout / V); idx += kThreads)
-          reinterpret_cast<int4*>(cur)[idx] = reinterpret_cast<const int4*>(xb)[idx];
-        __syncthreads();
+        // the band's input into `cur`, zeros outside the frame
+        const int chunks = cout / V;
+        for (int idx = rank * kThreads + threadIdx.x; idx < M * chunks; idx += C * kThreads) {
+          const int m = idx / chunks, c = (idx % chunks) * V;
+          const int row = pixel(m);
+          int4 val = make_int4(0, 0, 0, 0);
+          if (row >= 0)
+            val = *reinterpret_cast<const int4*>(x + static_cast<size_t>(row) * cout + c);
+          *reinterpret_cast<int4*>(cur + static_cast<size_t>(m) * cout + c) = val;
+        }
+        sync_parts(C);
       }
       if (kind == kDs)
-        conv(src, lds, cin, cd, cout, 1, same_tap, none,
-             [=](int m, int n, const float* acc, int) {
-               store_vec(cur + static_cast<size_t>(m) * cout + n,
-                         fold_vec<T, false>(acc, cd, n, kLinear, zero));
+        conv(x, p.cin, cin, pixel, cd, cout, 1, same_tap, none,
+             [=](int m, int nn, const float* acc, int) {
+               store_vec(cur + static_cast<size_t>(m) * cout + nn,
+                         fold_vec<T, false>(acc, cd, nn, kLinear, zero));
              });
-      // conv1, times the frame mask
-      conv(src, lds, cin, c1, pl, 1, same_tap,
-           [=](int m) { return static_cast<int>(mk[m] != 0.0f); },
-           [=](int m, int n, const float* acc, int ok) {
-             store_vec(t1 + static_cast<size_t>(m) * pl + n,
-                       fold_vec<T, false>(acc, c1, n, kRelu, zero, ok));
-           });
-      // conv2: tap (ky, kx) is the flat row m + (ky - 1) * pitch + (kx - 1) of
-      // the band extended with zeros at both ends
-      conv(t1, pl, pl, c2, pl, 9,
+      // conv1, zero outside the frame
+      auto ok1 = [=](int m) { return static_cast<int>(pixel(m) >= 0); };
+      auto epi1 = [=](int m, int nn, const float* acc, int ok) {
+        store_vec(t1 + static_cast<size_t>(m) * pl + nn,
+                  fold_vec<T, false>(acc, c1, nn, kRelu, zero, ok));
+      };
+      if (kind == kDs)
+        conv(x, p.cin, cin, pixel, c1, pl, 1, same_tap, ok1, epi1);
+      else
+        conv(cur, cout, cin, same, c1, pl, 1, same_tap, ok1, epi1);
+      // conv2: tap (ky, kx) is the flat row m + (ky - 1) * pitch + (kx - 1),
+      // the band extended with zeros at both ends; across a row's end it
+      // reads a halo column, which conv1 zeroed
+      conv(t1, pl, pl, same, c2, pl, 9,
            [=](int m, int tap) {
              const int r = m + (tap / 3 - 1) * pitch + tap % 3 - 1;
              return r >= 0 && r < M ? r : -1;
            },
-           none, [=](int m, int n, const float* acc, int) {
-             store_vec(t2 + static_cast<size_t>(m) * pl + n,
-                       fold_vec<T, false>(acc, c2, n, kRelu, zero));
+           none, [=](int m, int nn, const float* acc, int) {
+             store_vec(t2 + static_cast<size_t>(m) * pl + nn,
+                       fold_vec<T, false>(acc, c2, nn, kRelu, zero));
            });
-      // conv3 + residual -> cur, or the central th rows -> out, still flat
-      const int lo = p.n * pitch, hi = (p.n + p.th) * pitch;
-      conv(t2, pl, pl, c3, cout, 1, same_tap,
-           [=](int m) { return m >= lo && m < hi ? m - lo : -1; },
-           [=](int m, int n, const float* acc, int orow) {
+      // conv3 + residual -> cur, or the central th rows' in-frame pixels ->
+      // their NHWC rows of out
+      const int lo = n * pitch, hi = (n + th) * pitch;
+      conv(t2, pl, pl, same, c3, cout, 1, same_tap,
+           [=](int m) { return m >= lo && m < hi ? pixel(m) : -1; },
+           [=](int m, int nn, const float* acc, int orow) {
              if (last && orow < 0) return;
-             T* res = cur + static_cast<size_t>(m) * cout + n;
-             Vec<T> v = fold_vec<T, false>(acc, c3, n, kLinear, zero);
-             const Vec<T> r = load_vec(res);
+             T* res = cur + static_cast<size_t>(m) * cout + nn;
+             Vec<T> v = fold_vec<T, false>(acc, c3, nn, kLinear, zero);
+             // another block of the cluster may have written it
+             const Vec<T> r = kCl ? load_vec_cg(res) : load_vec(res);
 #pragma unroll
              for (int j = 0; j < V; ++j)
                v.v[j] = activate<T>(Num<T>::add(v.v[j], r.v[j]), kRelu, zero);
-             store_vec(last ? ob + static_cast<size_t>(orow) * cout + n : res, v);
+             store_vec(last ? out + static_cast<size_t>(orow) * cout + nn : res, v);
            });
     }
   }
@@ -403,14 +432,16 @@ int launch(const ChainP& p, int grid, int cluster, cudaStream_t stream, int* clu
                                        clusters, blocks);
 }
 
+// chain_flat_kernel in clusters of `cluster` blocks; with `clusters` and
+// `blocks` non-null it reports what the card holds instead (as launch).
 template <typename T>
-int launch_flat(const FlatP& p, int grid, cudaStream_t stream) {
-  const int smem = static_cast<int>(Tile<T>::kBytes);
-  cudaError_t err = cudaFuncSetAttribute(chain_flat_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  chain_flat_kernel<T><<<grid, kThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+int launch_flat(const FlatP& p, int grid, int cluster, cudaStream_t stream,
+                int* clusters = nullptr, int* blocks = nullptr) {
+  constexpr size_t smem = conv_smem_bytes<T, false, true>();
+  return cluster > 1 ? launch_clusters(chain_flat_kernel<T, true>, p, grid, cluster, smem, stream,
+                                       clusters, blocks)
+                     : launch_clusters(chain_flat_kernel<T, false>, p, grid, cluster, smem,
+                                       stream, clusters, blocks);
 }
 
 // The blocks of a chain from the wrapper's arrays; false for what the kernels
@@ -545,35 +576,51 @@ extern "C" int avcer_fused_chain_occupancy(int dtype, int quant, int cluster, in
                     : launch<__nv_bfloat16, false>(p, cluster, cluster, nullptr, clusters, blocks);
 }
 
-// The flat kernel: xp [B, (hp + 2n) * pitch, cin] is the input padded by n =
-// nblocks rows and columns (and up to hp = nb * th rows and the pitch) and
-// flattened, mask [nb, (th + 2n) * pitch] float32 the in-frame flags of each
-// band, out [B, hp * pitch, cout] the flat result. kinds: 0 id, 1 ds.
-// scratch holds grid slabs of (th + 2n) * pitch * (cout + 2 * planes_max)
-// elements.
-extern "C" int avcer_fused_chain_flat(const void* xp, const float* mask, void* out, void* scratch,
+// The flat kernel: x [B, H, W, cin] and out [B, H, W, cout] NHWC contiguous,
+// stride-1 chains (kinds: 0 id, 1 ds). Each of nb = ceil(H / th) bands of a
+// frame is th output rows and n = nblocks halo rows above and below, of
+// pitch = W + 2n pixels (n halo columns a side), computed flat. grid blocks
+// in clusters of `cluster` (1 to 8, dividing grid), one band a cluster at a
+// time; scratch holds grid / cluster slabs of (th + 2n) * pitch * (cout + 2
+// * planes_max) elements. Returns a CUDA error code as avcer_fused_chain.
+extern "C" int avcer_fused_chain_flat(const void* x, void* out, void* scratch,
                                       long long scratch_bytes, const void* const* wptrs,
                                       const int* kinds, const int* cins, const int* planes,
-                                      int nblocks, int B, int nb, int th, int pitch, int cin,
-                                      int cout, int grid, int dtype, void* stream) {
+                                      int nblocks, int B, int H, int W, int cin, int cout, int th,
+                                      int grid, int cluster, int dtype, void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
   if (dtype != 0 && dtype != 1) return bad;
-  if (nb <= 0 || th <= 0 || pitch <= 0 || grid <= 0) return bad;
+  if (H <= 0 || W <= 0 || th <= 0 || grid <= 0) return bad;
+  if (cluster < 1 || cluster > 8 || grid % cluster) return bad;
   const int align = dtype == 0 ? 4 : 8;
   FlatP p{};
   p.nblocks = nblocks;
   if (!fill_blocks(p.blk, &p.planes_max, wptrs, kinds, cins, planes, nblocks, cout, align, kDs))
     return bad;
   if (cin != cins[0]) return bad;
-  p.xp = xp;
-  p.mask = mask;
+  p.x = x;
   p.out = out;
   p.scratch = scratch;
-  p.B = B, p.nb = nb, p.th = th, p.n = nblocks, p.pitch = pitch, p.hp = nb * th;
-  p.cin = cin, p.cout = cout;
-  p.slab = static_cast<long long>(th + 2 * nblocks) * pitch * (cout + 2 * p.planes_max);
-  if (scratch_bytes < p.slab * grid * (dtype == 0 ? 4 : 2)) return bad;
+  p.C = cluster;
+  p.B = B, p.H = H, p.W = W, p.th = th, p.nb = (H + th - 1) / th, p.n = nblocks;
+  p.pitch = W + 2 * nblocks, p.cin = cin, p.cout = cout;
+  p.slab = static_cast<long long>(th + 2 * nblocks) * p.pitch * (cout + 2 * p.planes_max);
+  if (scratch_bytes < p.slab * (grid / cluster) * (dtype == 0 ? 4 : 2)) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_flat<float>(p, grid, s) : launch_flat<__nv_bfloat16>(p, grid, s);
+  return dtype == 0 ? launch_flat<float>(p, grid, cluster, s)
+                    : launch_flat<__nv_bfloat16>(p, grid, cluster, s);
+}
+
+// What the card reports for chain_flat_kernel in clusters of `cluster`
+// blocks, as avcer_fused_chain_occupancy (the kernel has no int8 mode: quant
+// must be 0).
+extern "C" int avcer_fused_chain_flat_occupancy(int dtype, int quant, int cluster, int* clusters,
+                                                int* blocks) {
+  if ((dtype != 0 && dtype != 1) || quant != 0 || cluster < 1 || cluster > 8 ||
+      clusters == nullptr || blocks == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FlatP p{};
+  return dtype == 0 ? launch_flat<float>(p, cluster, cluster, nullptr, clusters, blocks)
+                    : launch_flat<__nv_bfloat16>(p, cluster, cluster, nullptr, clusters, blocks);
 }

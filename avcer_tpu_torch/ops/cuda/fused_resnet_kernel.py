@@ -27,7 +27,8 @@ the kernel (one launch per call) or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from fractions import Fraction
+from typing import Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -324,73 +325,118 @@ def fused_layer1(x: torch.Tensor, folded: Sequence[torch.Tensor], band: int = 32
     return fused_chain(x, folded, ("ds", "id", "id"), band=band)
 
 
-#: a flat band holds about this many pixels (rows x pitch, halo included)
-FLAT_PIXELS = 3072
+#: pixels of one tile of the kernels' products (conv_tile.cuh kBM)
+TILE_ROWS = 128
 
 
-def flat_plan(h: int, w: int, n: int, band: int) -> dict[str, int]:
-    """Band geometry of ``fused_chain_flat``: ``th`` output rows a band (at
-    most ``band``, and few enough for the band's pixels), ``nb`` bands,
-    ``hp = nb * th`` padded rows, and the row pitch: the frame's width plus
-    the halo columns, rounded up to a multiple of 8 as the TPU kernel's."""
-    pitch = -(-(w + 2 * n) // 8) * 8
-    th = max(1, min(h, band, FLAT_PIXELS // pitch - 2 * n))
-    nb = -(-h // th)
-    return {"th": th, "nb": nb, "hp": nb * th, "pitch": pitch, "rows": th + 2 * n}
+def band_heights(h: int, band: int) -> list[int]:
+    """The band heights that cut ``h`` rows into bands of equal height but the
+    last, at most ``band`` rows each, tallest first."""
+    return sorted({-(-h // nb) for nb in range(-(-h // band), h + 1)}, reverse=True)
 
 
-def _flat_inputs(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequence[str],
-                 band: int, align: int):
-    """What the flat kernel reads: the padded input flattened to ``[B, (hp +
-    2n) * pitch, cin]``, the per-band frame mask ``[nb, rows * pitch]`` f32,
-    the weights (conv1's and the projection's input rows zero-padded with the
-    input's channels to a multiple of ``align``), and the plan."""
-    blocks = tuple(blocks)
+def flat_plan(b: int, h: int, w: int, n: int, cout: int, planes_max: int, itemsize: int,
+              held: Mapping[int, int], band: int = 32, cluster: Optional[int] = None,
+              th: Optional[int] = None) -> dict[str, int]:
+    """Geometry and launch of one ``fused_chain_flat`` call, as
+    ``csrc/fused_resnet.cu`` derives it again from ``th``, ``grid`` and
+    ``cluster``: bands of ``th`` output rows and ``n`` halo rows above and
+    below, of pitch ``w + 2n`` (the frame's width and n halo columns a side:
+    a row is one pixel of contiguous channels, aligned at any pitch, so the
+    TPU kernel's rounding to its 8 sublanes is gone); a band is a work item of
+    a cluster of ``C`` thread blocks.
+
+    ``th`` (a height of ``band_heights``) and ``C`` (1 to ``MAX_CLUSTER``)
+    are chosen together by K4's rule (``fused_ssh_kernel.ssh_plan``) with the
+    band's size in it: ``held[C]`` clusters of C blocks fit on the card at
+    once, so ``nwork`` bands take ``ceil(nwork / held[C])`` rounds, and each
+    block of a cluster computes ``1 / C`` of a band's ``ceil((th + 2n) *
+    pitch / TILE_ROWS)`` pixel tiles; the plan takes the fewest rounds x
+    tiles a block, ties to the smaller C and then the taller band (fewer
+    halo rows). Taller bands recompute fewer halo rows but leave fewer
+    bands, which clusters then spread over more SMs. ``cluster`` and ``th``
+    force C and the band height (the card tests and the sweep). The scratch
+    holds one slab per cluster."""
+    pitch = w + 2 * n
+    best = None
+    for t in ([th] if th else band_heights(h, band)):
+        nwork = b * -(-h // t)
+        for c in ([cluster] if cluster else range(1, MAX_CLUSTER + 1)):
+            clusters = min(nwork, held[c])
+            cost = Fraction(-(-nwork // held[c]) * -(-(t + 2 * n) * pitch // TILE_ROWS), c)
+            if best is None or (cost, c, -t) < best[0]:
+                best = ((cost, c, -t), t, c, nwork, clusters)
+    _, t, c, nwork, clusters = best
+    rows = t + 2 * n
+    slab = rows * pitch * (cout + 2 * planes_max)
+    return {"th": t, "nb": -(-h // t), "pitch": pitch, "rows": rows, "nwork": nwork,
+            "cluster": c, "grid": clusters * c, "scratch_bytes": slab * itemsize * clusters}
+
+
+def _pad_channels(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequence[str],
+                  align: int) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """A stride-1 chain's input and weights with the input's channels
+    zero-padded to a multiple of ``align`` (and the rows of conv1's and the
+    projection's weights that read them): only behind a projection entry."""
     if not blocks or any(b not in ("ds", "id") for b in blocks):
         raise ValueError("fused_chain_flat handles stride-1 chains only")
-    bsz, h, w, cin = x.shape
-    n = len(blocks)
     folded = list(folded)
     split_folded(folded, blocks)  # the count of tensors fits the blocks
-    pad_ch = (-cin) % align
+    pad_ch = (-x.shape[-1]) % align
     if pad_ch:
         if blocks[0] == "id":
             raise ValueError(
                 f"fused_chain_flat with cin % {align} != 0 needs a projection entry block "
                 "(identity residuals cannot be channel-padded)")
+        x = F.pad(x, (0, pad_ch))
         folded[0] = F.pad(folded[0], (0, 0, 0, pad_ch))
         folded[9] = F.pad(folded[9], (0, 0, 0, pad_ch))
-    plan = flat_plan(h, w, n, band)
-    hp, pitch, th, rows = plan["hp"], plan["pitch"], plan["th"], plan["rows"]
-    xp = F.pad(x, (0, pad_ch, n, pitch - w - n, n, n + hp - h))
-    xp = xp.reshape(bsz, (hp + 2 * n) * pitch, cin + pad_ch)
+    return x, folded
+
+
+def _flat_inputs(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequence[str],
+                 band: int, align: int, th: Optional[int] = None):
+    """The plain version's flat bands: the input padded by n rows and columns
+    and flattened to ``[B, (hp + 2n) * pitch, cin]`` (``hp = nb * th``), the
+    per-band frame mask ``[nb, rows * pitch]`` f32, the weights (input
+    channels padded as ``_pad_channels`` does), and the geometry: ``th``
+    (default the tallest of ``band_heights``), ``nb``, ``hp``, ``pitch = w +
+    2n`` and ``rows = th + 2n``."""
+    blocks = tuple(blocks)
+    x, folded = _pad_channels(x, folded, blocks, align)
+    bsz, h, w, cin = x.shape
+    n = len(blocks)
+    th = th or band_heights(h, band)[0]
+    nb = -(-h // th)
+    hp, pitch, rows = nb * th, w + 2 * n, th + 2 * n
+    xp = F.pad(x, (0, 0, n, n, n, n + hp - h))
+    xp = xp.reshape(bsz, (hp + 2 * n) * pitch, cin)
     ri = torch.arange(hp + 2 * n, device=x.device)[:, None]
     ci = torch.arange(pitch, device=x.device)[None, :]
     ok2d = (ri >= n) & (ri < n + h) & (ci >= n) & (ci < n + w)
-    mask = torch.stack([ok2d[rb * th: rb * th + rows] for rb in range(plan["nb"])])
-    return xp, mask.float().reshape(plan["nb"], rows * pitch), folded, plan
-
-
-def _unflatten(out: torch.Tensor, h: int, w: int, n: int, plan: dict[str, int]) -> torch.Tensor:
-    out = out.reshape(out.shape[0], plan["hp"], plan["pitch"], out.shape[-1])
-    return out[:, :h, n:n + w].contiguous()
+    mask = torch.stack([ok2d[rb * th: rb * th + rows] for rb in range(nb)])
+    geometry = {"th": th, "nb": nb, "hp": hp, "pitch": pitch, "rows": rows}
+    return xp, mask.float().reshape(nb, rows * pitch), folded, geometry
 
 
 def fused_chain_flat_plain(x: torch.Tensor, folded: Sequence[torch.Tensor],
-                           blocks: Sequence[str], band: int = 32) -> torch.Tensor:
-    """``fused_chain_flat`` in plain PyTorch over the same flat bands: each
-    band is read as an image of ``rows x pitch`` pixels, its convs are SAME
-    over that image (they differ from the flat row-offset taps only in the
-    first and last column, which are halo), conv1's output is multiplied by
-    the frame mask, and the central rows go to the flat output."""
+                           blocks: Sequence[str], band: int = 32,
+                           th: Optional[int] = None) -> torch.Tensor:
+    """``fused_chain_flat`` in plain PyTorch over flat bands of ``th`` rows
+    (as ``_flat_inputs`` makes them): each band is read as an image of ``rows
+    x pitch`` pixels, its convs are SAME over that image (they differ from the
+    flat row-offset taps only in the first and last column, which are halo),
+    conv1's output is multiplied by the frame mask, and the central rows'
+    frame pixels are the output. The band height changes where a pixel is
+    computed, not what."""
     blocks = tuple(blocks)
     bsz, h, w, _ = x.shape
     n = len(blocks)
-    xp, mask, folded, plan = _flat_inputs(x, folded, blocks, band, 1)
+    xp, mask, folded, plan = _flat_inputs(x, folded, blocks, band, 1, th)
     th, rows, pitch = plan["th"], plan["rows"], plan["pitch"]
     per_block = split_folded(folded, blocks)
     cout = per_block[0][6].shape[-1]
-    out = x.new_empty((bsz, plan["hp"] * pitch, cout))
+    out = x.new_empty((bsz, plan["hp"], w, cout))
     for rb in range(plan["nb"]):
         cur = xp[:, rb * th * pitch:(rb * th + rows) * pitch]
         cur = cur.reshape(bsz, rows, pitch, -1).permute(0, 3, 1, 2)
@@ -401,23 +447,53 @@ def fused_chain_flat_plain(x: torch.Tensor, folded: Sequence[torch.Tensor],
             y = conv_bn_plain(t2, *t[6:9])
             res = cur if kind == "id" else conv_bn_plain(cur, *t[9:12])
             cur = F.relu(y + res)
-        central = cur[:, :, n:n + th].permute(0, 2, 3, 1)
-        out[:, rb * th * pitch:(rb + 1) * th * pitch] = central.reshape(bsz, th * pitch, cout)
-    return _unflatten(out, h, w, n, plan)
+        out[:, rb * th:(rb + 1) * th] = cur[:, :, n:n + th, n:n + w].permute(0, 2, 3, 1)
+    return out[:, :h].contiguous()
 
 
 def fused_chain_flat(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequence[str],
                      band: int = 32) -> torch.Tensor:
     """A stride-1 chain (``"ds"`` and ``"id"`` blocks) ``[B, H, W, Cin] -> [B,
-    H, W, Cout]`` through the flat kernel: the wrapper pads and flattens the
-    input and builds the frame mask, the kernel works on flat bands of at most
-    ``band`` output rows, the wrapper unflattens. Same result as
-    ``fused_chain``. ``fused_chain_flat.launches`` counts kernel launches."""
+    H, W, Cout]`` through the flat kernel, which works on flat bands of at
+    most ``band`` output rows (the plan's height), reading ``x`` and writing
+    the result in NHWC itself. Same result as ``fused_chain``.
+    ``fused_chain_flat.launches`` counts kernel launches;
+    ``fused_chain_flat.occupancy`` holds what the card reported for each
+    launch configuration (see ``flat_card_plan``)."""
     blocks = tuple(blocks)
     if x.device.type == "cpu":
         return fused_chain_flat_plain(x, folded, blocks, band=band)
     if x.device.type != "cuda":
         raise ValueError(f"fused_chain_flat: unsupported device {x.device}")
+    return _fused_chain_flat_cuda(x, folded, blocks, band)
+
+
+def flat_card_plan(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequence[str],
+                   band: int = 32, cluster: Optional[int] = None,
+                   th: Optional[int] = None) -> dict[str, int]:
+    """``flat_plan`` for a call on ``x``'s card, with what the card holds of
+    each cluster size (asked once per configuration, kept in
+    ``fused_chain_flat.occupancy``), and the clusters it holds of the chosen
+    one (``max_active_clusters``)."""
+    per_block = split_folded(folded, blocks)
+    b, h, w, _ = x.shape
+    sizes = (cluster,) if cluster else range(1, MAX_CLUSTER + 1)
+    held = {c: card_occupancy("fused_resnet", "fused_chain_flat", fused_chain_flat.occupancy,
+                              x.device, x.dtype, False, c)["clusters"] for c in sizes}
+    plan = flat_plan(b, h, w, len(blocks), per_block[0][6].shape[-1],
+                     max(t[0].shape[1] for t in per_block), x.element_size(), held, band,
+                     cluster, th)
+    plan["max_active_clusters"] = held[plan["cluster"]]
+    return plan
+
+
+def _fused_chain_flat_cuda(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: tuple,
+                           band: int = 32, cluster: Optional[int] = None,
+                           th: Optional[int] = None) -> torch.Tensor:
+    """The launch behind ``fused_chain_flat`` for a CUDA tensor; ``cluster``
+    and ``th`` force the cluster size and the band height instead of the
+    plan's (the card tests and the sweep). A cluster the card refuses raises:
+    nothing retries with another size."""
     if x.dim() != 4 or x.dtype not in DTYPE_CODE or not x.is_contiguous():
         raise ValueError(
             f"fused_chain_flat: x must be contiguous [B, H, W, C] float32 or bfloat16, got "
@@ -428,37 +504,34 @@ def fused_chain_flat(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Se
         raise NotImplementedError(
             "fused_chain_flat: the CUDA kernel takes a projection block only as the first of "
             f"a chain, got {blocks}")
-    bsz, h, w, _ = x.shape
-    n = len(blocks)
-    xp, mask, folded, plan = _flat_inputs(x, folded, blocks, band, 16 // x.element_size())
-    xp = xp.contiguous()
+    x, folded = _pad_channels(x, folded, blocks, 16 // x.element_size())
     folded = [t.contiguous() for t in folded]
     ptrs, cins, planes, cout = _check_chain_weights(
-        "fused_chain_flat", xp, split_folded(folded, blocks), blocks, False)
-    out = torch.empty((bsz, plan["hp"] * plan["pitch"], cout), dtype=x.dtype, device=x.device)
+        "fused_chain_flat", x, split_folded(folded, blocks), blocks, False)
+    bsz, h, w, cin = x.shape
+    n = len(blocks)
+    out = torch.empty((bsz, h, w, cout), dtype=x.dtype, device=x.device)
     if bsz == 0:
-        return _unflatten(out, h, w, n, plan)
-    props = torch.cuda.get_device_properties(x.device)
-    grid = max(1, min(bsz * plan["nb"], BLOCKS_PER_SM * props.multi_processor_count))
-    scratch_bytes = (plan["rows"] * plan["pitch"] * (cout + 2 * max(planes)) * grid
-                     * x.element_size())
-    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=x.device)
+        return out
+    plan = flat_card_plan(x, folded, blocks, band, cluster, th)
+    scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=x.device)
     fn = _build.library("fused_resnet").avcer_fused_chain_flat
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(xp.data_ptr(), mask.data_ptr(), out.data_ptr(), scratch.data_ptr(), scratch_bytes,
+        rc = fn(x.data_ptr(), out.data_ptr(), scratch.data_ptr(), plan["scratch_bytes"],
                 (ctypes.c_void_p * (12 * n))(*ptrs),
                 (ctypes.c_int * n)(*[KINDS[k] for k in blocks]),
                 (ctypes.c_int * n)(*cins), (ctypes.c_int * n)(*planes), n,
-                bsz, plan["nb"], plan["th"], plan["pitch"], xp.shape[-1], cout, grid,
+                bsz, h, w, cin, cout, plan["th"], plan["grid"], plan["cluster"],
                 DTYPE_CODE[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"fused_chain_flat kernel launch failed: CUDA error {rc}")
     fused_chain_flat.launches += 1
-    return _unflatten(out, h, w, n, plan)
+    return out
 
 
 fused_chain_flat.launches = 0
+fused_chain_flat.occupancy = {}

@@ -10,6 +10,7 @@ option: on the card the kernel is the only implementation.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -17,6 +18,17 @@ from avcer_tpu_torch import _build
 from avcer_tpu_torch.ops.nms import nms_mask as nms_mask_plain
 
 MAX_K = 1024
+
+
+@functools.cache
+def _entry():
+    """The C entry point ``avcer_nms_mask``, typed once (the library is
+    built at first use)."""
+    fn = _build.library("nms").avcer_nms_mask
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def nms_mask(
@@ -44,16 +56,17 @@ def nms_mask(
     if not (boxes.is_contiguous() and valid.is_contiguous()):
         raise ValueError("nms_mask: boxes and valid must be contiguous")
     if k > MAX_K:
-        raise ValueError(f"nms_mask: K = {k} > {MAX_K} (one thread per row)")
+        raise ValueError(f"nms_mask: K = {k} > {MAX_K} (the suppression bits of a "
+                         "frame fill one block's shared memory)")
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
-    fn = _build.library("nms").avcer_nms_mask
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        rc = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
-                iou_thresh, stream)
+    fn = _entry()
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+    args = (boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k, iou_thresh, stream)
+    if boxes.device.index == torch.cuda.current_device():
+        rc = fn(*args)
+    else:  # the launch goes to the current device: make it the boxes' own
+        with torch.cuda.device(boxes.device):
+            rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"nms kernel launch failed: CUDA error {rc}")
     nms_mask.launches += 1

@@ -30,7 +30,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    clusters the card holds at once, and where C > 1 held bit for bit against
    the same call at C = 1 (and timed there); fused_ssh_heads likewise at each
    of its calls (the r50 detector's scales 2 and 3 in clusters of at least
-   128 blocks in all);
+   128 blocks in all); nms_mask also at the mobilenet presets' detect batch
+   of 128, with its device time from a profiler trace beside its time a
+   call; fused_chain_flat at the seven stride-1 chains of those calls, each
+   with its plan (band height, C, grid), equal to fused_chain bit for bit
+   and, where C > 1, to C = 1, timed beside fused_chain (its plain version
+   over 3 runs);
 5. reference: each model's output on the card (bf16, kernels), unfused and
    fused, exact and int8, against the same seeded weights (and the same
    activation scales) in f32 on the CPU (plain versions), on a small input;
@@ -44,7 +49,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    launch in the tensor-core kernel); the fused runs' compound decisions
    against the unfused runs'; one more run of the unfused exact path under
    the CLI's ``--profile_dir`` helper, for the device's busy and idle share
-   of the wall. In every warm-up run, of
+   of the wall (every NMS kernel in its trace must be nms_bitmask_kernel). In every warm-up run, of
    these paths and of the presets', each kernel call with shapes, types or
    modes that no path has shown yet is held against the kernel's plain
    version on the call's own inputs;
@@ -67,6 +72,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -245,14 +251,24 @@ def kernels_nms_attention(card: str) -> list[dict]:
     if mismatches:
         raise AssertionError(f"nms kernel: {mismatches} keep entries differ from the plain version")
     nms_ms = median_ms(lambda: nms_kernel.nms_mask(bt, vt, 0.4))
+    nms_dev = device_ms(lambda: nms_kernel.nms_mask(bt, vt, 0.4))
     nms_plain_ms = median_ms(lambda: nms_kernel.nms_mask_plain(bt, vt, 0.4))
+    # the mobilenet presets' detect batch
+    boxes, valid = nms_case(4, MNET_BATCH, NMS_SHAPE[1])
+    bm, vm = torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev)
+    if not torch.equal(nms_kernel.nms_mask(bm, vm, 0.4), nms_kernel.nms_mask_plain(bm, vm, 0.4)):
+        raise AssertionError(f"nms kernel: keep masks differ at [{MNET_BATCH}, {NMS_SHAPE[1]}, 4]")
+    mnet_ms = median_ms(lambda: nms_kernel.nms_mask(bm, vm, 0.4))
+    mnet_dev = device_ms(lambda: nms_kernel.nms_mask(bm, vm, 0.4))
     # work of this run's data: row i is compared with the K - 1 - i rows after
     # it only while it is kept: about 20 f32 operations a pair
     pairs = float(((NMS_SHAPE[1] - 1 - torch.arange(NMS_SHAPE[1], device=dev)) * got).sum())
     nms_bound, nms_by = bound_ms(tensor_bytes(bt, vt, got), 20 * pairs, "f32")
-    log(f"kernel nms_mask [{NMS_SHAPE[0]}, {NMS_SHAPE[1]}, 4]: keep masks equal over 4 seeds; "
-        f"{nms_ms:.4f} ms vs plain {nms_plain_ms:.4f} ms (median of 50), bound "
-        f"{nms_bound:.6f} ms ({nms_by}), no library call, on {card}")
+    log(f"kernel nms_mask (nms_bitmask_kernel) [{NMS_SHAPE[0]}, {NMS_SHAPE[1]}, 4]: keep masks "
+        f"equal over 4 seeds; {nms_ms:.4f} ms a call (median of 50), device time "
+        f"{nms_dev:.4f} ms (profiler, 20 calls), vs plain {nms_plain_ms:.4f} ms, bound "
+        f"{nms_bound:.6f} ms ({nms_by}), no library call; [{MNET_BATCH}, {NMS_SHAPE[1]}, 4]: "
+        f"keep masks equal, {mnet_ms:.4f} ms a call, device time {mnet_dev:.4f} ms, on {card}")
 
     # attention, f32: the exact kernel, within the JAX package's bound for the
     # Pallas kernel
@@ -306,7 +322,9 @@ def kernels_nms_attention(card: str) -> list[dict]:
     return [
         entry("nms_mask", "nms.cu", "avcer_tpu/ops/pallas/nms_kernel.py:62",
               max_abs_err=float(mismatches), ms=nms_ms, plain_ms=nms_plain_ms,
-              bound_ms=nms_bound, bound_by=nms_by, library_ms=None),
+              bound_ms=nms_bound, bound_by=nms_by, library_ms=None, device_ms=nms_dev,
+              shape=[*NMS_SHAPE, 4], cases=[{"shape": [MNET_BATCH, NMS_SHAPE[1], 4],
+                                             "ms": mnet_ms, "device_ms": mnet_dev}]),
         entry("mha_tc", "attention.cu", "avcer_tpu/ops/pallas/attention_kernel.py:40",
               max_abs_err=err16, ms=tc_ms, plain_ms=tc_plain_ms, bound_ms=tc_bound,
               bound_by=tc_by, library_ms=tc_lib_ms, shape=list(ATTN_SHAPE), dtype="bf16",
@@ -751,12 +769,14 @@ def depthwise_sections(card: str, detector) -> None:
             f"{pw_total:.3f} ms (median of 20 each) on {card}")
 
 
-def kernels_fused_chain_flat(card: str, detector) -> dict:
-    """K5, which no model calls: detector layer1 at the main path's shape in
-    bf16 (against its plain version, against fused_chain, and timed beside
-    the unfused cuDNN section), and the three small f32 cases of the JAX
-    package's test of its flat kernel, where it must equal fused_chain bit
-    for bit."""
+def kernels_fused_chain_flat(card: str, detector, emotion) -> dict:
+    """K5, which no model calls: the three small f32 cases of the JAX
+    package's test of its flat kernel, and the seven stride-1 chains of the
+    main paths (the two models' own weights, bf16), each with its plan (band
+    height, work items, C, grid), against its plain version, against
+    fused_chain bit for bit, at C > 1 against C = 1 bit for bit, and timed
+    beside fused_chain, its plain version (3 runs) and the unfused cuDNN
+    section."""
     flat, chain = fused_resnet_kernel.fused_chain_flat, fused_resnet_kernel.fused_chain
     rng = np.random.default_rng(300)
 
@@ -786,40 +806,69 @@ def kernels_fused_chain_flat(card: str, detector) -> dict:
         err = float((got - want).abs().max())
         worst32 = max(worst32, err)
         torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-3)
-        log(f"kernel fused_chain_flat {blocks} {list(shape)} band {band} f32: max abs err "
-            f"{err:.3g} to plain (atol 2e-4, rtol 1e-3); equal to fused_chain bit for bit: {same}")
+        plan = fused_resnet_kernel.flat_card_plan(x, folded, blocks, band)
+        log(f"kernel fused_chain_flat {blocks} {list(shape)} band {band} f32 (th {plan['th']}, "
+            f"C = {plan['cluster']}, grid {plan['grid']}): max abs err {err:.3g} to plain (atol "
+            f"2e-4, rtol 1e-3); equal to fused_chain bit for bit: {same}")
         if not same:
             raise AssertionError(f"fused_chain_flat {blocks} {shape}: differs from fused_chain")
 
-    layer, blocks, shape = detector.body.layer1, ("ds", "id", "id"), (DETECT_BATCH, 90, 160, 64)
-    x = randn(shape, 302)
-    folded = {dt: [t for bi in range(3) for t in layer[bi].folded(dt)]
-              for dt in (torch.float32, torch.bfloat16)}
-    err16 = check_fused(
-        "fused_chain_flat", lambda a, dt: (flat(a, folded[dt], blocks),),
-        lambda a, dt: (fused_resnet_kernel.fused_chain_flat_plain(a, folded[dt], blocks),),
-        x, dict(atol=2e-4, rtol=1e-3), f"detector layer1 {blocks} {list(shape)}")
-    x_cl = x.permute(0, 3, 1, 2)
-    with torch.inference_mode():
-        out = flat(x, folded[torch.bfloat16], blocks)
-        same = torch.equal(out, chain(x, folded[torch.bfloat16], blocks))
-        ms = median_ms(lambda: flat(x, folded[torch.bfloat16], blocks))
-        chain_ms = median_ms(lambda: chain(x, folded[torch.bfloat16], blocks))
-        plain = median_ms(lambda: fused_resnet_kernel.fused_chain_flat_plain(
-            x, folded[torch.bfloat16], blocks), runs=10)
-        lib_ms = median_ms(lambda: layer(x_cl))
-    b_ms, b_by = bound_ms(*chain_work(x, folded[torch.bfloat16], blocks, out), "bf16")
-    log(f"  detector layer1 {list(shape)} bf16: kernel {ms:.3f} ms (wrapper's pad, mask and "
-        f"unflatten included; fused_chain {chain_ms:.3f} ms, equal to it: {same}), plain "
-        f"{plain:.3f} ms, unfused cuDNN section {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}) "
-        f"(median of 50) on {card}")
-    if not same:
-        raise AssertionError("fused_chain_flat at detector layer1 bf16 differs from fused_chain")
+    rows, worst = [], 0.0
+    cases = [c for c in chain_cases(detector, emotion) if set(c[3]) <= {"ds", "id"}]
+    for seed, (label, layer, chunk, blocks, shape, _) in enumerate(cases):
+        x = randn(shape, 310 + seed)
+        folded = {dt: [t for bi in chunk for t in layer[bi].folded(dt)]
+                  for dt in (torch.float32, torch.bfloat16)}
+        case = f"{label} {blocks} {list(shape)}"
+        plan = fused_resnet_kernel.flat_card_plan(x, folded[torch.bfloat16], blocks)
+        plan = {k: plan[k] for k in ("th", "nwork", "cluster", "grid", "max_active_clusters")}
+        log(f"  fused_chain_flat {case} bf16: band height {plan['th']}, {plan['nwork']} bands, "
+            f"C = {plan['cluster']}, grid {plan['grid']}; the card holds "
+            f"{plan['max_active_clusters']} such clusters at once")
+
+        def run(a, dt):
+            return (flat(a, folded[dt], blocks),)
+
+        def run_plain(a, dt):
+            return (fused_resnet_kernel.fused_chain_flat_plain(a, folded[dt], blocks),)
+
+        def launch(a, dt, cluster):
+            th = fused_resnet_kernel.flat_card_plan(a, folded[dt], blocks)["th"]
+            return (fused_resnet_kernel._fused_chain_flat_cuda(a, folded[dt], blocks,
+                                                               cluster=cluster, th=th),)
+
+        worst = max(worst, check_fused("fused_chain_flat", run, run_plain, x,
+                                       dict(atol=2e-4, rtol=1e-3), case))
+        x_cl = x.permute(0, 3, 1, 2)
+        section = torch.nn.Sequential(*[layer[bi] for bi in chunk])
+        with torch.inference_mode():
+            out = run(x, torch.bfloat16)[0]
+            same = (torch.equal(out, chain(x, folded[torch.bfloat16], blocks))
+                    and torch.equal(run(x[:4].float(), torch.float32)[0],
+                                    chain(x[:4].float(), folded[torch.float32], blocks)))
+            if not same:
+                raise AssertionError(f"fused_chain_flat {case}: differs from fused_chain")
+            ms = median_ms(lambda: run(x, torch.bfloat16))
+            chain_ms = median_ms(lambda: chain(x, folded[torch.bfloat16], blocks))
+            plain = median_ms(lambda: run_plain(x, torch.bfloat16), runs=3, warmup=1)
+            lib_ms = median_ms(lambda: section(x_cl))
+            if plan["cluster"] > 1:
+                plan.update(hold_cluster("fused_chain_flat", case, x, launch, plan))
+        b_ms, b_by = bound_ms(*chain_work(x, folded[torch.bfloat16], blocks, out), "bf16")
+        log(f"  fused_chain_flat {case} bf16: kernel {ms:.3f} ms, fused_chain {chain_ms:.3f} ms "
+            f"(equal to it bit for bit in bf16 and f32), plain {plain:.3f} ms (median of 3), "
+            f"unfused cuDNN section {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}) (median of 50) "
+            f"on {card}")
+        rows.append({"case": label, "blocks": list(blocks), "shape": list(shape), "ms": ms,
+                     "fused_chain_ms": chain_ms, "plain_ms": plain, "library_ms": lib_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, **plan})
+    first = rows[0]
     return entry("fused_chain_flat", "fused_resnet.cu",
-                 "avcer_tpu/ops/pallas/fused_resnet_kernel.py:507", max_abs_err=err16, ms=ms,
-                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                 shape=list(shape), fused_chain_ms=chain_ms, max_abs_err_f32=worst32,
-                 on_main_path=False)
+                 "avcer_tpu/ops/pallas/fused_resnet_kernel.py:507", max_abs_err=worst,
+                 ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                 bound_by=first["bound_by"], library_ms=first["library_ms"],
+                 shape=first["shape"], fused_chain_ms=first["fused_chain_ms"],
+                 max_abs_err_f32=worst32, on_main_path=False, cases=rows)
 
 
 def int8_modules(card: str) -> None:
@@ -868,7 +917,7 @@ def phase_kernels(card: str, fused_pipe, int8_pipe) -> list[dict]:
             + [kernels_fused_chain(card, detector, emotion), kernels_fused_ssh(card, detector),
                kernels_fused_chain(card, qdetector, qemotion, quant=True),
                kernels_fused_ssh(card, qdetector, quant=True),
-               kernels_fused_chain_flat(card, detector)])
+               kernels_fused_chain_flat(card, detector, emotion)])
 
 
 def seeded_detector(backbone: str, quant: bool, dtype: torch.dtype, device: str, **switches):
@@ -1216,7 +1265,7 @@ def phase_main(card: str, pipe, fused: bool, frames: np.ndarray, wav: np.ndarray
         "per detected frame before the top one was forced to be the only face")
     wall = float(np.median(walls))
     if profile:
-        profiled_run(card, pipe, frames, wav, label, wall)
+        profiled_run(card, pipe, frames, wav, label, wall, launches["nms_mask"])
     log(f"{label}: {frames.shape[0]} frames ({CLIP_SECONDS} s of video), wall per run "
         f"{', '.join(f'{w:.3f}' for w in walls)} s, median {wall:.3f} s = "
         f"{CLIP_SECONDS / wall:.3f} video-sec/sec on {card}; launches per run {launches}, "
@@ -1241,12 +1290,13 @@ def counts() -> dict[str, int]:
 
 
 def profiled_run(card: str, pipe, frames: np.ndarray, wav: np.ndarray, label: str,
-                 wall: float) -> None:
+                 wall: float, nms_launches: int) -> None:
     """One run under ``cli.profiled`` (what ``cli.run --profile_dir`` does):
     the union of the device's kernel, copy and set intervals in the Chrome
     trace over the run's wall (which the profiler lengthens on the host) and
     over the timed runs' median wall, and the kernels that took the most
-    device time."""
+    device time. Every NMS kernel in the trace must be the bitmask kernel,
+    as many as a timed run's ``nms_launches``."""
     path = os.path.join(ROOT, "build", "smoke_traces", label.replace(" ", "_").strip("-_"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1259,6 +1309,14 @@ def profiled_run(card: str, pipe, frames: np.ndarray, wav: np.ndarray, label: st
                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
     if not any(e["cat"] == "kernel" for e in events):
         raise AssertionError(f"{label}: the profiler's trace holds no device kernel")
+    nms = [e["name"] for e in events if e["cat"] == "kernel" and re.search(r"nms\w*_kernel",
+                                                                             e["name"])]
+    log(f"{label} under the profiler: {len(nms)} NMS kernels in the trace, "
+        f"{sum('nms_bitmask_kernel' in n for n in nms)} of them nms_bitmask_kernel "
+        f"({nms_launches} launches a timed run)")
+    if len(nms) != nms_launches or not all("nms_bitmask_kernel" in n for n in nms):
+        raise AssertionError(f"{label}: NMS kernels in the trace {sorted(set(nms))} x {len(nms)}, "
+                             f"expected nms_bitmask_kernel x {nms_launches}")
     busy, end = 0.0, -np.inf
     for start, dur in sorted((float(e["ts"]), float(e["dur"])) for e in events):
         busy += max(0.0, start + dur - max(start, end))

@@ -46,8 +46,12 @@ def nms_case(seed: int, b: int, k: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
-@pytest.mark.parametrize("b,k", [(32, 64), (3, 8), (2, 1000)])
+@pytest.mark.parametrize("b,k", [(32, 64), (128, 64), (3, 8), (1, 1), (2, 65), (2, 1000),
+                                 (1, 1024)])
 def test_nms_kernel_equals_plain(cuda_device, seed, b, k):
+    """The bitmask kernel at the main paths' detect batches (K = 64: one
+    64-bit word a row), one word and a bit more (K = 65), and up to the 16
+    words of K = 1024 (128 KB of suppression bits in shared memory)."""
     boxes, valid = nms_case(seed, b, k)
     bt = torch.from_numpy(boxes).to(cuda_device)
     vt = torch.from_numpy(valid).to(cuda_device)
@@ -213,8 +217,8 @@ WIDE_CASES = [((2, 24, 20, 512), 128, ("id", "id")), ((2, 23, 17, 64), 64, ("ds"
 def test_fused_chain_kernel_bf16_wide(cuda_device, shape, planes, blocks):
     """The bf16 product on 128 x 128 tiles against the plain version, at the
     bound of test_fused_chain_kernel_bf16; for a stride-1 chain also against
-    fused_chain_flat, whose 128 x 64 product sums the same terms in the same
-    order: equal bit for bit."""
+    fused_chain_flat, whose product (the same block_gemm_tc over flat bands)
+    sums the same terms in the same order: equal bit for bit."""
     rng = np.random.default_rng(12)
     x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device, torch.bfloat16)
     folded = tensors(chain_weights(rng, shape[-1], planes, blocks), torch.bfloat16, cuda_device)
@@ -473,6 +477,61 @@ def test_fused_chain_flat_kernel_bf16(cuda_device, shape, planes, blocks, band):
     torch.testing.assert_close(
         got.float(), fused_resnet_kernel.fused_chain_flat_plain(x, folded, blocks).float(),
         atol=2 ** -5, rtol=2 ** -5)
+
+
+# the seven stride-1 chains of the main paths (input shape, planes, blocks):
+# detector layer1, layer3 tail and last at batch 32, emotion layer1, layer2
+# last, layer3 tail and layer4 tail at batch 256
+FLAT_MAIN_PATH = [((32, 90, 160, 64), 64, ("ds", "id", "id")),
+                  ((32, 23, 40, 1024), 256, ("id", "id", "id")),
+                  ((32, 23, 40, 1024), 256, ("id",)),
+                  ((256, 55, 55, 64), 64, ("ds", "id", "id")),
+                  ((256, 28, 28, 512), 128, ("id",)),
+                  ((256, 14, 14, 1024), 256, ("id", "id", "id")),
+                  ((256, 7, 7, 2048), 512, ("id",))]
+
+
+@pytest.mark.parametrize("shape,planes,blocks", FLAT_MAIN_PATH)
+def test_fused_chain_flat_kernel_main_path_shapes(cuda_device, shape, planes, blocks):
+    """K5 at the main paths' stride-1 chains in bf16 equals K3 bit for bit."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    folded = tensors(chain_weights(rng, shape[-1], planes, blocks), torch.bfloat16, cuda_device)
+    got = fused_resnet_kernel.fused_chain_flat(x, folded, blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused_resnet_kernel.fused_chain(x, folded, blocks))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,planes,blocks", FLAT_MAIN_PATH)
+def test_fused_chain_flat_cluster_equals_one_block(cuda_device, shape, planes, blocks, dtype):
+    """A band shared by a cluster of C = 2, 3 or 4 thread blocks gives the
+    result of one block bit for bit, at the plan's band height (f32 on the
+    first 4 frames, bf16 at the full batch)."""
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device, dtype)
+    if dtype == torch.float32:
+        x = x[:4].contiguous()
+    folded = tensors(chain_weights(rng, shape[-1], planes, blocks), dtype, cuda_device)
+    th = fused_resnet_kernel.flat_card_plan(x, folded, blocks)["th"]
+    launch = fused_resnet_kernel._fused_chain_flat_cuda
+    one = launch(x, folded, blocks, cluster=1, th=th)
+    for c in (2, 3, 4):
+        got = launch(x, folded, blocks, cluster=c, th=th)
+        torch.cuda.synchronize()
+        assert torch.equal(got, one), c
+
+
+def test_fused_chain_flat_refused_cluster_raises(cuda_device):
+    """A cluster size the kernel or the card refuses raises; nothing retries
+    with another size or launches."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.normal(size=(2, 7, 7, 64)).astype(np.float32)).to(cuda_device)
+    folded = tensors(chain_weights(rng, 64, 16, ("id",)), torch.float32, cuda_device)
+    before = fused_resnet_kernel.fused_chain_flat.launches
+    with pytest.raises(RuntimeError):
+        fused_resnet_kernel._fused_chain_flat_cuda(x, folded, ("id",), cluster=16)
+    assert fused_resnet_kernel.fused_chain_flat.launches == before
 
 
 def test_fused_chain_flat_pads_input_channels(cuda_device):

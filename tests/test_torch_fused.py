@@ -417,6 +417,69 @@ def test_ssh_plan_depths(merge):
         assert (round(whole / 1e9), round(trimmed / 1e9)) == (283, 216)
 
 
+# The seven stride-1 chains of the main paths that K5 takes: (input shape,
+# cout, planes, blocks, expected (th, C, grid) for each table of what the
+# card holds: K3's measured 264 / 132 / 79 / 62 clusters, and a card that
+# holds one block an SM)
+FLAT_HELD = {"measured": HELD["measured"], "one block an SM": {1: 132, 2: 66, 3: 44, 4: 33}}
+MAIN_PATH_FLAT = [
+    ((32, 90, 160, 64), 256, 64, ("ds", "id", "id"),
+     {"measured": (23, 2, 256), "one block an SM": (30, 4, 132)}),
+    ((32, 23, 40, 1024), 1024, 256, ("id", "id", "id"),
+     {"measured": (12, 3, 192), "one block an SM": (23, 4, 128)}),
+    ((32, 23, 40, 1024), 1024, 256, ("id",),
+     {"measured": (6, 2, 256), "one block an SM": (23, 4, 128)}),
+    ((256, 55, 55, 64), 256, 64, ("ds", "id", "id"),
+     {"measured": (28, 1, 264), "one block an SM": (28, 1, 132)}),
+    ((256, 28, 28, 512), 512, 128, ("id",),
+     {"measured": (28, 1, 256), "one block an SM": (28, 1, 132)}),
+    ((256, 14, 14, 1024), 1024, 256, ("id", "id", "id"),
+     {"measured": (14, 1, 256), "one block an SM": (14, 1, 132)}),
+    ((256, 7, 7, 2048), 2048, 512, ("id",),
+     {"measured": (7, 1, 256), "one block an SM": (7, 1, 132)}),
+]
+
+
+@pytest.mark.parametrize("held", sorted(FLAT_HELD))
+@pytest.mark.parametrize("shape,cout,planes,blocks,want", MAIN_PATH_FLAT)
+def test_flat_plan_clusters(shape, cout, planes, blocks, want, held):
+    """K5's plan: the pitch is the frame's width and n halo columns a side,
+    no TPU rounding; th and C together give the fewest rounds x pixel tiles
+    a block (on the measured card the detector's layer3 in bands of 12 and 6
+    rows and clusters of 3 and 2, layer1 in bands of 23 rows, taller than
+    the 12 of a fixed 3072-pixel band, in clusters of 2: the fastest (th, C)
+    of a sweep of all of them on the card); the grid is whole clusters, at
+    most what the card holds; the scratch one slab per cluster."""
+    b, h, w, _ = shape
+    n = len(blocks)
+    p = frk.flat_plan(b, h, w, n, cout, planes, 2, FLAT_HELD[held])
+    assert (p["th"], p["cluster"], p["grid"]) == want[held]
+    assert p["pitch"] == w + 2 * n and p["rows"] == p["th"] + 2 * n
+    assert p["th"] in frk.band_heights(h, 32) and p["nb"] == -(-h // p["th"])
+    assert p["nwork"] == b * p["nb"]
+    clusters = p["grid"] // p["cluster"]
+    assert clusters == min(p["nwork"], FLAT_HELD[held][p["cluster"]])
+    slab = p["rows"] * p["pitch"] * (cout + 2 * planes) * 2
+    assert p["scratch_bytes"] == slab * clusters
+    # forcing the plan's own th and C gives the plan; another C keeps the bands
+    forced = frk.flat_plan(b, h, w, n, cout, planes, 2, FLAT_HELD[held],
+                           cluster=p["cluster"], th=p["th"])
+    assert forced == p
+    one = frk.flat_plan(b, h, w, n, cout, planes, 2, FLAT_HELD[held], cluster=1, th=p["th"])
+    assert (one["cluster"], one["nwork"], one["th"]) == (1, p["nwork"], p["th"])
+
+
+def test_flat_band_heights():
+    """The heights the plan chooses from cut the frame into equal bands but
+    the last, at most ``band`` rows each."""
+    assert frk.band_heights(90, 32)[:6] == [30, 23, 18, 15, 13, 12]
+    assert frk.band_heights(23, 32) == [23, 12, 8, 6, 5, 4, 3, 2, 1]
+    for h in (7, 23, 55, 90):
+        for th in frk.band_heights(h, 32):
+            nb = -(-h // th)
+            assert th <= 32 and (nb - 1) * th < h <= nb * th and -(-h // nb) == th
+
+
 def test_cli_fused_sets_all_seven_switches():
     cfg = cli.config_from_args(cli.parse_args(["--fused"]))
     d, v = cfg.detector, cfg.visual

@@ -320,6 +320,20 @@ def test_fused_chain_flat_plain_equals_chain_plain(shape, blocks, band):
         assert torch.equal(got, want), b
 
 
+@pytest.mark.parametrize("held", [{1: 264, 2: 132, 3: 79, 4: 62}, {1: 132, 2: 66, 3: 44, 4: 33}])
+@pytest.mark.parametrize("shape,blocks,band", FLAT_CASES)
+def test_fused_chain_flat_plain_at_the_plans_band_height(shape, blocks, band, held):
+    """The plain version over the flat bands of the plan's height (pitch W +
+    2n) equals the chain's plain version."""
+    x, folded = flat_case(shape, blocks)
+    b, h, w, cin = shape
+    cout = cin if blocks[0] == "id" else 64
+    plan = frk.flat_plan(b, h, w, len(blocks), cout, 24, 4, held, band)
+    got = frk.fused_chain_flat_plain(torch.from_numpy(x), tensors(folded), blocks, band=band,
+                                     th=plan["th"])
+    assert torch.equal(got, frk.fused_chain_plain(torch.from_numpy(x), tensors(folded), blocks))
+
+
 def test_fused_chain_flat_refusals_and_plan():
     x, folded = flat_case((1, 6, 5, 20), ("id",))
     with pytest.raises(ValueError, match="stride-1 chains only"):
@@ -329,11 +343,14 @@ def test_fused_chain_flat_refusals_and_plan():
     # a projection entry pads the input's channels (and its readers' rows)
     x, folded = flat_case((1, 6, 5, 20), ("ds",))
     xp, mask, padded, plan = frk._flat_inputs(torch.from_numpy(x), tensors(folded), ("ds",), 32, 8)
-    assert xp.shape == (1, (6 + 2) * 8, 24) and padded[0].shape[0] == padded[9].shape[0] == 24
-    assert mask.shape == (1, 8 * 8) and int(mask.sum()) == 6 * 5
-    # detector layer1: 160 + 6 columns round up to a pitch of 168, 12 rows a band
-    assert frk.flat_plan(90, 160, 3, 32) == {"th": 12, "nb": 8, "hp": 96, "pitch": 168,
-                                             "rows": 18}
+    assert xp.shape == (1, (6 + 2) * 7, 24) and padded[0].shape[0] == padded[9].shape[0] == 24
+    assert mask.shape == (1, 8 * 7) and int(mask.sum()) == 6 * 5
+    # detector layer1 on a card that holds 264 / 132 / 79 / 62 clusters of 1-4
+    # blocks: a pitch of 160 + 6 columns (no rounding to the TPU's 8
+    # sublanes), 23 rows a band, two blocks a band
+    plan = frk.flat_plan(32, 90, 160, 3, 256, 64, 2, {1: 264, 2: 132, 3: 79, 4: 62})
+    assert {k: plan[k] for k in ("th", "nb", "pitch", "rows", "nwork", "cluster", "grid")} == {
+        "th": 23, "nb": 4, "pitch": 166, "rows": 29, "nwork": 128, "cluster": 2, "grid": 256}
     before = frk.fused_chain_flat.launches
     frk.fused_chain_flat(torch.from_numpy(x), tensors(folded), ("ds",))
     assert frk.fused_chain_flat.launches == before  # the CPU path launches nothing

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 from avcer_tpu.ops.pallas.attention_kernel import pallas_mha
 from avcer_tpu.ops.pallas.nms_kernel import pallas_nms_mask
 
+from avcer_tpu_torch.ops import nms as nms_ops
 from avcer_tpu_torch.ops.cuda import attention_kernel, nms_kernel
 
 torch.set_num_threads(2)
@@ -47,6 +48,48 @@ def test_nms_plain_equals_pallas_interpret(seed, k, ties):
     got = nms_kernel.nms_mask(torch.from_numpy(boxes), torch.from_numpy(valid), 0.4)
     np.testing.assert_array_equal(got.numpy(), want)
     if ties:
+        assert not got[:, 2].any() and got[:, 5].all() and got[:, 6].all()
+        assert not got[:, 7].any()
+
+
+def nms_bitmask_model(boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.Tensor:
+    """``csrc/nms.cu``'s algorithm on the CPU: the suppression bits of a frame
+    packed into 64-bit words (``sup[i, w]`` bit b: row i suppresses column j
+    = 64 w + b > i, IoU > thresh strictly), then the greedy sweep word by
+    word, ``alive`` starting as the valid mask and row i, while alive,
+    clearing ``sup[i]`` from it. Words are Python ints."""
+    b, k, _ = boxes.shape
+    nw = -(-k // 64)
+    later = torch.arange(k)[None, :] > torch.arange(k)[:, None]
+    sup_bits = (nms_ops.iou_matrix_legacy(boxes) > thresh) & later  # [B, K, K]
+    keep = torch.zeros((b, k), dtype=torch.bool)
+    for f in range(b):
+        def words(bits):
+            return [sum(1 << j for j in range(64) if 64 * w + j < k and bits[64 * w + j])
+                    for w in range(nw)]
+
+        sup = [words(sup_bits[f, i].tolist()) for i in range(k)]
+        alive = words(valid[f].tolist())
+        for i in range(k):
+            if (alive[i // 64] >> (i % 64)) & 1:
+                alive = [a & ~s for a, s in zip(alive, sup[i])]
+        keep[f] = torch.tensor([bool((alive[j // 64] >> (j % 64)) & 1) for j in range(k)])
+    return keep
+
+
+@pytest.mark.parametrize("k", [1, 8, 63, 64, 65, 200, 1000])
+def test_nms_bitmask_model_equals_pallas_and_plain(k):
+    """The word-wise sweep of the card's kernel gives the keep masks of the
+    Pallas kernel (interpret mode) and of the plain version at one to 16
+    words a row, with the tie rows of ``nms_case`` (K >= 8)."""
+    boxes, valid = nms_case(k, 2, k, k >= 8)
+    want = np.asarray(pallas_nms_mask(jnp.asarray(boxes), jnp.asarray(valid), 0.4,
+                                      interpret=True))
+    bt, vt = torch.from_numpy(boxes), torch.from_numpy(valid)
+    got = nms_bitmask_model(bt, vt, 0.4)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(nms_kernel.nms_mask_plain(bt, vt, 0.4).numpy(), want)
+    if k >= 8:
         assert not got[:, 2].any() and got[:, 5].all() and got[:, 6].all()
         assert not got[:, 7].any()
 
