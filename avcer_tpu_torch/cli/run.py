@@ -26,13 +26,17 @@ the fused CUDA kernels (same weights, same outputs up to rounding). A
 directory of clips is served through ``Pipeline.run_many``, two clips at a
 time. ``--profile_dir DIR`` runs the single-clip ``Pipeline.run`` under
 ``torch.profiler`` (CPU, and CUDA on a card) and writes a Chrome trace into
-DIR. The JAX CLI's other flags parse as there: ``--audio_head`` defaults to
-v3 with ``--audio_classes 8`` and to v2 with 7, and the port serves v3 with 8
-classes. Flags for what the port does not run yet exit with an error that
-names the ROADMAP item porting it: another audio head or class count,
-``--save_face_crops``, ``--data_parallel``, ``--heatmaps``; ``--calibrate``
-and ``--compile_cache_dir`` are TPU-only and named in its "Not ported" list.
-``--device`` defaults to cuda and never falls back to the CPU on its own.
+DIR. The JAX CLI's other flags are served as there: ``--audio_head v1|v2|v3``
+(default v3 with ``--audio_classes 8``, v2 with 7; the 7-class audio CSV
+goes to ``audio_<padding>_<step>/``), ``--save_face_crops`` (the host-crop
+path, detect stride 1 only: every tracklet's crops as jpgs under
+``<save>/<clip>/``) and ``--heatmaps static|dynamic`` (Grad-CAM overlays of
+the step frames under ``<save>/<clip>/heatmaps_<mode>/``). Release
+checkpoints in ``--weights_dir`` are loaded (``core.checkpoint``). Refused,
+each by name, while the arguments are parsed: ``--data_parallel`` above 1
+(ROADMAP queue 1, item 11), and ``--calibrate`` and ``--compile_cache_dir``,
+TPU-only and in its "Not ported" list. ``--device`` defaults to cuda and
+never falls back to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -49,15 +53,10 @@ from avcer_tpu_torch.core.config import (AudioConfig, DetectorConfig, FusionConf
                                          PipelineConfig, VisualConfig)
 
 NOT_PORTED = {
-    "data_parallel": "ROADMAP queue 1, parallelism",
-    "heatmaps": "ROADMAP queue 1, other modules: Grad-CAM heatmaps",
-    "audio_head": "ROADMAP queue 1, item 4: ExprModel V2, V1 and 7 classes",
-    "save_face_crops": "ROADMAP queue 1, item 5: the host-crop path",
+    "data_parallel": "ROADMAP queue 1, parallelism (item 11)",
     "calibrate": "ROADMAP, \"Not ported\": TPU batch-size calibration",
     "compile_cache_dir": "ROADMAP, \"Not ported\": the XLA compile cache",
 }
-#: the audio head and class count the port serves
-AUDIO_HEAD = ("v3", 8)
 TRACE_FILE = "trace.json"
 PROFILES = ("parity", "balanced", "int8", "int8_s2", "int8_448", "int8_448_s2", "fast", "turbo",
             "max")
@@ -109,15 +108,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--compile_cache_dir", type=str, default=None)
     a = p.parse_args(argv)
     a.audio_head = a.audio_head or ("v3" if a.audio_classes == 8 else "v2")
-    asked = {"data_parallel": a.data_parallel > 1, "heatmaps": bool(a.heatmaps),
-             "audio_head": (a.audio_head, a.audio_classes) != AUDIO_HEAD,
-             "save_face_crops": a.save_face_crops, "calibrate": a.calibrate,
+    asked = {"data_parallel": a.data_parallel > 1, "calibrate": a.calibrate,
              "compile_cache_dir": bool(a.compile_cache_dir)}
-    for flag, hit in asked.items():
-        if hit:
-            what = (f"--audio_head {a.audio_head} with --audio_classes {a.audio_classes}"
-                    if flag == "audio_head" else f"--{flag}")
-            p.error(f"{what} is not ported ({NOT_PORTED[flag]})")
+    refused = [f"--{flag} is not ported ({NOT_PORTED[flag]})"
+               for flag, hit in asked.items() if hit]
+    if refused:
+        p.error("; ".join(refused))
     return a
 
 
@@ -168,8 +164,9 @@ def config_from_args(a: argparse.Namespace) -> PipelineConfig:
                           head=a.audio_head, num_classes=a.audio_classes),
         fusion=FusionConfig(use_published_weights=not a.no_published_weights,
                             ce_weights_type=a.ce_weights_type, ce_mask=not a.no_ce_mask),
+        save_face_crops=a.save_face_crops, heatmaps=a.heatmaps,
         # refused by parse_args; check_supported is the second guard
-        save_face_crops=a.save_face_crops, calibrate=a.calibrate,
+        calibrate=a.calibrate,
         weights_dir=a.weights_dir,
     )
 

@@ -15,14 +15,24 @@ tree (its ``"act_scales"`` collection, one ``amax`` per quantised conv or
 dense) into ``{module path: amax}`` for ``models.layers.load_act_scales``,
 under the same path-to-name mapping as the weights. A tree without that
 collection gives ``None``: the modules stay uncalibrated.
+
+``release_state_dict`` maps a reference checkpoint (a release file, see
+``core.checkpoint``) onto the port's names, which are already the
+reference's: it strips RetinaFace's ``module.`` prefix, fuses the positional
+conv's weight norm, and drops, with a log line each, the keys the JAX
+package's converter does not read either.
 """
 
 from __future__ import annotations
 
+import logging
+import re
 from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+log = logging.getLogger("avcer_tpu_torch")
 
 Tree = Mapping[str, Any]
 StateDict = dict[str, torch.Tensor]
@@ -211,11 +221,19 @@ def _transformer_layer(c: _SD, fp: str, tp: str) -> None:
 
 
 def _expr_model(variables: Tree) -> _SD:
-    """ExprModel V3 with its wav2vec2 (V1's GRU is not ported yet)."""
+    """ExprModel with its wav2vec2: V1 (a ``gru`` in the tree: two layers of
+    torch-gate-order cells) or V2 / V3 (two transformer layers)."""
     c = _SD(variables)
     _wav2vec2(c, "wav2vec2", "wav2vec2")
-    _transformer_layer(c, "tl1", "tl1")
-    _transformer_layer(c, "tl2", "tl2")
+    if "gru" in c.params:
+        for layer in (0, 1):
+            for gate in ("ih", "hh"):
+                node = c.p(f"gru/cell_{layer}/{gate}")
+                c.sd[f"gru.weight_{gate}_l{layer}"] = _t(np.transpose(node["kernel"]))
+                c.sd[f"gru.bias_{gate}_l{layer}"] = _t(node["bias"])
+    else:
+        _transformer_layer(c, "tl1", "tl1")
+        _transformer_layer(c, "tl2", "tl2")
     c.conv1d("time_downsample/conv1", "time_downsample.0")
     c.norm("time_downsample/bn1", "time_downsample.1")
     c.conv1d("time_downsample/conv2", "time_downsample.4")
@@ -253,6 +271,65 @@ def act_scales(family: str, variables: Tree) -> dict[str, torch.Tensor] | None:
     model of ``family`` (``models.layers.load_act_scales``), or None when the
     tree has no ``act_scales`` collection."""
     return _WALKERS[family](variables).act_scales()
+
+
+def _fused_pos_conv_weight(sd: dict[str, torch.Tensor], prefix: str) -> None:
+    """Replace torch weight norm's factors (``g * v / ||v||``, the norm over
+    dims 0 and 1) of ``prefix.conv`` by the plain weight, in either naming
+    scheme, in f64 as avcer_tpu/core/convert.py:167-182 does; a fused weight
+    stays as it is."""
+    new, old = f"{prefix}.conv.parametrizations.weight", f"{prefix}.conv"
+    if f"{new}.original0" in sd:
+        g, v = sd.pop(f"{new}.original0"), sd.pop(f"{new}.original1")
+    elif f"{old}.weight_g" in sd:
+        g, v = sd.pop(f"{old}.weight_g"), sd.pop(f"{old}.weight_v")
+    else:
+        return
+    g, v = g.float().numpy(), v.float().numpy()
+    norm = np.sqrt((v.astype(np.float64) ** 2).sum(axis=(0, 1), keepdims=True))
+    sd[f"{old}.weight"] = torch.from_numpy((g * v / norm).astype(v.dtype))
+
+
+#: keys of the reference's expr-model checkpoints that the JAX converter
+#: does not read, and why
+_EXPR_IGNORED = (
+    (re.compile(r"(^|\.)masked_spec_embed$"), "HF's SpecAugment vector, used in training only"),
+    (re.compile(r"\.positional_encoding\.pe$"), "the sinusoid, recomputed at build"),
+    (re.compile(r"\.feed_forward\.layer_norm\."),
+     "declared but never applied in the reference's forward"),
+)
+
+
+def release_state_dict(family: str, sd: Mapping[str, torch.Tensor], *,
+                       num_layers: int = 12) -> StateDict:
+    """A reference state dict of ``family`` (a key of ``CONVERTERS``) in the
+    port's names, for ``load_state_dict(strict=True)``: the caller's strict
+    load raises on any key left unknown or missing. The expr model's encoder
+    layers at or beyond ``num_layers`` are dropped (the JAX converter reads
+    the first ``num_layers``); the head's variant needs nothing here, as its
+    modules carry the reference's names."""
+    out: StateDict = {}
+    dropped: dict[str, list[str]] = {}
+    deep = re.compile(r"^wav2vec2\.encoder\.layers\.(\d+)\.")
+    for key, value in sd.items():
+        if family == "retinaface":
+            key = re.sub(r"^module\.", "", key)
+        why = None
+        if family == "expr_model":
+            why = next((w for pat, w in _EXPR_IGNORED if pat.search(key)), None)
+            m = deep.match(key)
+            if m and int(m.group(1)) >= num_layers:
+                why = f"encoder layers at or beyond num_layers = {num_layers}"
+        if why:
+            dropped.setdefault(why, []).append(key)
+            continue
+        out[key] = value
+    for why, keys in dropped.items():
+        log.info("%s checkpoint: %d keys dropped (%s): %s", family, len(keys), why,
+                 ", ".join(keys[:4]) + (", ..." if len(keys) > 4 else ""))
+    if family == "expr_model":
+        _fused_pos_conv_weight(out, "wav2vec2.encoder.pos_conv_embed")
+    return out
 
 
 CONVERTERS = {

@@ -1,11 +1,19 @@
-"""Audio emotion head ExprModel V3 (avcer_tpu/models/audio_heads.py):
-wav2vec2 -> TransformerLayer(32 heads) -> TransformerLayer(16 heads) ->
-time downsample (Conv1d k5 s3 d2 -> BN -> MaxPool1d(5) -> ReLU -> Conv1d k3
--> BN -> mean over time -> ReLU) -> Linear(hidden, C).
+"""Audio emotion heads ExprModel V1 / V2 / V3 (avcer_tpu/models/audio_heads.py),
+7 or 8 classes:
 
-Parameter names follow ``TwinExprModel`` (``time_downsample`` keeps the
-reference Sequential's indices 0, 1, 4, 5). V1 (GRU) and V2 are not ported
-yet.
+- V1: wav2vec2 -> 2-layer GRU(hidden -> 256) -> time downsample of width 256
+  -> Linear(256, C);
+- V2 and V3 (one graph; they differ only in which layers were fine-tuned):
+  wav2vec2 -> TransformerLayer(32 heads) -> TransformerLayer(16 heads) ->
+  time downsample -> Linear(hidden, C);
+- time downsample: Conv1d k5 s3 d2 -> BN -> MaxPool1d(5) -> ReLU -> Conv1d k3
+  -> BN -> mean over time -> ReLU.
+
+Parameter names follow ``TwinExprModel`` (``gru`` is the reference's
+``nn.GRU``; ``time_downsample`` keeps the reference Sequential's indices 0, 1,
+4, 5), so release files load strictly. The GRU is the JAX package's
+``lax.scan``, not a TPU kernel: it runs as the library's ``nn.GRU`` in f32
+(its weights stay f32 under ``cast_compute``), on the card cuDNN's.
 """
 
 from __future__ import annotations
@@ -32,12 +40,21 @@ class _MeanReLU(nn.Module):
 class ExprModel(nn.Module):
     """Normalised waveform [B, samples] -> logits [B, num_classes]."""
 
-    def __init__(self, num_classes: int = 8, wav2vec2_config: Wav2Vec2Config | None = None):
+    def __init__(self, variant: str = "v3", num_classes: int = 8,
+                 wav2vec2_config: Wav2Vec2Config | None = None):
         super().__init__()
+        self.variant = variant
         self.wav2vec2 = Wav2Vec2Model(wav2vec2_config)
-        f = self.wav2vec2.config.hidden_size
-        self.tl1 = TransformerLayer(f, 32)
-        self.tl2 = TransformerLayer(f, 16)
+        hidden = self.wav2vec2.config.hidden_size
+        if variant == "v1":
+            self.gru = nn.GRU(hidden, 256, num_layers=2, batch_first=True)
+            f = 256
+        elif variant in ("v2", "v3"):
+            self.tl1 = TransformerLayer(hidden, 32)
+            self.tl2 = TransformerLayer(hidden, 16)
+            f = hidden
+        else:
+            raise ValueError(f"unknown ExprModel variant {variant!r}")
         self.time_downsample = nn.Sequential(
             nn.Conv1d(f, f, 5, stride=3, dilation=2), BatchNorm(f), _MaxPool(),
             nn.ReLU(), nn.Conv1d(f, f, 3), BatchNorm(f), _MeanReLU(),
@@ -51,7 +68,10 @@ class ExprModel(nn.Module):
         h = self.wav2vec2(wav, mode=w2v_mode)
         if w2v_mode == "features_only":
             return h
-        h = self.tl2(self.tl1(h))
+        if self.variant == "v1":
+            h = self.gru(h.float())[0].to(h.dtype)
+        else:
+            h = self.tl2(self.tl1(h))
         if h.shape[1] < 51:
             # the VALID conv/pool stack would leave an empty time axis
             raise ValueError(

@@ -77,7 +77,8 @@ class Bottleneck(nn.Module):
 
 class EmotionResNet50(FoldCache):
     """Normalised BGR crops [B, H, W, 3] -> (logits [B, C], features [B, 512])
-    with features = relu(fc1)."""
+    with features = relu(fc1); with ``return_act4`` also layer4's output
+    [B, 2048, h, w] (NCHW; fused, K3's), for Grad-CAM."""
 
     def __init__(self, num_classes: int = 7, fused: bool = False, fused_entries: bool = False,
                  quant: bool = False):
@@ -101,7 +102,7 @@ class EmotionResNet50(FoldCache):
         self.fc1 = nn.Linear(2048, 512)
         self.fc2 = nn.Linear(512, num_classes)
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, return_act4: bool = False) -> tuple[torch.Tensor, ...]:
         x = x.permute(0, 3, 1, 2).to(self.fc1.weight.dtype)  # the fc head is never int8
         ph = same_pad(x.shape[2], 7, 2)
         pw = same_pad(x.shape[3], 7, 2)
@@ -124,4 +125,6 @@ class EmotionResNet50(FoldCache):
                 kinds = tuple(("s2pre" if li > 0 else "ds") if bi == 0 else "id" for bi in chunk)
                 x = fused_section(self, x, layer, li, chunk, kinds)
         features = F.relu(self.fc1(x.mean(dim=(2, 3))))
+        if return_act4:
+            return self.fc2(features), features, x
         return self.fc2(features), features

@@ -1,6 +1,7 @@
 """Audio emotion stage (avcer_tpu/pipeline/audio_stage.py): every 4 s /
 0.5 s window of the clip, extracted and normalised on the device from one
-wav upload, through wav2vec2 + ExprModel V3 in batches of
+wav upload, through wav2vec2 + the ExprModel head (``AudioConfig.head`` V1,
+V2 or V3, with ``num_classes`` 7 or 8) in batches of
 ``AudioConfig.batch_size``; one logits fetch per clip.
 
 Windows map to frames (and overlaps average per frame) through index arrays
@@ -56,10 +57,6 @@ def make_windows(num_samples: int, cfg: AudioConfig, fps: float) -> AudioWindows
 class AudioStage:
     def __init__(self, model: torch.nn.Module, cfg: AudioConfig,
                  device: torch.device | str = "cuda"):
-        if cfg.head != "v3" or cfg.num_classes != 8:
-            raise ValueError(
-                f"audio head {cfg.head!r} with {cfg.num_classes} classes: only "
-                "ExprModel V3 with 8 classes is ported (ROADMAP queue 1, item 9)")
         if cfg.quant not in ("none", "int8") or (cfg.quant == "int8") != bool(
                 model.wav2vec2.config.quant):
             raise ValueError(f"quant={cfg.quant!r} does not fit the model it was given")

@@ -1,31 +1,33 @@
 """Pipeline construction (avcer_tpu/pipeline/builder.py): the four model
-families at full width, weights from a JAX parameter tree handed in or from
-a seeded random init, placed on ``device`` in the compute dtype.
+families at full width, placed on ``device`` in the compute dtype, with
+weights from a JAX parameter tree handed in, else from the reference's
+release file in ``weights_dir`` (``core.checkpoint.resolve``, mapped by
+``core.convert.release_state_dict``), else from a seeded random init with a
+warning, as the JAX package does. Every load is strict: a key left unknown
+or missing raises.
 
-The port has no checkpoint loader yet. When the release files are absent it
-warns and uses its seeded init, as the JAX package does; when any of them is
-present under ``weights_dir`` it raises rather than serve random weights
-beside real ones or load them half-way.
+The audio family is ``expr_model_8cl`` or ``expr_model_7cl`` by the class
+count, built as ``AudioConfig.head`` says; the detector's is named after its
+backbone.
 
 With ``quant == "int8"`` in a stage's config its model is built in the int8
 variant over the same state dict; the stage then seeds the activation scales
 (see each stage). A JAX tree that carries an ``act_scales`` collection hands
 its calibrated scales to the model before that, so both sides quantise with
-the same scales; the JAX package's calibration sidecars on disk wait for
-checkpoint loading (ROADMAP queue 1, item 10).
+the same scales; the JAX package's calibration sidecars on disk are refused
+(``core.checkpoint``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-import os
 from typing import Any, Mapping, Optional
 
 import torch
 
 from avcer_tpu_torch.core.config import PipelineConfig
-from avcer_tpu_torch.core import convert
+from avcer_tpu_torch.core import checkpoint, convert
 from avcer_tpu_torch.models.audio_heads import ExprModel
 from avcer_tpu_torch.models.emotion_resnet import EmotionResNet50
 from avcer_tpu_torch.models.layers import cast_compute, load_act_scales, seeded_init_
@@ -39,35 +41,7 @@ from avcer_tpu_torch.pipeline.visual import VisualStage
 
 log = logging.getLogger("avcer_tpu_torch")
 
-#: release checkpoint files per family (avcer_tpu/core/checkpoint.py); the
-#: detector's file and cache are named after its backbone
-RELEASE_FILES = {
-    "retinaface": "Resnet50_Final.pth",
-    "retinaface_mnet025": "mobilenet0.25_Final.pth",
-    "emotion_resnet50": "FER_static_ResNet50_AffectNet.pt",
-    "temporal_lstm": "FER_dinamic_LSTM_Aff-Wild2.pt",
-    "expr_model": os.path.join("FLW-ExprModelV3-2024.03.02-11.42.11", "epoch_63.pth"),
-}
-#: the JAX package's converted-weight cache directory per family
-JAX_CACHE_NAMES = {"retinaface": "retinaface", "retinaface_mnet025": "retinaface_mnet025",
-                   "emotion_resnet50": "emotion_resnet50",
-                   "temporal_lstm": "temporal_lstm", "expr_model": "expr_model_8cl"}
-
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def _check_no_release_weights(weights_dir: str, backbone: str) -> None:
-    other = "retinaface_mnet025" if backbone == "resnet50" else "retinaface"
-    found = [p for fam, name in RELEASE_FILES.items() if fam != other
-             for p in (os.path.join(weights_dir, name),
-                       os.path.join(weights_dir, "jax", JAX_CACHE_NAMES[fam]))
-             if os.path.exists(p)]
-    if found:
-        raise NotImplementedError(
-            f"checkpoints found ({', '.join(found)}) but the port cannot load "
-            "them yet (ROADMAP queue 1, item 10: build_pipeline loading "
-            ".pt/.pth); move them away to run on seeded random weights, or "
-            "pass jax_variables")
 
 
 def build_pipeline(
@@ -82,8 +56,9 @@ def build_pipeline(
     ``jax_variables``: optional ``{family: numpy variable tree}`` for the
     families "retinaface" (either backbone's tree, as ``cfg.detector.backbone``
     says), "emotion_resnet50", "temporal_lstm" and "expr_model", converted
-    with ``core.convert`` and loaded strictly; every
-    family not given is initialised from ``torch.Generator().manual_seed(seed)``.
+    with ``core.convert`` and loaded strictly. Every family not given is
+    loaded from its release file in ``cfg.weights_dir``, or where there is
+    none initialised from ``torch.Generator().manual_seed(seed)``.
     """
     check_supported(cfg)
     device = torch.device(device)
@@ -103,17 +78,27 @@ def build_pipeline(
                                             fused_entries=cfg.visual.fused_entries,
                                             quant=cfg.visual.quant == "int8"),
         "temporal_lstm": TemporalLSTM(cfg.visual.num_classes),
-        "expr_model": ExprModel(cfg.audio.num_classes, w2v2),
+        "expr_model": ExprModel(cfg.audio.head, cfg.audio.num_classes, w2v2),
+    }
+    #: the release family of each model, and whether it is served in int8
+    release = {
+        "retinaface": (checkpoint.detector_family(cfg.detector.backbone),
+                       cfg.detector.quant == "int8"),
+        "emotion_resnet50": ("emotion_resnet50", cfg.visual.quant == "int8"),
+        "temporal_lstm": ("temporal_lstm", False),
+        "expr_model": (checkpoint.audio_family(cfg.audio.num_classes), cfg.audio.quant == "int8"),
     }
     given = dict(jax_variables or {})
     unknown = set(given) - set(models)
     if unknown:
         raise ValueError(f"jax_variables: unknown families {sorted(unknown)}")
-    if len(given) < len(models):
-        _check_no_release_weights(cfg.weights_dir, cfg.detector.backbone)
+    files = {family: checkpoint.resolve(cfg.weights_dir, *release[family])
+             for family in models if family not in given}
+    seeded = sorted(release[family][0] for family, sd in files.items() if sd is None)
+    if seeded:
         log.warning("no checkpoints for %s under %s — using seeded random "
                     "initialization (outputs will not match the published models)",
-                    sorted(set(models) - set(given)), cfg.weights_dir)
+                    seeded, cfg.weights_dir)
     gen = torch.Generator().manual_seed(seed)
     for family, model in models.items():
         if family in given:
@@ -121,6 +106,10 @@ def build_pipeline(
             scales = convert.act_scales(family, given[family])
             if scales is not None:
                 load_act_scales(model, scales)
+        elif files[family] is not None:
+            model.load_state_dict(convert.release_state_dict(
+                family, files[family], num_layers=w2v2.num_layers), strict=True)
+            log.info("%s: loaded from %s", release[family][0], cfg.weights_dir)
         else:
             seeded_init_(model, gen)
         model.eval().requires_grad_(False)

@@ -19,6 +19,7 @@ from typing import Iterator
 import numpy as np
 
 from avcer_tpu_torch.ops.audio import mixdown_mono, resample
+from avcer_tpu_torch.ops.image import nearest_indices_np
 
 
 @dataclass
@@ -183,3 +184,12 @@ def extract_audio(path_video: str, sample_rate: int = 16_000) -> np.ndarray:
     if sr != sample_rate:
         mono = resample(mono, sr, sample_rate)
     return np.asarray(mono, dtype=np.float32)
+
+
+def resize_nearest_np(img: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
+    """PIL-NEAREST resize on the host by an integer gather, bit for bit
+    PIL's (``ops.image.nearest_indices_np``): the host-crop path's crops."""
+    h, w = img.shape[:2]
+    ri = nearest_indices_np(out_hw[0], h)
+    ci = nearest_indices_np(out_hw[1], w)
+    return img[ri[:, None], ci[None, :]]

@@ -4,7 +4,12 @@ fusion and the reference's output tree.
 
 Frames stay on the device from upload to crop: detection of batch N+1 is
 enqueued before batch N's result is fetched for the host tracker, and the
-crops for the CNN are gathered from the device frame buffer. The serving
+crops for the CNN are gathered from the device frame buffer. ``--heatmaps``
+fetches the step frames' crops on the side for its Grad-CAM overlays. With
+``save_face_crops`` the clip takes the host-crop path instead: every
+tracklet's crops are cut from the host frames and written as jpgs, the
+reference's ``<save>/<clip>/<tid-1:02d>/<frame:06d>.jpg``, and tracklet 1's,
+resized on the host, go to the CNN; it is host-bound by design. The serving
 approximations of the presets live here: a detect stride (boxes interpolated
 between detections), ``cnn_stride`` (the static CNN on a subset of frames,
 the dynamic stream unchanged) and ``run_many`` (clips overlapped). The audio
@@ -34,8 +39,8 @@ from avcer_tpu_torch.ops import image as image_ops
 from avcer_tpu_torch.pipeline import media
 from avcer_tpu_torch.pipeline.audio_stage import AudioStage, AudioWindows
 from avcer_tpu_torch.pipeline.detect import DetectStage
-from avcer_tpu_torch.pipeline.visual import (VisualStage, build_temporal_plan, cnn_compute_sel,
-                                             subset_forward_fill)
+from avcer_tpu_torch.pipeline.visual import (TemporalPlan, VisualStage, build_temporal_plan,
+                                             cnn_compute_sel, subset_forward_fill)
 
 log = logging.getLogger("avcer_tpu_torch")
 
@@ -56,7 +61,8 @@ class ClipResult:
     audio_window_of_row: np.ndarray
     compound: Optional[compound_mod.CompoundResult] = None
     timings: dict[str, float] = field(default_factory=dict)
-    face_boxes: Optional[np.ndarray] = None  # [T, 4] int32, -1 rows where no face
+    #: [T, 4] int32, -1 rows where no face; None on the host-crop path
+    face_boxes: Optional[np.ndarray] = None
 
     @property
     def rtf(self) -> float:
@@ -67,9 +73,9 @@ def check_supported(cfg: PipelineConfig) -> None:
     """Raise for configuration the port does not run yet, naming the ROADMAP
     item that ports it. Nothing is quietly ignored."""
     unsupported = {
-        "mesh.data > 1 (data parallel; ROADMAP queue 1, parallelism)": cfg.mesh.data > 1,
-        "heatmaps (ROADMAP queue 1, other modules: Grad-CAM)": bool(cfg.heatmaps),
-        "save_face_crops (ROADMAP queue 1, item 5: the host-crop path)": cfg.save_face_crops,
+        "mesh.data > 1 (data parallel; ROADMAP queue 1, item 11: parallelism)": cfg.mesh.data > 1,
+        f"heatmaps={cfg.heatmaps!r} (only '', 'static' and 'dynamic' exist)":
+            cfg.heatmaps not in ("", "static", "dynamic"),
         f"visual.quant={cfg.visual.quant!r} (only 'none' and 'int8' exist)":
             cfg.visual.quant not in ("none", "int8"),
         "calibrate (not ported: batch sizes are measured with bench.py)": cfg.calibrate,
@@ -103,13 +109,74 @@ class Pipeline:
                           minimum_face_size=self.cfg.detector.min_face_size,
                           gap_frames=self.cfg.detector.stride)
 
-    def detect_track_device(self, reader, cnn_step: Optional[int] = None
-                            ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    def detect_and_crop(self, reader, save_dir: Optional[str] = None
+                        ) -> tuple[np.ndarray, np.ndarray]:
+        """The host-crop path (detect stride 1: ``PipelineConfig`` refuses
+        ``save_face_crops`` with another): detection batches on the device (two
+        in flight), the host tracker, and every tracklet's crop cut from the host
+        frame with the reference's int cast and clamp; with ``save_dir`` each
+        goes to ``<save_dir>/<clip>/<tid-1:02d>/<frame:06d>.jpg``. Returns
+        (present [T] for tracklet 1, its crops [P, 224, 224, 3] uint8 BGR
+        resized PIL-nearest on the host, in frame order)."""
+        import cv2
+
+        tracker = self._new_tracker()
+        meta = reader.meta
+        name = os.path.basename(meta.path)
+        base = name[: name.rfind(".")] if "." in name else name
+        present: list[bool] = []
+        crops: list[np.ndarray] = []
+        pending: list[tuple[np.ndarray, int, torch.Tensor, float]] = []
+
+        def drain(frames_np: np.ndarray, n_valid: int, packed: torch.Tensor, scale: float):
+            det = self.detect.unpack(packed.cpu().numpy(), scale)
+            frame0 = len(present)
+            for i in range(n_valid):
+                kept = det.keep[i]
+                frame_dets = np.concatenate([det.boxes[i][kept], det.scores[i][kept][:, None]],
+                                            axis=1)
+                tids = tracker(frame_dets)
+                cb, cb_ok = image_ops.clamp_boxes_valid(frame_dets, meta.width, meta.height)
+                got_target = False
+                for j, tid in enumerate(tids):
+                    if tid is None or not cb_ok[j]:
+                        continue
+                    x1, y1, x2, y2 = cb[j]
+                    crop = frames_np[i, y1:y2, x1:x2]
+                    if save_dir is not None:
+                        path = os.path.join(save_dir, base, str(tid - 1).zfill(2))
+                        os.makedirs(path, exist_ok=True)
+                        cv2.imwrite(os.path.join(path, str(frame0 + i).zfill(6) + ".jpg"), crop)
+                    if tid == 1 and not got_target:
+                        crops.append(media.resize_nearest_np(crop, (224, 224)))
+                        got_target = True
+                present.append(got_target)
+
+        for frames_np, n_valid in media.prefetch_iter(reader.batches(self.cfg.detector.batch_size)):
+            packed, scale, _ = self.detect.dispatch(frames_np)
+            pending.append((frames_np, n_valid, packed, scale))
+            if len(pending) > 2:  # keep 2 batches in flight
+                drain(*pending.pop(0))
+        while pending:
+            drain(*pending.pop(0))
+        return (np.asarray(present, bool),
+                np.stack(crops) if crops else np.zeros((0, 224, 224, 3), np.uint8))
+
+    def detect_track_device(self, reader, crop_step: Optional[int] = None,
+                            cnn_step: Optional[int] = None
+                            ) -> tuple[np.ndarray, np.ndarray, np.ndarray, Optional[np.ndarray],
+                                       np.ndarray]:
         """Detection batches on the device, the host tracker per detected
         frame, the target face (tracklet 1) cropped from the device frame
         buffer into the CNN once per chunk of ``CHUNK_FRAMES`` frames. Returns
-        (present [T], stat_probs [P, C], feats [P, 512], face_boxes [T, 4]
-        int32 native int-cast+clamp coords, -1 rows where no face).
+        (present [T], stat_probs [P, C], feats [P, 512], step_crops,
+        face_boxes [T, 4] int32 native int-cast+clamp coords, -1 rows where no
+        face).
+
+        ``crop_step``: also fetch the uint8 224x224 crops of the present
+        frames whose index is a multiple of it (the step frames of
+        ``build_temporal_plan``), for the heatmaps; ``step_crops`` is None
+        without it.
 
         With ``DetectorConfig.stride`` > 1 the detector ran on every
         stride-th frame; the frames between get the linear interpolation of
@@ -132,6 +199,7 @@ class Pipeline:
         stat_list, feats_list = [], []
         pending: list[tuple[Any, int, torch.Tensor, float]] = []
         det_boxes_nat: list[Optional[np.ndarray]] = []
+        step_crops_list: list[np.ndarray] = []
         drained = 0
         chunk_cap = max(cfg.batch_size, CHUNK_FRAMES)
         stride = cfg.stride
@@ -203,6 +271,11 @@ class Pipeline:
             boxes_nat_all.append(np.where(present[:, None], bi_.astype(np.int32), -1))
             present_idx = frame_ids[present].astype(np.int32)
             boxes_lb = b[present]
+            if crop_step:
+                gsel = present & ((global_base + frame_ids) % crop_step == 0)
+                if gsel.any():
+                    step_crops_list.append(self.visual.fetch_crops(frames_dev, frame_ids[gsel],
+                                                                   b[gsel]))
             if present_idx.size:
                 if cs > 1:
                     # int8: refine the scales on the same leading present
@@ -243,7 +316,11 @@ class Pipeline:
         feats = np.concatenate(feats_list) if feats_list else np.zeros((0, 512), np.float32)
         face_boxes = (np.concatenate(boxes_nat_all) if boxes_nat_all
                       else np.zeros((0, 4), np.int32))
-        return np.asarray(present_all, bool), stat, feats, face_boxes
+        step_crops = None
+        if crop_step:
+            step_crops = (np.concatenate(step_crops_list) if step_crops_list
+                          else np.zeros((0, 224, 224, 3), np.uint8))
+        return np.asarray(present_all, bool), stat, feats, step_crops, face_boxes
 
     def _audio_task(self, path_video: str, wav: Optional[np.ndarray], fps: float,
                     duration_frames: int
@@ -287,9 +364,14 @@ class Pipeline:
 
         t0 = time.perf_counter()
         step = registry.dynamic_step(meta.fps)
+        want_heatmaps = bool(self.cfg.heatmaps and path_save)
+        crops = step_crops = face_boxes = None
         try:
-            present, stat_probs_p, feats_p, face_boxes = self.detect_track_device(
-                reader, cnn_step=step)
+            if self.cfg.save_face_crops:
+                present, crops = self.detect_and_crop(reader, path_save or None)
+            else:
+                present, stat_probs_p, feats_p, step_crops, face_boxes = self.detect_track_device(
+                    reader, crop_step=step if want_heatmaps else None, cnn_step=step)
         finally:
             reader.release()
         total_frames = meta.total_frames or len(present)
@@ -297,11 +379,23 @@ class Pipeline:
         timings["detect"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
+        if crops is not None:
+            stat_probs_p, feats_p = self._static_of_crops(crops, present, step)
         plan = build_temporal_plan(present[:total_frames], step)
         dyn_logits_s = self.visual.run_dynamic(feats_p, plan)
         stat_probs, dyn_logits = self.visual.expand_to_frames(
             stat_probs_p, dyn_logits_s, plan, self.cfg.visual.num_classes)
         timings["visual"] = time.perf_counter() - t0
+
+        if want_heatmaps and plan.step_frames.size:
+            t0 = time.perf_counter()
+            # host crops span every present frame; the device path fetched
+            # the step frames' only, over the whole decode (the plan may be
+            # cut to the metadata's frame count)
+            self._save_heatmaps(crops if crops is not None else step_crops[:plan.step_frames.size],
+                                stat_probs_p, dyn_logits_s, plan, name_video, path_save,
+                                crops_are_step_subset=crops is None)
+            timings["heatmaps"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         audio_logits, audio_windows, audio_thread_sec = audio_future.result()
@@ -326,7 +420,8 @@ class Pipeline:
             audio_window_logits=audio_logits,
             audio_frame_ids=audio_windows.frame_ids,
             audio_window_of_row=audio_windows.window_of_row,
-            compound=result, timings=timings, face_boxes=face_boxes[:total_frames],
+            compound=result, timings=timings,
+            face_boxes=face_boxes[:total_frames] if face_boxes is not None else None,
         )
         if path_save:
             with self._save_lock:
@@ -346,6 +441,46 @@ class Pipeline:
         with ThreadPoolExecutor(max_workers=overlap) as ex:
             futures = [ex.submit(self.run, p, path_save) for p in paths]
             return [f.result() for f in futures]
+
+    def _static_of_crops(self, crops: np.ndarray, present: np.ndarray, step: int
+                         ) -> tuple[np.ndarray, np.ndarray]:
+        """The host-crop path's static CNN: every present frame's crop, or
+        under ``cnn_stride`` the selected ones, held over the frames between
+        (calibrated first on the same leading crops as per-frame serving)."""
+        cs = self.cfg.visual.cnn_stride or step
+        if cs <= 1 or not len(crops):
+            return self.visual.run_static(crops)
+        self.visual.ensure_calibrated_crops(crops)
+        sel, _ = cnn_compute_sel(np.flatnonzero(present), step, cs)
+        stat_c, feats_c = self.visual.run_static(crops[sel])
+        return subset_forward_fill(sel, stat_c, None)[0], subset_forward_fill(sel, feats_c, None)[0]
+
+    def _save_heatmaps(self, crops: np.ndarray, stat_probs_p: np.ndarray,
+                       dyn_logits_s: np.ndarray, plan: TemporalPlan, name_video: str,
+                       path_save: str, crops_are_step_subset: bool = False) -> None:
+        """Grad-CAM overlays of the step frames (get_prob_video.py:131-152)
+        as ``<save>/<clip>/heatmaps_<mode>/<frame:06d>.jpg``: the CAM's class
+        is the argmax of the static probabilities or of the dynamic logits,
+        as ``cfg.heatmaps`` says. ``crops`` are every present frame's, or with
+        ``crops_are_step_subset`` the step frames' only; 32 at a time."""
+        import cv2
+
+        from avcer_tpu_torch.utils.gradcam import render_heatmap
+
+        mode = self.cfg.heatmaps
+        out_dir = os.path.join(path_save, name_video, f"heatmaps_{mode}")
+        os.makedirs(out_dir, exist_ok=True)
+        step_idx = plan.step_frames  # indices into the present-frame arrays
+        classes = (dyn_logits_s.argmax(-1) if mode == "dynamic"
+                   else stat_probs_p[step_idx].argmax(-1))
+        present_frames = np.flatnonzero(plan.present)
+        for s in range(0, len(step_idx), 32):
+            idx = step_idx[s:s + 32]
+            batch = crops[s:s + len(idx)] if crops_are_step_subset else crops[idx]
+            masks = self.visual.gradcam(batch, classes[s:s + len(idx)])
+            for j, ci in enumerate(idx):
+                overlay = render_heatmap(masks[j], batch[j], use_rgb=False, image_weight=0.8)
+                cv2.imwrite(os.path.join(out_dir, f"{present_frames[ci]:06d}.jpg"), overlay)
 
     def save_outputs(self, clip: ClipResult, path_save: str) -> None:
         """static/dynamic/audio CSVs, the compound txt and the plot, named as
@@ -367,10 +502,18 @@ class Pipeline:
             os.path.join(path_save, f"dynamic__{clip.name_video}.csv"), index=False)
         pd.DataFrame(clip.stat_probs, columns=emo_video).to_csv(
             os.path.join(path_save, f"static__{clip.name_video}.csv"), index=False)
+        # the 7-class front end writes under audio_{padding}_{step}
+        # (get_prob_audio_7_cl.py:153)
+        acfg = self.cfg.audio
         adf = pd.DataFrame(clip.audio_window_logits[clip.audio_window_of_row],
-                           columns=cols(registry.AUDIO_EMOTIONS_8))
+                           columns=cols(registry.AUDIO_EMOTIONS_8 if acfg.num_classes == 8
+                                        else registry.AUDIO_EMOTIONS_7))
         adf["frames"] = [str(i).zfill(6) + ".jpg" for i in clip.audio_frame_ids]
-        adf.to_csv(os.path.join(path_save, f"audio__{clip.name_video}.csv"), index=False)
+        audio_dir = path_save
+        if acfg.num_classes != 8:
+            audio_dir = os.path.join(path_save, f"audio_{acfg.padding}_{acfg.step_sec}")
+            os.makedirs(audio_dir, exist_ok=True)
+        adf.to_csv(os.path.join(audio_dir, f"audio__{clip.name_video}.csv"), index=False)
 
         fcfg = self.cfg.fusion
         if self.cfg.save_probs and clip.compound is not None:

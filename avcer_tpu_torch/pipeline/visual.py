@@ -14,6 +14,11 @@ temporal plan that reproduces the reference's per-frame loop
 and ``subset_forward_fill`` are the host helpers of ``VisualConfig.cnn_stride``
 serving (the runner applies them per chunk).
 
+The device path crops from the frame buffer (``run_static_from_frames``);
+the host-crop path of ``save_face_crops`` hands in crops made on the host
+(``run_static``). ``gradcam`` gives the Grad-CAM masks of ``--heatmaps``,
+whose crops the device path fetches with ``fetch_crops``.
+
 int8 (``VisualConfig.quant == "int8"``): the static CNN's activation scales
 are seeded at build on two noise crops and refined once per process on the
 first real crops (running max); calibration forwards run the unfused int8
@@ -31,6 +36,7 @@ import torch
 
 from avcer_tpu_torch.models import layers
 from avcer_tpu_torch.ops.image import crop_and_resize, vggface_normalize
+from avcer_tpu_torch.utils.gradcam import gradcam_masks
 
 
 @dataclass
@@ -183,6 +189,48 @@ class VisualStage:
             outs.append(torch.cat([torch.softmax(logits.float(), dim=-1), feats.float()], -1))
         packed = torch.cat(outs)[:p].cpu().numpy()
         return packed[:, :self.num_classes], packed[:, self.num_classes:]
+
+    @torch.inference_mode()
+    def run_static(self, crops: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Host crops [P, 224, 224, 3] uint8 BGR -> (probs [P, C], features
+        [P, 512]), in batches of exactly ``batch_size`` crops, the last one
+        filled up with the last crop (see ``run_static_from_frames``)."""
+        p = crops.shape[0]
+        if p == 0:
+            return (np.zeros((0, self.num_classes), np.float32),
+                    np.zeros((0, 512), np.float32))
+        self.ensure_calibrated_crops(crops)
+        bs = self.batch_size
+        filled = np.concatenate([crops, np.repeat(crops[-1:], (-p) % bs, axis=0)])
+        outs = []
+        for s in range(0, p, bs):
+            x = torch.from_numpy(np.ascontiguousarray(filled[s:s + bs])).to(self.device)
+            logits, feats = self.static_model(vggface_normalize(x))
+            outs.append(torch.cat([torch.softmax(logits.float(), dim=-1), feats.float()], -1))
+        packed = torch.cat(outs)[:p].cpu().numpy()
+        return packed[:, :self.num_classes], packed[:, self.num_classes:]
+
+    @torch.inference_mode()
+    def fetch_crops(self, frames_dev: torch.Tensor, idx: np.ndarray,
+                    boxes: np.ndarray) -> np.ndarray:
+        """The uint8 224x224 crops of frames ``idx`` of the device frame
+        buffer, as the CNN sees them, fetched to the host: the step frames'
+        for the heatmaps, without sending the whole clip down the host-crop
+        path."""
+        crops = crop_and_resize(frames_dev, torch.from_numpy(idx.astype(np.int64)).to(self.device),
+                                torch.from_numpy(boxes.astype(np.int64)).to(self.device), 224)
+        return crops.cpu().numpy()
+
+    def gradcam(self, crops: np.ndarray, class_idx: np.ndarray) -> np.ndarray:
+        """Grad-CAM masks [B, h4, w4] of crops [B, 224, 224, 3] uint8 BGR for
+        the classes ``class_idx`` [B]: layer4's output from one forward of
+        the static model (fused: K3's), then ``utils.gradcam.gradcam_masks``
+        through the fc head in f32."""
+        with torch.inference_mode():
+            x = torch.from_numpy(np.ascontiguousarray(crops)).to(self.device)
+            _, _, act4 = self.static_model(vggface_normalize(x), return_act4=True)
+        masks = gradcam_masks(act4, self.static_model.fc1, self.static_model.fc2, class_idx)
+        return masks.cpu().numpy()
 
     @torch.inference_mode()
     def run_dynamic(self, feats: np.ndarray, plan: TemporalPlan) -> np.ndarray:

@@ -1,8 +1,8 @@
-"""Result visualisation (avcer_tpu/utils/viz.py), the part the ported path
-draws: the per-frame compound-prediction plot that ``Pipeline.save_outputs``
-writes (the reference's visualization/visualize.py:175-215). Rendered with
-matplotlib on the host; confusion and weight matrices and the CAM overlay
-come with the modules that use them.
+"""Result visualisation (avcer_tpu/utils/viz.py), the parts the ported paths
+draw: the per-frame compound-prediction plot that ``Pipeline.save_outputs``
+writes (the reference's visualization/visualize.py:175-215), rendered with
+matplotlib, and the Grad-CAM overlay of ``--heatmaps`` (visualize.py:218-253),
+with cv2. Confusion and weight matrices come with the modules that use them.
 """
 
 from __future__ import annotations
@@ -46,3 +46,25 @@ def plot_compound_expression_prediction(
         plt.close(fig)
         return None
     return fig
+
+
+def show_cam_on_image(
+    img: np.ndarray,  # float32 [H, W, 3] in [0, 1]
+    mask: np.ndarray,  # float32 [H, W] in [0, 1]
+    use_rgb: bool = False,
+    colormap: int = 2,  # cv2.COLORMAP_JET
+    image_weight: float = 0.5,
+) -> np.ndarray:
+    """Grad-CAM overlay: the mask colour-mapped, blended with the image,
+    returned as uint8."""
+    import cv2
+
+    heatmap = cv2.applyColorMap(np.uint8(255 * mask), colormap)
+    if use_rgb:
+        heatmap = cv2.cvtColor(heatmap, cv2.COLOR_BGR2RGB)
+    heatmap = np.float32(heatmap) / 255
+    if np.max(img) > 1:
+        raise ValueError("show_cam_on_image expects img in [0, 1]")
+    cam = image_weight * img + (1 - image_weight) * heatmap
+    cam = cam / np.max(cam)
+    return np.uint8(255 * cam)

@@ -31,8 +31,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    the same call at C = 1 (and timed there); fused_ssh_heads likewise at each
    of its calls (the r50 detector's scales 2 and 3 in clusters of at least
    128 blocks in all); nms_mask also at the mobilenet presets' detect batch
-   of 128, with its device time from a profiler trace beside its time a
-   call; fused_chain_flat at the seven stride-1 chains of those calls, each
+   of 128 and at [2, 1000] (no path's K), with its device time from a
+   profiler trace beside its time a call and the plain version's;
+   fused_chain_flat at the seven stride-1 chains of those calls, each
    with its plan (band height, C, grid), equal to fused_chain bit for bit
    and, where C > 1, to C = 1, timed beside fused_chain (its plain version
    over 3 runs);
@@ -53,7 +54,17 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    these paths and of the presets', each kernel call with shapes, types or
    modes that no path has shown yet is held against the kernel's plain
    version on the call's own inputs;
-7. the presets: ``max --fused`` and ``turbo`` unfused the same way (three
+7. release files and the rest of the CLI: the seeded f32 weights written as
+   the reference's release files (the detector's ``module.`` prefix, the
+   trainer's wrapper, the positional conv's weight-norm factors),
+   ``parity --fused`` built from them, its outputs equal to those of the same
+   weights handed in directly; then ``--fused --save_face_crops --heatmaps
+   static --audio_classes 7`` (the host-crop path) and ``--fused --heatmaps
+   dynamic --audio_head v1`` (the device path, V1's GRU), each with every
+   distinct kernel call of its warm-up run held against the plain version
+   (K1's and K3's too), and in a second run its launches, its jpgs,
+   heatmaps and audio CSV checked; V1's audio stage timed against V3's;
+8. the presets: ``max --fused`` and ``turbo`` unfused the same way (three
    timed runs, launch counts: ``fused_ssh_heads`` three times a detect batch
    and every launch with leaky 0.1; ``max --fused`` also one profiled run),
    ``max``'s dynamic stream held bit for
@@ -69,10 +80,13 @@ device. Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import glob
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -88,6 +102,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from avcer_tpu_torch import _build  # noqa: E402
 from avcer_tpu_torch.cli import run as cli  # noqa: E402
+from avcer_tpu_torch.core import checkpoint  # noqa: E402
 from avcer_tpu_torch.core.config import (AudioConfig, DetectorConfig,  # noqa: E402
                                          PipelineConfig, VisualConfig)
 from avcer_tpu_torch.models import layers  # noqa: E402
@@ -250,25 +265,22 @@ def kernels_nms_attention(card: str) -> list[dict]:
             raise AssertionError("nms kernel: the IoU 0.4 / 0.5 threshold rows came out wrong")
     if mismatches:
         raise AssertionError(f"nms kernel: {mismatches} keep entries differ from the plain version")
-    nms_ms = median_ms(lambda: nms_kernel.nms_mask(bt, vt, 0.4))
-    nms_dev = device_ms(lambda: nms_kernel.nms_mask(bt, vt, 0.4))
-    nms_plain_ms = median_ms(lambda: nms_kernel.nms_mask_plain(bt, vt, 0.4))
-    # the mobilenet presets' detect batch
-    boxes, valid = nms_case(4, MNET_BATCH, NMS_SHAPE[1])
-    bm, vm = torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev)
-    if not torch.equal(nms_kernel.nms_mask(bm, vm, 0.4), nms_kernel.nms_mask_plain(bm, vm, 0.4)):
-        raise AssertionError(f"nms kernel: keep masks differ at [{MNET_BATCH}, {NMS_SHAPE[1]}, 4]")
-    mnet_ms = median_ms(lambda: nms_kernel.nms_mask(bm, vm, 0.4))
-    mnet_dev = device_ms(lambda: nms_kernel.nms_mask(bm, vm, 0.4))
-    # work of this run's data: row i is compared with the K - 1 - i rows after
-    # it only while it is kept: about 20 f32 operations a pair
-    pairs = float(((NMS_SHAPE[1] - 1 - torch.arange(NMS_SHAPE[1], device=dev)) * got).sum())
-    nms_bound, nms_by = bound_ms(tensor_bytes(bt, vt, got), 20 * pairs, "f32")
-    log(f"kernel nms_mask (nms_bitmask_kernel) [{NMS_SHAPE[0]}, {NMS_SHAPE[1]}, 4]: keep masks "
-        f"equal over 4 seeds; {nms_ms:.4f} ms a call (median of 50), device time "
-        f"{nms_dev:.4f} ms (profiler, 20 calls), vs plain {nms_plain_ms:.4f} ms, bound "
-        f"{nms_bound:.6f} ms ({nms_by}), no library call; [{MNET_BATCH}, {NMS_SHAPE[1]}, 4]: "
-        f"keep masks equal, {mnet_ms:.4f} ms a call, device time {mnet_dev:.4f} ms, on {card}")
+    nms = nms_numbers(bt, vt, got)
+    # the mobilenet presets' detect batch, and a large K that no path passes
+    cases = []
+    for b, k in ((MNET_BATCH, NMS_SHAPE[1]), (2, 1000)):
+        boxes, valid = nms_case(4, b, k)
+        bm, vm = torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev)
+        keep = nms_kernel.nms_mask(bm, vm, 0.4)
+        if not torch.equal(keep, nms_kernel.nms_mask_plain(bm, vm, 0.4)):
+            raise AssertionError(f"nms kernel: keep masks differ at [{b}, {k}, 4]")
+        cases.append(nms_numbers(bm, vm, keep))
+    for c in [nms] + cases:
+        log(f"kernel nms_mask (nms_bitmask_kernel) {c['shape']}: keep masks equal"
+            f"{' over 4 seeds' if c is nms else ''}; {c['ms']:.4f} ms a call (median of 50), "
+            f"device time {c['device_ms']:.4f} ms (profiler, 20 calls), vs plain "
+            f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.6f} ms ({c['bound_by']}), no "
+            f"library call, on {card}")
 
     # attention, f32: the exact kernel, within the JAX package's bound for the
     # Pallas kernel
@@ -321,10 +333,7 @@ def kernels_nms_attention(card: str) -> list[dict]:
         f"on {card}")
     return [
         entry("nms_mask", "nms.cu", "avcer_tpu/ops/pallas/nms_kernel.py:62",
-              max_abs_err=float(mismatches), ms=nms_ms, plain_ms=nms_plain_ms,
-              bound_ms=nms_bound, bound_by=nms_by, library_ms=None, device_ms=nms_dev,
-              shape=[*NMS_SHAPE, 4], cases=[{"shape": [MNET_BATCH, NMS_SHAPE[1], 4],
-                                             "ms": mnet_ms, "device_ms": mnet_dev}]),
+              max_abs_err=float(mismatches), library_ms=None, **nms, cases=cases),
         entry("mha_tc", "attention.cu", "avcer_tpu/ops/pallas/attention_kernel.py:40",
               max_abs_err=err16, ms=tc_ms, plain_ms=tc_plain_ms, bound_ms=tc_bound,
               bound_by=tc_by, library_ms=tc_lib_ms, shape=list(ATTN_SHAPE), dtype="bf16",
@@ -334,6 +343,23 @@ def kernels_nms_attention(card: str) -> list[dict]:
               bound_by=exact_by, library_ms=exact_lib_ms, shape=list(ATTN_SHAPE), dtype="f32",
               device_ms=exact_dev, on_main_path=False),
     ]
+
+
+def nms_numbers(boxes: torch.Tensor, valid: torch.Tensor, keep: torch.Tensor) -> dict:
+    """K1 at one shape: a call and its device time, the plain version's
+    time, and the bound of this run's data: row i is compared with the K - 1
+    - i rows after it only while it is kept, about 20 f32 operations a
+    pair."""
+    k = boxes.shape[1]
+    pairs = float(((k - 1 - torch.arange(k, device=boxes.device)) * keep).sum())
+    bound, by = bound_ms(tensor_bytes(boxes, valid, keep), 20 * pairs, "f32")
+
+    def call():
+        return nms_kernel.nms_mask(boxes, valid, 0.4)
+
+    return {"shape": list(boxes.shape), "ms": median_ms(call), "device_ms": device_ms(call),
+            "plain_ms": median_ms(lambda: nms_kernel.nms_mask_plain(boxes, valid, 0.4), runs=10),
+            "bound_ms": bound, "bound_by": by}
 
 
 def mha_kernels_of(call) -> dict[str, int]:
@@ -456,17 +482,20 @@ def hold_on_path(name: str, args: tuple, kw: dict):
 
 
 @contextlib.contextmanager
-def holding_new_calls():
+def holding_new_calls(seen: dict | None = None):
     """For the length of a warm-up run: every kernel call whose shapes, types
     and modes no main path has shown yet goes through ``hold_on_path``. The
-    timed runs call the wrappers directly."""
+    timed runs call the wrappers directly. ``seen``: the calls held already,
+    ``HELD`` by default (a fresh dict holds every distinct call of the run)."""
+    seen = HELD if seen is None else seen
+
     def shim(name):
         def call(*args, **kw):
             key = (name, signature(args), signature(tuple(sorted(kw.items()))))
-            if key in HELD:
+            if key in seen:
                 return WRAPPERS[name](*args, **kw)
             entry_name, err, got = hold_on_path(name, args, kw)
-            HELD[key] = (entry_name, err)
+            seen[key] = (entry_name, err)
             return got
         return call
 
@@ -973,13 +1002,13 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).norm() / want.norm().clamp_min(1e-12))
 
 
-def phase_reference(pipe, fused_pipe, frames: np.ndarray, wav: np.ndarray) -> None:
+def phase_reference(pipe, fused_pipe, frames: np.ndarray, wav: np.ndarray):
     """Each model on the card (bf16, CUDA kernels), unfused and fused, against
     the same seeded weights in f32 on the CPU (plain versions, unfused), one
     small input each. bf16 keeps 8 significant bits (2**-8 relative per
     rounding) and the errors of some 60 layers add up; a relative L2 error
     under 5 % passes, while a wrong kernel, layout or weight gives errors of
-    order 100 %."""
+    order 100 %. Returns the f32 CPU pipeline."""
     from avcer_tpu_torch.ops.audio import feature_extractor_normalize
     from avcer_tpu_torch.ops.image import retinaface_normalize, vggface_normalize
 
@@ -1012,6 +1041,7 @@ def phase_reference(pipe, fused_pipe, frames: np.ndarray, wav: np.ndarray) -> No
     bad = {k: v for k, v in errs.items() if not v < 0.05}
     if bad:
         raise AssertionError(f"card outputs disagree with the f32 CPU reference: {bad}")
+    return ref
 
 
 def phase_reference_int8(int8_pipe, int8_fused_pipe, frames: np.ndarray, wav: np.ndarray) -> None:
@@ -1502,6 +1532,226 @@ def phase_presets(card: str, frames: np.ndarray, wav: np.ndarray, int8_clip) -> 
             "max --fused": max_launches["fused_ssh_heads"]}
 
 
+POS_CONV = "wav2vec2.encoder.pos_conv_embed.conv"
+
+
+def write_release(ref, directory: str) -> torch.Tensor:
+    """The seeded f32 models of ``ref`` as the reference's release files in
+    ``directory``: the detector with the ``module.`` prefix, the audio model
+    inside the trainer's ``model_state_dict`` wrapper with its positional
+    conv as weight-norm factors (g = the norm of w over dims 0 and 1, v = w).
+    Returns the weight those factors stand for, fused in f64 as the loader
+    fuses them."""
+    if os.path.isdir(directory):
+        shutil.rmtree(directory)
+    files = checkpoint.TORCH_FILES
+    os.makedirs(os.path.join(directory, os.path.dirname(files["expr_model_8cl"])))
+    torch.save({f"module.{k}": v for k, v in ref.detect.model.state_dict().items()},
+               os.path.join(directory, files["retinaface"]))
+    torch.save(ref.visual.static_model.state_dict(),
+               os.path.join(directory, files["emotion_resnet50"]))
+    torch.save(ref.visual.lstm_model.state_dict(), os.path.join(directory, files["temporal_lstm"]))
+    sd = dict(ref.audio.model.state_dict())
+    v = sd.pop(f"{POS_CONV}.weight")
+    norm = np.sqrt((v.numpy().astype(np.float64) ** 2).sum(axis=(0, 1), keepdims=True))
+    g = torch.from_numpy(norm.astype(np.float32))
+    sd[f"{POS_CONV}.parametrizations.weight.original0"] = g
+    sd[f"{POS_CONV}.parametrizations.weight.original1"] = v
+    torch.save({"model_state_dict": sd, "epoch": 0},
+               os.path.join(directory, files["expr_model_8cl"]))
+    return torch.from_numpy((g.numpy() * v.numpy() / norm).astype(np.float32))
+
+
+def phase_release(card: str, ref, fused_pipe, frames: np.ndarray, wav: np.ndarray) -> float:
+    """``parity --fused`` built from release files of the seeded weights
+    against the same weights handed in directly (the seeded fused pipeline,
+    its positional conv set to the weight the factors stand for): every
+    output equal. Returns the build's wall."""
+    directory = os.path.join(ROOT, "build", "smoke_release")
+    t0 = time.perf_counter()
+    pos_w = write_release(ref, directory)
+    log(f"release files of the seeded weights written in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(preset_config("parity", fused=True), weights_dir=directory)
+    released = build(card, True, cfg=cfg, label="parity --fused from release files")
+    build_s = time.perf_counter() - t0
+    with torch.no_grad():
+        fused_pipe.audio.model.wav2vec2.encoder.pos_conv_embed.conv.weight.copy_(pos_w)
+    got = released.run(ArrayReader(frames, FPS, "smoke.avi"), "", wav=wav)
+    want = fused_pipe.run(ArrayReader(frames, FPS, "smoke.avi"), "", wav=wav)
+    same_results(got, want, "parity --fused from release files vs the same weights handed in")
+    return build_s
+
+
+def count_files(root: str, pattern: str) -> int:
+    return len(glob.glob(os.path.join(root, pattern)))
+
+
+def heatmap_costs(card: str, title: str, pipe, frames: np.ndarray) -> None:
+    """Where a run's host-side heatmap and crop time goes, each median of 3:
+    Grad-CAM of one batch of 32 crops (the forward to layer4 and the masks),
+    rendering the 32 overlays (also with cv2 on one thread), encoding them as
+    jpgs; and for 200 face crops of the forced face's size the host crop's
+    PIL-nearest resize and its jpg encoding."""
+    import cv2
+
+    from avcer_tpu_torch.pipeline.media import resize_nearest_np
+    from avcer_tpu_torch.utils.gradcam import render_heatmap
+
+    crops = np.random.default_rng(0).integers(0, 255, (32, 224, 224, 3), np.uint8)
+    classes = np.zeros(32, np.int64)
+    faces = [frames[i, 90:270, 160:480] for i in range(200)]
+
+    def ms(fn) -> float:
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    masks = pipe.visual.gradcam(crops, classes)
+    overlays = [render_heatmap(m, c, image_weight=0.8) for m, c in zip(masks, crops)]
+    costs = {
+        "Grad-CAM of 32 crops": ms(lambda: pipe.visual.gradcam(crops, classes)),
+        "32 overlays rendered": ms(lambda: [render_heatmap(m, c, image_weight=0.8)
+                                            for m, c in zip(masks, crops)]),
+        "32 overlays jpg-encoded": ms(lambda: [cv2.imencode(".jpg", o) for o in overlays]),
+        "200 host crops [180, 320] resized to 224": ms(
+            lambda: [resize_nearest_np(f, (224, 224)) for f in faces]),
+        "200 host crops jpg-encoded": ms(lambda: [cv2.imencode(".jpg", f) for f in faces]),
+    }
+    # the same rendering with cv2 on one thread (the pipeline keeps cv2's
+    # default), to see whether its thread pool is what costs
+    threads = cv2.getNumThreads()
+    cv2.setNumThreads(1)
+    try:
+        costs["32 overlays rendered, cv2 on 1 thread"] = ms(
+            lambda: [render_heatmap(m, c, image_weight=0.8) for m, c in zip(masks, crops)])
+    finally:
+        cv2.setNumThreads(threads)
+    log(f"{title}, host costs (ms, median of 3; cv2 threads {threads}, torch threads "
+        f"{torch.get_num_threads()}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in costs.items()) + f" on {card}")
+
+
+def phase_surface(card: str, frames: np.ndarray, wav: np.ndarray) -> dict[str, dict[str, int]]:
+    """The rest of ``cli.run``'s surface at full width, seeded weights:
+    ``--fused --save_face_crops --heatmaps static --audio_classes 7`` (the
+    host-crop path, ExprModel V2 with 7 classes), then ``--fused --heatmaps
+    dynamic --audio_head v1`` (the device path, V1's GRU). Each: one warm-up
+    run in which every distinct kernel call is held against its plain version
+    (K1's and K3's included, though earlier paths showed their shapes), then
+    one run with the counts set to 0 just before: every detect batch one K1
+    and five K3 launches, every emotion-CNN forward (the static batches and
+    the Grad-CAM forwards) seven K3 launches; the jpgs and heatmaps one a
+    present frame and one a step frame; the audio CSV where the JAX package
+    writes it. V1's audio stage, the GRU in f32 (cuDNN) and, for the record,
+    in bf16, are timed against V3's. Returns each path's launch counts."""
+    step = registry.dynamic_step(FPS)
+    walls, path_launches = {}, {}
+    for label, argv in (("host crops", ["--save_face_crops", "--heatmaps", "static",
+                                        "--audio_classes", "7"]),
+                        ("device path", ["--heatmaps", "dynamic", "--audio_head", "v1"])):
+        cfg = dataclasses.replace(cli.config_from_args(cli.parse_args(["--fused"] + argv)),
+                                  weights_dir=os.path.join(ROOT, "build", "smoke_no_weights"),
+                                  save_plot=False)
+        title = "--fused " + " ".join(argv)
+        pipe = build(card, True, cfg=cfg, label=title)
+        out = os.path.join(ROOT, "build", "smoke_surface", label.replace(" ", "_"))
+        held: dict = {}
+        cnn_calls = [0]
+        hook = pipe.visual.static_model.register_forward_hook(
+            lambda *_: cnn_calls.__setitem__(0, cnn_calls[0] + 1))
+        for timed in (False, True):
+            if os.path.isdir(out):
+                shutil.rmtree(out)
+            reset_counts()
+            cnn_calls[0] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with holding_new_calls(held) if not timed else contextlib.nullcontext():
+                clip = pipe.run(ArrayReader(frames, FPS, "smoke.avi"), out, wav=wav)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = counts()
+        hook.remove()
+        HELD.update(held)
+        n = frames.shape[0]
+        detect_batches = -(-n // DETECT_BATCH)
+        steps = len(range(0, n, step))
+        classes = cfg.audio.num_classes
+        audio_csv = (f"audio_{cfg.audio.padding}_{cfg.audio.step_sec}/audio__smoke.csv"
+                     if classes == 7 else "audio__smoke.csv")
+        csv_cols = open(os.path.join(out, audio_csv)).readline().strip().split(",")
+        checks = {
+            "stat_probs is [T, 7], rows sum to 1": clip.stat_probs.shape == (n, 7) and bool(
+                np.allclose(clip.stat_probs.sum(1), 1.0, atol=1e-3)),
+            f"audio logits finite, [17, {classes}]": clip.audio_window_logits.shape == (17, classes)
+            and bool(np.isfinite(clip.audio_window_logits).all()),
+            f"audio CSV at {audio_csv} with {classes} emotions and frames":
+                csv_cols == list(registry.AUDIO_EMOTIONS_8[:classes]) + ["frames"],
+            f"{steps} heatmaps, one a step frame": count_files(
+                out, f"smoke/heatmaps_{cfg.heatmaps}/*.jpg") == steps,
+            f"{n if cfg.save_face_crops else 0} face crops, one a frame": count_files(
+                out, "smoke/[0-9][0-9]/*.jpg") == (n if cfg.save_face_crops else 0),
+            f"nms launches == {detect_batches} detect batches": launches["nms_mask"]
+            == detect_batches,
+            f"fused_chain launches == 5 x {detect_batches} + 7 x {cnn_calls[0]} CNN forwards":
+                launches["fused_chain"] == 5 * detect_batches + 7 * cnn_calls[0],
+            f"the CNN ran one static batch and {-(-steps // 32)} Grad-CAM forwards":
+                cnn_calls[0] == 1 + -(-steps // 32),
+            "every attention launch in the tensor-core kernel":
+                launches["mha"] > 0 and launches["mha_tc"] == launches["mha"],
+        }
+        for name, ok in checks.items():
+            log(f"  check {title}: {name}: {'ok' if ok else 'FAILED'}")
+        if not all(checks.values()):
+            raise AssertionError(f"{title}: checks failed; launches {launches}")
+        held_k = sorted({name for name, _ in held.values()})
+        if not {"nms_mask", "fused_chain"} <= set(held_k):
+            raise AssertionError(f"{title}: K1 and K3 not held on the path: {held_k}")
+        walls[title] = (wall, clip.timings)
+        path_launches[title] = launches
+        heatmap_costs(card, title, pipe, frames)
+        log(f"{title}: held on this path {len(held)} distinct kernel calls ({', '.join(held_k)}); "
+            f"launches {launches}")
+        if label == "device path":
+            v1 = pipe
+        else:
+            del pipe
+    for title, (wall, timings) in walls.items():
+        log(f"surface wall {title}: {wall:.3f} s ("
+            + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items()) + f") on {card}")
+
+    # V1's audio stage against V3's (the parity --fused pipeline's), and the
+    # GRU alone at a window batch in f32 (served) and in bf16
+    v3 = build(card, True, cfg=preset_config("parity", fused=True), label="parity --fused")
+    audio_ms = {}
+    for head, pipe in (("v1", v1), ("v3", v3)):
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.audio.run_from_wav(wav, FPS)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        audio_ms[head] = float(np.median(times[1:])) * 1e3
+    gru = v1.audio.model.gru
+    x = randn((AUDIO_BATCH, 199, gru.input_size), 0, torch.float32, relu=False)
+    gru_bf16 = copy.deepcopy(gru).to(torch.bfloat16)
+    with torch.inference_mode():
+        f32_ms = median_ms(lambda: gru(x), runs=10)
+        bf16_ms = median_ms(lambda: gru_bf16(x.bfloat16()), runs=10)
+    log(f"audio stage, {CLIP_SECONDS} s clip (17 windows), median of 3 after one: V1 "
+        f"{audio_ms['v1']:.1f} ms, V3 {audio_ms['v3']:.1f} ms; V1's GRU alone at "
+        f"[{AUDIO_BATCH}, 199, {gru.input_size}]: f32 (served) {f32_ms:.3f} ms, bf16 "
+        f"{bf16_ms:.3f} ms (median of 10) on {card}")
+    return path_launches
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -1511,7 +1761,7 @@ def main() -> int:
     mobilenet_kernels = phase_kernels_mobilenet(card)
     int8_modules(card)
     frames, wav = make_clip()
-    phase_reference(pipe, fused_pipe, frames, wav)
+    ref = phase_reference(pipe, fused_pipe, frames, wav)
     phase_reference_int8(int8_pipe, int8_fused_pipe, frames, wav)
     clip, _ = phase_main(card, pipe, False, frames, wav, profile=True)
     fused_clip, launches = phase_main(card, fused_pipe, True, frames, wav)
@@ -1528,7 +1778,16 @@ def main() -> int:
     # int8 against bf16 is another arithmetic (1e-2 in a probability): reported
     agreement(int8_clip, clip, "int8 vs bf16 (unfused)", 0.0)
     agreement(int8_fused_clip, fused_clip, "int8 fused vs bf16 fused", 0.0)
-    del pipe, fused_pipe, int8_pipe, int8_fused_pipe
+    release_build_s = phase_release(card, ref, fused_pipe, frames, wav)
+    del pipe, fused_pipe, int8_pipe, int8_fused_pipe, ref
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    surface_launches = phase_surface(card, frames, wav)
+    for k in kernels:
+        if k["name"] in ("nms_mask", "fused_chain"):
+            k["launches_by_surface_path"] = {t: n[k["name"]] for t, n in surface_launches.items()}
+    log(f"release and surface phases: build from release files {release_build_s:.2f} s, "
+        f"surface paths {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
     c64_launches = phase_presets(card, frames, wav, int8_clip)
     # no entry point serves the mobilenet detector exact: the bf16 mode at

@@ -645,3 +645,50 @@ def test_mobilenet_detector_fused_matches_unfused(cuda_device, mode):
             assert rel_max < 2e-2 and rel_l2 < 5e-3
         else:
             assert rel_max < 1e-4
+
+
+def test_gradcam_from_fused_cnn_matches_cpu(cuda_device):
+    """Grad-CAM on the card: layer4's output from K3 (the fused emotion CNN,
+    f32) and the gradient through the fc head, against the unfused model's
+    on the CPU with the same weights, for each crop's most probable class:
+    masks within 1e-3."""
+    from avcer_tpu_torch.models.emotion_resnet import EmotionResNet50
+    from avcer_tpu_torch.models.temporal_lstm import TemporalLSTM
+    from avcer_tpu_torch.pipeline.visual import VisualStage
+
+    torch.manual_seed(0)
+    cpu = EmotionResNet50(7).eval().requires_grad_(False)
+    card = EmotionResNet50(7, fused=True, fused_entries=True)
+    card.load_state_dict(cpu.state_dict())
+    card = card.eval().requires_grad_(False).to(cuda_device)
+    crops = np.random.default_rng(0).integers(0, 255, (4, 224, 224, 3), np.uint8)
+    stage = VisualStage(cpu, TemporalLSTM(7), batch_size=4, device="cpu")
+    classes = stage.run_static(crops)[0].argmax(-1)  # the class the heatmaps take
+    want = stage.gradcam(crops, classes)
+    before = fused_resnet_kernel.fused_chain.launches
+    got = VisualStage(card, TemporalLSTM(7), batch_size=4, device=cuda_device).gradcam(
+        crops, classes)
+    assert fused_resnet_kernel.fused_chain.launches == before + 7
+    assert got.shape == want.shape == (4, 7, 7) and (want.max(axis=(1, 2)) == 1).all()
+    np.testing.assert_allclose(got, want, atol=1e-3)
+
+
+def test_expr_model_v1_bf16_on_card(cuda_device):
+    """ExprModel V1 in the pipeline's bf16 on the card (the GRU in f32,
+    cuDNN's) against f32 on the CPU: relative L2 of the logits under 5 %."""
+    from avcer_tpu_torch.models.audio_heads import ExprModel
+    from avcer_tpu_torch.models.layers import cast_compute
+    from avcer_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+
+    torch.manual_seed(0)
+    cfg = Wav2Vec2Config(hidden_size=256, num_layers=2, num_heads=4, intermediate_size=512)
+    cpu = ExprModel("v1", 7, cfg).eval()
+    card = cast_compute(ExprModel("v1", 7, cfg), torch.bfloat16)
+    card.load_state_dict(cpu.state_dict())
+    card = card.eval().to(cuda_device)
+    wav = torch.from_numpy(np.random.default_rng(0).normal(size=(3, 64000)).astype(np.float32))
+    with torch.inference_mode():
+        want = cpu(wav)
+        got = card(wav.to(cuda_device)).float().cpu()
+    assert got.shape == (3, 7)
+    assert float((got - want).norm() / want.norm()) < 0.05

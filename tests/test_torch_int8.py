@@ -474,7 +474,7 @@ def test_expr_model_int8_matches_jax(expr_int8):
     out and both FFN projections, then ExprModel V3 (exact), f32: the bound of
     the exact model's parity test (atol 5e-4, rtol 1e-3)."""
     jm, variables, wav = expr_int8
-    model = port_int8(ExprModel(8, Wav2Vec2Config(**TINY_W2V2, quant=True)), "expr_model",
+    model = port_int8(ExprModel("v3", 8, Wav2Vec2Config(**TINY_W2V2, quant=True)), "expr_model",
                       variables)
     qs = layers.q_modules(model)
     assert len(qs) == 6 + 6 * TINY_W2V2["num_layers"]
@@ -489,7 +489,7 @@ def test_w2v_modes_match_jax(expr_int8):
     """``features_only`` and ``from_features`` split the forward where the
     JAX model splits it, and compose to the full forward."""
     jm, variables, wav = expr_int8
-    model = port_int8(ExprModel(8, Wav2Vec2Config(**TINY_W2V2, quant=True)), "expr_model",
+    model = port_int8(ExprModel("v3", 8, Wav2Vec2Config(**TINY_W2V2, quant=True)), "expr_model",
                       variables)
     feats = model(torch.from_numpy(wav), w2v_mode="features_only")
     want = jm.apply(variables, jnp.asarray(wav), w2v_mode="features_only")

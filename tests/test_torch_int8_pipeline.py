@@ -41,6 +41,7 @@ from avcer_tpu_torch.ops.cuda import fused_resnet_kernel as frk
 from avcer_tpu_torch.pipeline.audio_stage import AudioStage
 from avcer_tpu_torch.pipeline.builder import build_pipeline
 from avcer_tpu_torch.pipeline.detect import DetectStage
+from avcer_tpu_torch.pipeline.runner import check_supported
 from avcer_tpu_torch.pipeline.visual import VisualStage
 
 from test_torch_int8 import numpy_tree
@@ -220,7 +221,7 @@ def test_shared_extractor_matches_jax(quant):
         JaxExprModel("v3", 8, jcfg), (jnp.zeros((1, 17000)),), 3), 3))
     wav = (np.random.default_rng(60).normal(size=int(6.3 * 16000)) * 0.1).astype(np.float32)
     want, want_meta = JaxAudioStage(variables, cfg, jcfg, dtype=jnp.float32).run_from_wav(wav, 25)
-    model = port(ExprModel(8, Wav2Vec2Config(**TINY_W2V2, quant=quant == "int8")),
+    model = port(ExprModel("v3", 8, Wav2Vec2Config(**TINY_W2V2, quant=quant == "int8")),
                  convert.expr_model(variables)).requires_grad_(False)
     stage = AudioStage(model, cfg, device="cpu")
     got, meta = stage.run_from_wav(wav, 25)
@@ -383,8 +384,10 @@ def test_builder_int8_models_and_refusals(tmp_path):
         built = build_pipeline(c, Wav2Vec2Config(**TINY_W2V2), device="cpu")
         assert built.detect.model.backbone == c.detector.backbone and built.detect.model.quant
         assert built._new_tracker().gap_frames == c.detector.stride
-    for bad in (dict(heatmaps="static"), dict(save_face_crops=True), dict(calibrate=True),
-                dict(detector=dataclasses.replace(cfg.detector, stride=3))):
+    # the heatmaps and the host-crop path are served (tests/test_torch_cli_surface.py)
+    check_supported(dataclasses.replace(cfg, heatmaps="static", save_face_crops=True))
+    for bad in (dict(heatmaps="bogus"), dict(mesh=dataclasses.replace(cfg.mesh, data=2)),
+                dict(calibrate=True), dict(detector=dataclasses.replace(cfg.detector, stride=3))):
         with pytest.raises(ValueError, match="not ported|must divide batch_size"):
             build_pipeline(dataclasses.replace(cfg, **bad), Wav2Vec2Config(**TINY_W2V2),
                            device="cpu")

@@ -110,7 +110,7 @@ def test_expr_model_v3_matches_jax():
                              wav2vec2_config=JaxW2V2Config(**TINY_W2V2))
     variables = randomize_stats(
         init_variables(jax_model, (jnp.zeros((1, 17000)),), seed=4), 4)
-    model = port(ExprModel(8, Wav2Vec2Config(**TINY_W2V2)), convert.expr_model(variables))
+    model = port(ExprModel("v3", 8, Wav2Vec2Config(**TINY_W2V2)), convert.expr_model(variables))
     x = np.random.default_rng(3).normal(size=(2, 17000)).astype(np.float32)
     want = jax.jit(jax_model.apply)(variables, jnp.asarray(x))
     with torch.no_grad():
@@ -163,5 +163,5 @@ def test_twin_round_trip_expr_model():
     want, got = _twin_round_trip(
         twins.TwinExprModel("v3", 8, num_layers=2),
         lambda sd: jax_convert.convert_expr_model(sd, variant="v3", num_layers=2),
-        convert.expr_model, ExprModel(8, Wav2Vec2Config(num_layers=2)), x)
+        convert.expr_model, ExprModel("v3", 8, Wav2Vec2Config(num_layers=2)), x)
     torch.testing.assert_close(got, want, atol=5e-4, rtol=1e-3)

@@ -289,15 +289,11 @@ print("IMPORT_GUARD_OK")
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["--data_parallel", "2"], "queue 1, parallelism"),
-    (["--heatmaps", "static"], "queue 1, other modules"),
-    (["--serving_profile", "fastest"], "invalid choice"),
-    (["--audio_classes", "7"], "queue 1, item 4"),
-    (["--audio_head", "v1"], "queue 1, item 4"),
-    (["--audio_head", "v2"], "queue 1, item 4"),
-    (["--save_face_crops"], "queue 1, item 5"),
-    (["--calibrate"], '"Not ported"'),
-    (["--compile_cache_dir", "X"], '"Not ported"'),
+    pytest.param(["--data_parallel", "2"], "queue 1, parallelism",
+                 id="argv0-queue 1, parallelism"),
+    pytest.param(["--serving_profile", "fastest"], "invalid choice", id="argv2-invalid choice"),
+    pytest.param(["--calibrate"], '"Not ported"', id='argv7-"Not ported"'),
+    pytest.param(["--compile_cache_dir", "X"], '"Not ported"', id='argv8-"Not ported"'),
 ])
 def test_cli_rejects_unported_flags(argv, names, capsys):
     """What the port does not run is refused while the arguments are
@@ -310,19 +306,51 @@ def test_cli_rejects_unported_flags(argv, names, capsys):
     assert names in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv", [
-    ["--audio_head", "v3", "--audio_classes", "8"],
-    ["--audio_classes", "8"],
-    ["--profile_dir", ""],
-])
+def test_cli_refuses_only_the_unported_by_name(capsys):
+    """All three refusals at once: each flag is named with its place in the
+    ROADMAP in one error."""
+    import avcer_tpu_torch.cli.run as cli
+
+    with pytest.raises(SystemExit):
+        cli.parse_args(["--data_parallel", "2", "--calibrate", "--compile_cache_dir", "X",
+                        "--heatmaps", "dynamic", "--save_face_crops", "--audio_head", "v1"])
+    err = capsys.readouterr().err
+    for flag in ("--data_parallel", "--calibrate", "--compile_cache_dir"):
+        assert f"{flag} is not ported" in err
+    for flag in ("--heatmaps", "--save_face_crops", "--audio_head"):
+        assert flag not in err.splitlines()[-1]
+
+
+#: what each JAX command line changes in the default configuration; the
+#: lines that restate the defaults change nothing
+ACCEPTED = {
+    ("--audio_head", "v3", "--audio_classes", "8"): {},
+    ("--audio_classes", "8"): {},
+    ("--profile_dir", ""): {},
+    ("--heatmaps", "static"): {"heatmaps": "static"},
+    ("--audio_classes", "7"): {"audio": {"head": "v2", "num_classes": 7}},
+    ("--audio_head", "v1"): {"audio": {"head": "v1", "num_classes": 8}},
+    ("--audio_head", "v2"): {"audio": {"head": "v2", "num_classes": 8}},
+    ("--save_face_crops",): {"save_face_crops": True},
+}
+
+
+@pytest.mark.parametrize("argv", [list(a) for a in ACCEPTED])
 def test_cli_accepts_jax_command_line(argv):
-    """A JAX command line that restates the defaults parses and maps to the
-    configuration the port serves without it."""
+    """A JAX command line parses and maps to the configuration the JAX CLI
+    builds from it (``avcer_tpu/core/config.py``): the defaults, or the
+    default configuration with the flag's field changed."""
+    import dataclasses
+
     import avcer_tpu_torch.cli.run as cli
 
     cfg = cli.config_from_args(cli.parse_args(argv))
-    assert (cfg.audio.head, cfg.audio.num_classes) == ("v3", 8)
-    assert cfg == cli.config_from_args(cli.parse_args([]))
+    want = cli.config_from_args(cli.parse_args([]))
+    for name, value in ACCEPTED[tuple(argv)].items():
+        if isinstance(value, dict):
+            value = dataclasses.replace(getattr(want, name), **value)
+        want = dataclasses.replace(want, **{name: value})
+    assert cfg == want
 
 
 def test_cli_serves_profiles_and_needs_card():

@@ -101,9 +101,10 @@ def test_cli_refusals_that_remain():
     falls back to the CPU."""
     with pytest.raises(ValueError, match="cnn_stride"):
         cli.config_from_args(cli.parse_args(["--cnn_stride", "-5"]))
-    for argv in (["--data_parallel", "2"], ["--heatmaps", "static"], ["--serving_profile", "x"]):
+    for argv in (["--data_parallel", "2"], ["--calibrate"], ["--serving_profile", "x"]):
         with pytest.raises(SystemExit):
             cli.parse_args(argv)
+    assert cli.config_from_args(cli.parse_args(["--heatmaps", "static"])).heatmaps == "static"
     assert cli.parse_args([]).device == "cuda"
 
 
