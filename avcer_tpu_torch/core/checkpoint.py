@@ -35,6 +35,7 @@ TORCH_FILES = {
     "retinaface_mnet025": "mobilenet0.25_Final.pth",
     "expr_model_8cl": os.path.join("FLW-ExprModelV3-2024.03.02-11.42.11", "epoch_63.pth"),
     "expr_model_7cl": os.path.join("7cl-FLW-ExprModelV2-2024.03.04-11.52.11", "epoch_51.pth"),
+    "s3fd": "s3fd_weights.pth",
 }
 
 _NOT_READ = "ROADMAP queue 1, item 10: the port reads release files, not the JAX orbax cache"
@@ -60,17 +61,18 @@ def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:
     return {k: v for k, v in obj.items() if torch.is_tensor(v)}
 
 
-def resolve(weights_dir: str, family: str, int8: bool = False
-            ) -> Optional[dict[str, torch.Tensor]]:
+def resolve(weights_dir: str, family: str, int8: bool = False,
+            torch_file: Optional[str] = None) -> Optional[dict[str, torch.Tensor]]:
     """The release state dict of ``family`` (a key of ``TORCH_FILES``), or
     None when ``weights_dir`` holds neither its file nor a JAX cache of it.
-    ``int8``: the family is served quantised."""
+    ``int8``: the family is served quantised. ``torch_file``: another file
+    name under ``weights_dir`` (or an absolute path) than the family's."""
     cache = os.path.join(weights_dir, "jax", family)
     if int8 and os.path.isdir(cache + "_act_scales"):
         raise NotImplementedError(
             f"{cache}_act_scales holds the JAX package's int8 calibration of {family}, which "
             f"the port cannot read ({_NOT_READ}); move it away to calibrate on the clip")
-    path = os.path.join(weights_dir, TORCH_FILES[family])
+    path = os.path.join(weights_dir, torch_file or TORCH_FILES[family])
     if os.path.exists(path):
         if os.path.isdir(cache):
             log.info("%s: loading %s; the JAX cache %s is skipped", family, path, cache)

@@ -18,9 +18,9 @@ collection gives ``None``: the modules stay uncalibrated.
 
 ``release_state_dict`` maps a reference checkpoint (a release file, see
 ``core.checkpoint``) onto the port's names, which are already the
-reference's: it strips RetinaFace's ``module.`` prefix, fuses the positional
-conv's weight norm, and drops, with a log line each, the keys the JAX
-package's converter does not read either.
+reference's: it strips RetinaFace's and S3FD's ``module.`` prefix, fuses the
+positional conv's weight norm, and drops, with a log line each, the keys the
+JAX package's converter does not read either.
 """
 
 from __future__ import annotations
@@ -242,12 +242,51 @@ def _expr_model(variables: Tree) -> _SD:
     return c
 
 
+#: S3FD's trunk convs: the flax names, the torch ModuleList indices (fc6 and
+#: fc7 are vgg_31 / vgg_33 in the flax tree, vgg.30 / vgg.32 in the release
+#: file, avcer_tpu/core/convert.py:343-354)
+_S3FD_VGG = {f"vgg_{i}": f"vgg.{i}" for i in (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)}
+_S3FD_VGG.update(vgg_31="vgg.30", vgg_33="vgg.32")
+_S3FD_NORMS = ("L2Norm3_3", "L2Norm4_3", "L2Norm5_3")
+
+
+def _s3fd(variables: Tree) -> _SD:
+    c = _SD(variables)
+    for flax_name, torch_name in _S3FD_VGG.items():
+        c.conv2d(flax_name, torch_name, bias=True)
+    for norm in _S3FD_NORMS:
+        c.sd[f"{norm}.weight"] = _t(c.p(norm)["weight"])
+    for i in range(4):
+        c.conv2d(f"extras_{i}", f"extras.{i}", bias=True)
+    for i in range(6):
+        c.conv2d(f"loc_{i}", f"loc.{i}", bias=True)
+        c.conv2d(f"conf_{i}", f"conf.{i}", bias=True)
+    return c
+
+
+def _s3fd_read(key: str) -> bool:
+    """Whether the JAX package's ``convert_s3fd`` reads ``key`` (after the
+    ``module.`` prefix is stripped)."""
+    m = re.fullmatch(r"(vgg|extras|loc|conf)\.(\d+)\.(weight|bias)", key)
+    if m:
+        kind, i = m.group(1), int(m.group(2))
+        if kind == "vgg":
+            return f"vgg.{i}" in _S3FD_VGG.values()
+        return i < (4 if kind == "extras" else 6)
+    return key in {f"{norm}.weight" for norm in _S3FD_NORMS}
+
+
 _WALKERS = {
     "retinaface": _retinaface,
     "emotion_resnet50": _emotion_resnet50,
     "temporal_lstm": _temporal_lstm,
     "expr_model": _expr_model,
+    "s3fd": _s3fd,
 }
+
+
+def s3fd(variables: Tree) -> StateDict:
+    return _s3fd(variables).sd
 
 
 def retinaface(variables: Tree) -> StateDict:
@@ -312,9 +351,11 @@ def release_state_dict(family: str, sd: Mapping[str, torch.Tensor], *,
     dropped: dict[str, list[str]] = {}
     deep = re.compile(r"^wav2vec2\.encoder\.layers\.(\d+)\.")
     for key, value in sd.items():
-        if family == "retinaface":
+        if family in ("retinaface", "s3fd"):
             key = re.sub(r"^module\.", "", key)
         why = None
+        if family == "s3fd" and not _s3fd_read(key):
+            why = "not read by the JAX package's convert_s3fd"
         if family == "expr_model":
             why = next((w for pat, w in _EXPR_IGNORED if pat.search(key)), None)
             m = deep.match(key)
@@ -337,4 +378,5 @@ CONVERTERS = {
     "emotion_resnet50": emotion_resnet50,
     "temporal_lstm": temporal_lstm,
     "expr_model": expr_model,
+    "s3fd": s3fd,
 }

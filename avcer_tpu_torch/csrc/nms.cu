@@ -1,10 +1,13 @@
-// Batched greedy NMS keep mask for the RetinaFace detect stage.
+// Batched greedy NMS keep mask for the RetinaFace and S3FD detect stages.
 //
 // Replaces the TPU kernel avcer_tpu/ops/pallas/nms_kernel.py
 // (pallas_nms_mask, body _nms_kernel): per frame, the legacy IoU with +1 on
 // widths and heights, suppression where IoU > thresh strictly, and a greedy
 // sweep over the score-sorted candidate rows. keep = survived & valid; an
-// invalid row can be suppressed but never suppresses.
+// invalid row can be suppressed but never suppresses. The offset `off` is
+// 1 for that legacy IoU and 0 for S3FD's (avcer_tpu/ops/boxes.py
+// iou_matrix_legacy with plus_one=False, which the JAX S3FD stage computes
+// outside the Pallas kernel): the same operations, the same order.
 //
 // What bounds it on the H100: nothing the card is short of. The detect path
 // calls it with B = 32 or 128 frames of K = 64 candidates (1 KB of boxes a
@@ -66,20 +69,20 @@ struct Layout {
 
 __device__ __forceinline__ float legacy_iou(float ax1, float ay1, float ax2, float ay2,
                                             float aarea, float bx1, float by1, float bx2,
-                                            float by2, float barea) {
+                                            float by2, float barea, float off) {
   const float xx1 = fmaxf(ax1, bx1);
   const float yy1 = fmaxf(ay1, by1);
   const float xx2 = fminf(ax2, bx2);
   const float yy2 = fminf(ay2, by2);
-  const float w = fmaxf(0.0f, __fadd_rn(__fsub_rn(xx2, xx1), 1.0f));
-  const float h = fmaxf(0.0f, __fadd_rn(__fsub_rn(yy2, yy1), 1.0f));
+  const float w = fmaxf(0.0f, __fadd_rn(__fsub_rn(xx2, xx1), off));
+  const float h = fmaxf(0.0f, __fadd_rn(__fsub_rn(yy2, yy1), off));
   const float inter = __fmul_rn(w, h);
   return __fdiv_rn(inter, __fsub_rn(__fadd_rn(aarea, barea), inter));
 }
 
 __global__ void __launch_bounds__(kThreads)
     nms_bitmask_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ valid,
-                       uint8_t* __restrict__ keep_out, int k, float thresh) {
+                       uint8_t* __restrict__ keep_out, int k, float thresh, float off) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L(k);
   uint32_t* sup = reinterpret_cast<uint32_t*>(smem + L.sup);
@@ -107,8 +110,8 @@ __global__ void __launch_bounds__(kThreads)
       y1[j] = b;
       x2[j] = c;
       y2[j] = d;
-      // areas = (x2 - x1 + 1) * (y2 - y1 + 1)
-      area[j] = __fmul_rn(__fadd_rn(__fsub_rn(c, a), 1.0f), __fadd_rn(__fsub_rn(d, b), 1.0f));
+      // areas = (x2 - x1 + off) * (y2 - y1 + off)
+      area[j] = __fmul_rn(__fadd_rn(__fsub_rn(c, a), off), __fadd_rn(__fsub_rn(d, b), off));
       ok = fv[j] != 0;
     }
     const uint32_t bits = __ballot_sync(kFull, ok);
@@ -126,7 +129,7 @@ __global__ void __launch_bounds__(kThreads)
       bool sup_ij = false;
       if (j > i && j < k)
         sup_ij = legacy_iou(x1[i], y1[i], x2[i], y2[i], area[i], x1[j], y1[j], x2[j], y2[j],
-                            area[j]) > thresh;
+                            area[j], off) > thresh;
       bits = __ballot_sync(kFull, sup_ij);
     }
     if (lane == 0) sup[it] = bits;
@@ -165,10 +168,11 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // boxes [b, k, 4] f32 contiguous, valid [b, k] bool, keep [b, k] bool;
-// k <= 1024. Launches on `stream` and returns a CUDA error code as an
-// int (cudaErrorInvalidValue for a k the kernel does not take).
+// k <= 1024; off 1 (legacy +1 IoU) or 0 (S3FD's). Launches on `stream` and
+// returns a CUDA error code as an int (cudaErrorInvalidValue for a k the
+// kernel does not take).
 extern "C" int avcer_nms_mask(const void* boxes, const void* valid, void* keep, int b, int k,
-                              float thresh, void* stream) {
+                              float thresh, float off, void* stream) {
   if (b <= 0 || k <= 0) return 0;
   if (k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = Layout(k).bytes;
@@ -180,6 +184,6 @@ extern "C" int avcer_nms_mask(const void* boxes, const void* valid, void* keep, 
   }
   nms_bitmask_kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(boxes), static_cast<const uint8_t*>(valid),
-      static_cast<uint8_t*>(keep), k, thresh);
+      static_cast<uint8_t*>(keep), k, thresh, off);
   return static_cast<int>(cudaGetLastError());
 }

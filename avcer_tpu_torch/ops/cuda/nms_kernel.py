@@ -26,7 +26,8 @@ def _entry():
     built at first use)."""
     fn = _build.library("nms").avcer_nms_mask
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -35,11 +36,14 @@ def nms_mask(
     boxes: torch.Tensor,  # [B, K, 4] f32 xyxy, rows sorted by descending score
     valid: torch.Tensor,  # [B, K] bool
     iou_thresh: float = 0.4,
+    plus_one: bool = True,
 ) -> torch.Tensor:
-    """Keep mask [B, K] bool: legacy +1 IoU, strict ``>`` suppresses, greedy
-    in row order, ``& valid``. ``nms_mask.launches`` counts kernel launches."""
+    """Keep mask [B, K] bool: legacy +1 IoU (``plus_one=False``: S3FD's IoU,
+    no +1), strict ``>`` suppresses, greedy in row order, ``& valid``.
+    ``nms_mask.launches`` counts kernel launches, ``launches_by_mode`` them
+    by ``plus_one``."""
     if boxes.device.type == "cpu":
-        return nms_mask_plain(boxes, valid, iou_thresh)
+        return nms_mask_plain(boxes, valid, iou_thresh, plus_one)
     if boxes.device.type != "cuda":
         raise ValueError(f"nms_mask: unsupported device {boxes.device}")
     if boxes.dtype != torch.float32 or boxes.dim() != 3 or boxes.shape[-1] != 4:
@@ -61,7 +65,8 @@ def nms_mask(
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     fn = _entry()
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    args = (boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k, iou_thresh, stream)
+    args = (boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k, iou_thresh,
+            1.0 if plus_one else 0.0, stream)
     if boxes.device.index == torch.cuda.current_device():
         rc = fn(*args)
     else:  # the launch goes to the current device: make it the boxes' own
@@ -70,7 +75,9 @@ def nms_mask(
     if rc != 0:
         raise RuntimeError(f"nms kernel launch failed: CUDA error {rc}")
     nms_mask.launches += 1
+    nms_mask.launches_by_mode[bool(plus_one)] += 1
     return keep
 
 
 nms_mask.launches = 0
+nms_mask.launches_by_mode = {True: 0, False: 0}

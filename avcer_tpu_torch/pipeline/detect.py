@@ -55,6 +55,8 @@ class Detections:
 class DetectStage:
     #: int8 drift watch: batches between sampled re-calibration forwards
     RECALIB_EVERY = 64
+    #: the anchors of a bucket (h, w): [A, 4] normalised (cx, cy, w, h)
+    prior_boxes = staticmethod(box_ops.prior_boxes)
 
     def __init__(self, cfg: DetectorConfig, model: torch.nn.Module,
                  device: torch.device | str = "cuda"):
@@ -155,7 +157,7 @@ class DetectStage:
     def _priors_for(self, h: int, w: int) -> torch.Tensor:
         if (h, w) not in self._priors:
             self._priors[(h, w)] = torch.from_numpy(
-                box_ops.prior_boxes((h, w)).copy()).to(self.device)
+                self.prior_boxes((h, w)).copy()).to(self.device)
         return self._priors[(h, w)]
 
     @torch.inference_mode()

@@ -1,13 +1,14 @@
-"""Result visualisation (avcer_tpu/utils/viz.py), the parts the ported paths
-draw: the per-frame compound-prediction plot that ``Pipeline.save_outputs``
-writes (the reference's visualization/visualize.py:175-215), rendered with
-matplotlib, and the Grad-CAM overlay of ``--heatmaps`` (visualize.py:218-253),
-with cv2. Confusion and weight matrices come with the modules that use them.
+"""Result visualisation (avcer_tpu/utils/viz.py): the confusion matrix of
+the offline evaluation and the fusion weight matrices (the reference's
+visualization/visualize.py:10-85 and 88-172), the per-frame
+compound-prediction plot that ``Pipeline.save_outputs`` writes
+(visualize.py:175-215), all rendered with matplotlib, and the Grad-CAM
+overlay of ``--heatmaps`` (visualize.py:218-253), with cv2.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -21,6 +22,72 @@ def _plt():
     import matplotlib.pyplot as plt
 
     return plt
+
+
+def plot_conf_matrix(
+    cm: np.ndarray,
+    labels: Sequence[str],
+    save_path: Optional[str] = None,
+    title: str = "Confusion matrix",
+    normalize: bool = True,
+):
+    plt = _plt()
+    cm = np.asarray(cm, dtype=np.float64)
+    if normalize:
+        with np.errstate(invalid="ignore", divide="ignore"):
+            cm = cm / cm.sum(axis=1, keepdims=True)
+        cm = np.nan_to_num(cm)
+    fig, ax = plt.subplots(figsize=(max(6, len(labels)), max(5, len(labels) * 0.9)))
+    im = ax.imshow(cm, interpolation="nearest", cmap="Blues", vmin=0)
+    fig.colorbar(im, ax=ax)
+    ax.set(
+        xticks=range(len(labels)), yticks=range(len(labels)),
+        xticklabels=labels, yticklabels=labels,
+        ylabel="True label", xlabel="Predicted label", title=title,
+    )
+    plt.setp(ax.get_xticklabels(), rotation=45, ha="right")
+    thresh = cm.max() / 2.0 if cm.size else 0.5
+    for i in range(cm.shape[0]):
+        for j in range(cm.shape[1]):
+            ax.text(
+                j, i, f"{cm[i, j]:.2f}", ha="center", va="center",
+                color="white" if cm[i, j] > thresh else "black", fontsize=8,
+            )
+    fig.tight_layout()
+    if save_path:
+        fig.savefig(save_path, bbox_inches="tight", dpi=150)
+        plt.close(fig)
+        return None
+    return fig
+
+
+def plot_weights_matrix(
+    weights: np.ndarray,
+    row_labels: Sequence[str],
+    col_labels: Sequence[str] = registry.AUDIO_EMOTIONS_7,
+    save_path: Optional[str] = None,
+    title: str = "Fusion weights",
+):
+    plt = _plt()
+    weights = np.asarray(weights, dtype=np.float64)
+    fig, ax = plt.subplots(figsize=(1.2 * len(col_labels), 1.0 * len(row_labels) + 1.5))
+    im = ax.imshow(weights, cmap="viridis")
+    fig.colorbar(im, ax=ax, fraction=0.03)
+    ax.set(
+        xticks=range(len(col_labels)), yticks=range(len(row_labels)),
+        xticklabels=col_labels, yticklabels=row_labels, title=title,
+    )
+    plt.setp(ax.get_xticklabels(), rotation=45, ha="right")
+    for i in range(weights.shape[0]):
+        for j in range(weights.shape[1]):
+            ax.text(j, i, f"{weights[i, j]:.2f}", ha="center", va="center",
+                    color="white", fontsize=8)
+    fig.tight_layout()
+    if save_path:
+        fig.savefig(save_path, bbox_inches="tight", dpi=150)
+        plt.close(fig)
+        return None
+    return fig
 
 
 def plot_compound_expression_prediction(

@@ -71,7 +71,22 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    bit against ``turbo --fused``'s, and one timed run each of ``balanced``,
    ``int8_s2``, ``int8_448``, ``int8_448_s2`` and ``fast`` (``balanced``,
    ``int8_448_s2`` and ``fast`` also with ``--fused``), and ``run_many`` over
-   two clips against the serial runs.
+   two clips against the serial runs;
+9. offline evaluation: ``cli.run --fused`` writes the output trees of the
+   smoke clip and its reverse, and ``cli.eval_offline --optimize_weights
+   --num_dirichlet 10000 --device cuda`` runs over them with seeded
+   annotations; the weight search at full size (N = 2^18 aligned frames, 3
+   streams, 7 classes): 10,000 Dirichlet candidates and the 3-way grid of
+   1,000, timed by CUDA events, the first 1,024 candidates' UARs equal bit
+   for bit to the port's own search on the CPU;
+10. preprocessing (host): ``spectral_vad`` with and without
+   ``separate_fusion`` on the smoke wav, ``build_vad_pickle`` over it and
+   ``extract_surface_area`` over the host-crop path's face crops;
+11. ``cli.detect_demo`` on the smoke clip written as a video: S3FD (seeded
+   weights written as ``s3fd_weights.pth``, 640, batch 32, bf16), with K1 in
+   its no-+1 mode, every distinct call held against the plain version and
+   the first batch against an f32 CPU forward of the same weights; then
+   RetinaFace r50 through the same CLI.
 
 Prints a JSON line of kernel results, then, last, one JSON object with the
 device. Imports nothing of JAX and nothing of the JAX package.
@@ -83,8 +98,10 @@ import contextlib
 import copy
 import dataclasses
 import glob
+import io
 import json
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -114,6 +131,7 @@ from avcer_tpu_torch.ops.cuda import (attention_kernel, fused_resnet_kernel,  # 
                                       fused_ssh_kernel, nms_kernel)
 from avcer_tpu_torch.ops.image import resize_bilinear_uint8, retinaface_normalize  # noqa: E402
 from avcer_tpu_torch.pipeline import detect as detect_module  # noqa: E402
+from avcer_tpu_torch.pipeline import detect_s3fd as detect_s3fd_module  # noqa: E402
 from avcer_tpu_torch.pipeline.builder import build_pipeline  # noqa: E402
 from avcer_tpu_torch.core import registry  # noqa: E402
 from avcer_tpu_torch.pipeline.media import ArrayReader, write_wav  # noqa: E402
@@ -134,12 +152,12 @@ WRAPPERS = {"nms_mask": nms_kernel.nms_mask, "mha": attention_kernel.mha,
             "fused_chain": fused_resnet_kernel.fused_chain,
             "fused_ssh_heads": fused_ssh_kernel.fused_ssh_heads,
             "fused_chain_flat": fused_resnet_kernel.fused_chain_flat}
-#: the module through which a model or stage reaches each wrapper, and the
+#: the modules through which a model or stage reaches each wrapper, and the
 #: wrapper's plain version (no model calls fused_chain_flat)
-PATH_SITES = {"nms_mask": (detect_module, nms_kernel.nms_mask_plain),
-              "mha": (wav2vec2_module, attention_kernel.mha_plain),
-              "fused_chain": (retinaface_module, fused_resnet_kernel.fused_chain_plain),
-              "fused_ssh_heads": (retinaface_module, fused_ssh_kernel.fused_ssh_heads_plain)}
+PATH_SITES = {"nms_mask": ((detect_module, detect_s3fd_module), nms_kernel.nms_mask_plain),
+              "mha": ((wav2vec2_module,), attention_kernel.mha_plain),
+              "fused_chain": ((retinaface_module,), fused_resnet_kernel.fused_chain_plain),
+              "fused_ssh_heads": ((retinaface_module,), fused_ssh_kernel.fused_ssh_heads_plain)}
 #: every distinct kernel call the main paths have made so far, (wrapper, shapes,
 #: types and modes of its arguments) -> (the entry of the kernels line it
 #: belongs to, the kernel's largest error against its plain version)
@@ -193,28 +211,46 @@ def median_ms(fn, runs: int = 50, warmup: int = 5) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, runs: int = 20) -> float:
-    """Device time of one call: the kernels' own durations in a
-    ``torch.profiler`` trace of ``runs`` calls (after 3 warm-ups), summed and
-    divided by ``runs``. Unlike ``median_ms`` it leaves out the host's time to
-    launch, which a short kernel does not hide."""
+def device_kernels(fn, runs: int = 20, warmup: int = 3,
+                   attempts: int = 3) -> list[dict] | None:
+    """The device kernels of ``runs`` calls (after ``warmup``) in a
+    ``torch.profiler`` trace: each with its name and duration (us). Every call
+    launches at least one kernel, so a trace with fewer kernel events than
+    calls lost some: it is taken again, up to ``attempts`` times in all, and
+    then None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
     path = os.path.join(ROOT, "build", "smoke_traces", "device_ms.json")
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
-    if not kernels:
-        raise AssertionError("the profiler's trace holds no device kernel")
-    return sum(float(e["dur"]) for e in kernels) / runs * 1e-3
+    for attempt in range(1, attempts + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+        if len(kernels) >= runs:
+            return kernels
+        log(f"  profiler trace {attempt} of {attempts}: {len(kernels)} kernel events for "
+            f"{runs} calls")
+    return None
+
+
+def ms_text(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def device_ms(fn, runs: int = 20) -> float | None:
+    """Device time of one call: the kernels' own durations in a
+    ``torch.profiler`` trace of ``runs`` calls (after 3 warm-ups), summed and
+    divided by ``runs`` (None: not measured). Unlike ``median_ms`` it leaves
+    out the host's time to launch, which a short kernel does not hide."""
+    kernels = device_kernels(fn, runs)
+    return None if kernels is None else sum(float(e["dur"]) for e in kernels) / runs * 1e-3
 
 
 def nms_case(seed: int, b: int, k: int) -> tuple[np.ndarray, np.ndarray]:
@@ -278,7 +314,7 @@ def kernels_nms_attention(card: str) -> list[dict]:
     for c in [nms] + cases:
         log(f"kernel nms_mask (nms_bitmask_kernel) {c['shape']}: keep masks equal"
             f"{' over 4 seeds' if c is nms else ''}; {c['ms']:.4f} ms a call (median of 50), "
-            f"device time {c['device_ms']:.4f} ms (profiler, 20 calls), vs plain "
+            f"device time {ms_text(c['device_ms'])} (profiler, 20 calls), vs plain "
             f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.6f} ms ({c['bound_by']}), no "
             f"library call, on {card}")
 
@@ -324,12 +360,12 @@ def kernels_nms_attention(card: str) -> list[dict]:
     log(f"kernel mha_tc {list(ATTN_SHAPE)} bf16 (tensor cores): max abs err {err16:.3g} vs f32 "
         f"plain (atol 1e-5, rtol 4e-3); {tc_ms:.4f} ms vs plain {tc_plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {tc_lib_ms:.4f} ms (a call, median of 50); device time "
-        f"{tc_dev:.4f} ms vs scaled_dot_product_attention's kernels {tc_lib_dev:.4f} ms "
+        f"{ms_text(tc_dev)} vs scaled_dot_product_attention's kernels {ms_text(tc_lib_dev)} "
         f"(profiler, 20 calls); bound {tc_bound:.4f} ms ({tc_by}) on {card}")
     log(f"kernel mha_exact {list(ATTN_SHAPE)} f32 (CUDA cores): max abs err {err32:.3g} "
         f"(atol 2e-5, rtol 1e-4); {exact_ms:.4f} ms vs plain {exact_plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {exact_lib_ms:.4f} ms (a call, median of 50); device "
-        f"time {exact_dev:.4f} ms (profiler, 20 calls); bound {exact_bound:.4f} ms ({exact_by}) "
+        f"time {ms_text(exact_dev)} (profiler, 20 calls); bound {exact_bound:.4f} ms ({exact_by}) "
         f"on {card}")
     return [
         entry("nms_mask", "nms.cu", "avcer_tpu/ops/pallas/nms_kernel.py:62",
@@ -345,20 +381,22 @@ def kernels_nms_attention(card: str) -> list[dict]:
     ]
 
 
-def nms_numbers(boxes: torch.Tensor, valid: torch.Tensor, keep: torch.Tensor) -> dict:
-    """K1 at one shape: a call and its device time, the plain version's
-    time, and the bound of this run's data: row i is compared with the K - 1
-    - i rows after it only while it is kept, about 20 f32 operations a
-    pair."""
+def nms_numbers(boxes: torch.Tensor, valid: torch.Tensor, keep: torch.Tensor,
+                thresh: float = 0.4, plus_one: bool = True) -> dict:
+    """K1 at one shape and mode: a call and its device time, the plain
+    version's time, and the bound of this run's data: row i is compared with
+    the K - 1 - i rows after it only while it is kept, about 20 f32
+    operations a pair."""
     k = boxes.shape[1]
     pairs = float(((k - 1 - torch.arange(k, device=boxes.device)) * keep).sum())
     bound, by = bound_ms(tensor_bytes(boxes, valid, keep), 20 * pairs, "f32")
 
     def call():
-        return nms_kernel.nms_mask(boxes, valid, 0.4)
+        return nms_kernel.nms_mask(boxes, valid, thresh, plus_one=plus_one)
 
     return {"shape": list(boxes.shape), "ms": median_ms(call), "device_ms": device_ms(call),
-            "plain_ms": median_ms(lambda: nms_kernel.nms_mask_plain(boxes, valid, 0.4), runs=10),
+            "plain_ms": median_ms(
+                lambda: nms_kernel.nms_mask_plain(boxes, valid, thresh, plus_one), runs=10),
             "bound_ms": bound, "bound_by": by}
 
 
@@ -499,13 +537,15 @@ def holding_new_calls(seen: dict | None = None):
             return got
         return call
 
-    for name, (module, _) in PATH_SITES.items():
-        setattr(module, name, shim(name))
+    for name, (modules, _) in PATH_SITES.items():
+        for module in modules:
+            setattr(module, name, shim(name))
     try:
         yield
     finally:
-        for name, (module, _) in PATH_SITES.items():
-            setattr(module, name, WRAPPERS[name])
+        for name, (modules, _) in PATH_SITES.items():
+            for module in modules:
+                setattr(module, name, WRAPPERS[name])
 
 
 def check_fused(name: str, run, run_plain, x, tol32, case: str) -> float:
@@ -1308,6 +1348,7 @@ def phase_main(card: str, pipe, fused: bool, frames: np.ndarray, wav: np.ndarray
 def reset_counts() -> None:
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
+    nms_kernel.nms_mask.launches_by_mode.update({True: 0, False: 0})
     fused_ssh_kernel.fused_ssh_heads.launches_by_leaky.clear()
     attention_kernel.mha.launches_by_kernel.update(tc=0, exact=0)
 
@@ -1752,6 +1793,423 @@ def phase_surface(card: str, frames: np.ndarray, wav: np.ndarray) -> dict[str, d
     return path_launches
 
 
+#: the offline weight search at full size: aligned frames, streams, classes
+EVAL_N, EVAL_M, EVAL_C = 1 << 18, 3, 7
+EVAL_DIRICHLET, EVAL_HELD, EVAL_CPU_CHUNK = 10_000, 1024, 128
+#: seeded S3FD weights score no anchor of the smoke clip above the served 0.8
+#: (the largest score is about 0.66): at 0.5 the NMS has candidates to suppress
+S3FD_THRESHOLD = 0.5
+
+
+def events_ms(fn):
+    """(ms, result) of one call between two CUDA events: the card's clock
+    over the call, host work inside it included."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def run_cli(main, argv) -> tuple[int, str, float]:
+    """(exit code, standard output, wall s) of an entry point's ``main``."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def seeded_corpus(n: int, seed: int) -> tuple[np.ndarray, list[np.ndarray]]:
+    """Labels and three probability streams of ``n`` aligned frames, each
+    stream the softmax of noise plus a label signal of its own strength."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, EVAL_C, n)
+    onehot = np.eye(EVAL_C)[labels]
+    streams = []
+    for strength in (1.5, 1.0, 0.5):
+        logits = rng.normal(size=(n, EVAL_C)) + strength * onehot
+        e = np.exp(logits - logits.max(1, keepdims=True))
+        streams.append(e / e.sum(1, keepdims=True))
+    return labels, streams
+
+
+def phase_offline_eval(card: str, frames: np.ndarray, wav: np.ndarray) -> None:
+    """The offline fusion evaluation: (a) ``cli.run --fused`` (seeded weights,
+    the forced face) writes the output trees of the smoke clip and its
+    reverse, seeded per-frame annotations (with -1 and 7 rows) go beside them,
+    and ``cli.eval_offline --optimize_weights --num_dirichlet 10000 --device
+    cuda`` runs over that tree; (b) the Dirichlet search of 10,000
+    candidates and the 3-way grid of 1,000 at N = 2^18 aligned frames on the
+    card, each call timed by CUDA events, and the device part alone (the
+    10,000 candidates' metrics, a chunk of 1024 at a time); (c) the first
+    1,024 candidates' UARs on the card equal, bit for bit, those of the
+    port's own search on the CPU, and so does the chosen index."""
+    import pandas as pd
+
+    from avcer_tpu_torch.cli import eval_offline
+    from avcer_tpu_torch.fusion import weight_search
+
+    root = os.path.join(ROOT, "build", "smoke_eval")
+    if os.path.isdir(root):
+        shutil.rmtree(root)
+    tree, ann, report = (os.path.join(root, d) for d in ("preds", "ann", "report"))
+    clip_dir = os.path.join(ROOT, "build", "smoke_clips")
+    os.makedirs(clip_dir, exist_ok=True)
+    clips = [("forward", frames, wav), ("reverse", frames[::-1].copy(), wav[::-1].copy())]
+    for name, _, w in clips:
+        write_wav(os.path.join(clip_dir, name + ".wav"), w, 16000)
+    cfg = dataclasses.replace(cli.config_from_args(cli.parse_args(["--fused"])),
+                              weights_dir=os.path.join(ROOT, "build", "smoke_no_weights"))
+    pipe = build(card, True, cfg=cfg, label="cli.run --fused, the trees for eval_offline")
+    t0 = time.perf_counter()
+    pipe.run_many([ArrayReader(f, FPS, os.path.join(clip_dir, name + ".avi"))
+                   for name, f, _ in clips], tree, overlap=2)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    del pipe
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    os.makedirs(ann)
+    for name, f, _ in clips:
+        labels = rng.integers(0, 7, len(f))
+        labels[rng.random(len(f)) < 0.05] = -1
+        labels[rng.random(len(f)) < 0.05] = 7
+        pd.DataFrame({"Neutral": labels}).to_csv(os.path.join(ann, name + ".csv"), index=False)
+    rc, out, wall = run_cli(eval_offline.main, [
+        "--ann_root", ann, "--preds_root", tree, "--save_root", report, "--optimize_weights",
+        "--num_dirichlet", str(EVAL_DIRICHLET), "--device", "cuda"])
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    for ln in lines:
+        log(f"eval_offline JSON: {json.dumps(ln)}")
+    pickled = os.path.join(report, "metrics_dicts", "ABAW_metrics_dict_av_sd.pickle")
+    checks = {
+        "the run wrote both clips' static, dynamic and audio CSVs": all(
+            os.path.exists(os.path.join(tree, f"{kind}__{name}.csv"))
+            for name, _, _ in clips for kind in ("static", "dynamic", "audio")),
+        "eval_offline exited 0 with two JSON lines": rc == 0 and len(lines) == 2,
+        "the search's UARs and the fused metrics in [0, 1]": len(lines) == 2 and all(
+            0 <= lines[i][k] <= 1 for i, k in ((0, "dirichlet_uar"), (0, "grid_uar"),
+                                               (1, "uar_av"), (1, "f1_av"))),
+        "the metrics pickle written": os.path.exists(pickled),
+    }
+    for name, ok in checks.items():
+        log(f"  check eval_offline: {name}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError(f"eval_offline over the port's trees: checks failed; output {out}")
+    log(f"eval_offline over the port's output trees of two {CLIP_SECONDS} s clips: cli.run "
+        f"(run_many) {run_s:.3f} s, eval_offline --optimize_weights --num_dirichlet "
+        f"{EVAL_DIRICHLET} {wall:.3f} s wall on {card}")
+
+    # (b) the search at full size
+    labels, streams = seeded_corpus(EVAL_N, 1)
+    torch.cuda.reset_peak_memory_stats()
+    weight_search.search_grid(labels, streams, device=DEVICE)  # warm-up
+    t0 = time.perf_counter()
+    cands = weight_search.dirichlet_weights(EVAL_DIRICHLET, EVAL_M, EVAL_C, 42)
+    draw_ms = (time.perf_counter() - t0) * 1e3
+    dir_ms, (best_w, best_u) = events_ms(lambda: weight_search.search_dirichlet(
+        labels, streams, num_weights=EVAL_DIRICHLET, seed=42, device=DEVICE))
+    grid_ms, (combo, grid_u) = events_ms(lambda: weight_search.search_grid(
+        labels, streams, device=DEVICE))
+    preds = torch.from_numpy(np.stack(streams).astype(np.float32))
+    labels_t = torch.from_numpy(labels)
+    preds_d, labels_d = preds.to(DEVICE), labels_t.to(DEVICE)
+    w_all = torch.from_numpy(cands.astype(np.float32))
+    device_ms_sum, uars = 0.0, []
+    for s in range(0, EVAL_DIRICHLET, 1024):
+        ms, res = events_ms(lambda: weight_search.evaluate_candidates(
+            preds_d, labels_d, w_all[s:s + 1024].to(DEVICE)))
+        device_ms_sum += ms
+        uars.append(res[0])
+    best_i = int(torch.cat(uars).argmax())
+    if not (np.array_equal(best_w, cands[best_i]) and best_u == float(torch.cat(uars)[best_i])):
+        raise AssertionError("search_dirichlet chose another candidate than its own metrics say")
+    # where a chunk's device time goes, by kernel (one call, profiler trace)
+    by_kernel: dict[str, float] = {}
+    for e in device_kernels(lambda: weight_search.evaluate_candidates(
+            preds_d, labels_d, w_all[:1024].to(DEVICE)), runs=1, warmup=0) or ():
+        name = e["name"][:60]
+        by_kernel[name] = by_kernel.get(name, 0.0) + float(e["dur"]) * 1e-3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    log(f"evaluate_candidates, one chunk of 1024 at N = {EVAL_N}: device "
+        f"{sum(by_kernel.values()):.1f} ms, by kernel: "
+        + "; ".join(f"{name} {ms:.1f} ms" for name, ms in top) + f" on {card}")
+    bytes_in = tensor_bytes(preds_d, labels_d, w_all)
+    ops = 5.0 * EVAL_DIRICHLET * EVAL_N * EVAL_C  # three products and two sums an element
+    bound, by = bound_ms(bytes_in, ops, "f32")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"weight search at N = {EVAL_N} aligned frames, M = {EVAL_M}, C = {EVAL_C}: "
+        f"search_dirichlet {EVAL_DIRICHLET} candidates {dir_ms:.1f} ms (CUDA events over the "
+        f"call; the host's draw of the candidates alone {draw_ms:.1f} ms), best UAR "
+        f"{best_u:.6f} at candidate {best_i}; evaluate_candidates alone {device_ms_sum:.1f} ms "
+        f"in chunks of 1024 (bound {bound:.3f} ms, {by}); search_grid {len(combo)}-way "
+        f"{10 ** len(combo)} combinations {grid_ms:.1f} ms, best UAR {grid_u:.6f} at "
+        f"{[round(c, 2) for c in combo]}; peak device memory of the searches "
+        f"{peak_gb:.1f} GiB, on {card}")
+
+    # (c) the first 1,024 candidates against the port's own search on the CPU
+    t0 = time.perf_counter()
+    cpu_uar = torch.cat([weight_search.evaluate_candidates(
+        preds, labels_t, w_all[s:s + EVAL_CPU_CHUNK])[0]
+        for s in range(0, EVAL_HELD, EVAL_CPU_CHUNK)])
+    cpu_s = time.perf_counter() - t0
+    card_uar = torch.cat(uars)[:EVAL_HELD].cpu()
+    differ = int((card_uar != cpu_uar).sum())
+    same_pick = int(card_uar.argmax()) == int(cpu_uar.argmax())
+    log(f"weight search, the first {EVAL_HELD} candidates at N = {EVAL_N}: card against the "
+        f"CPU ({cpu_s:.1f} s, {torch.get_num_threads()} threads): {differ} UARs differ, "
+        f"chosen index {int(card_uar.argmax())} on the card, {int(cpu_uar.argmax())} on the "
+        "CPU")
+    if differ or not same_pick:
+        raise AssertionError(f"weight search: the card's UARs differ from the CPU's at {differ} "
+                             f"candidates, same pick {same_pick}")
+
+
+def phase_preprocess(card: str, wav: np.ndarray) -> None:
+    """The preprocessing copies, host work: ``spectral_vad`` with and without
+    ``separate_fusion`` on the smoke wav, ``build_vad_pickle(separate_fusion=
+    True)`` over a directory holding it, and ``extract_surface_area`` over the
+    face crops the host-crop path wrote; counts checked, host times printed."""
+    from avcer_tpu_torch.pipeline import preprocess
+    from avcer_tpu_torch.pipeline.media import read_wav
+
+    root = os.path.join(ROOT, "build", "smoke_preprocess")
+    if os.path.isdir(root):
+        shutil.rmtree(root)
+    wav_dir = os.path.join(root, "wavs")
+    os.makedirs(wav_dir)
+    times, found = {}, {}
+    for fusion in (False, True):
+        t0 = time.perf_counter()
+        found[fusion] = preprocess.spectral_vad(wav, 16000, separate_fusion=fusion)
+        times[f"spectral_vad separate_fusion={fusion}"] = time.perf_counter() - t0
+    write_wav(os.path.join(wav_dir, "smoke.wav"), wav, 16000)
+    t0 = time.perf_counter()
+    pkl = preprocess.build_vad_pickle(wav_dir, os.path.join(root, "vad.pickle"),
+                                      separate_fusion=True)
+    times["build_vad_pickle"] = time.perf_counter() - t0
+    with open(pkl, "rb") as fh:
+        info = pickle.load(fh)
+    back, _ = read_wav(os.path.join(wav_dir, "smoke.wav"))
+    crops = os.path.join(ROOT, "build", "smoke_surface", "host_crops")
+    jpgs = count_files(crops, "smoke/00/*.jpg")
+    t0 = time.perf_counter()
+    written = preprocess.extract_surface_area(crops, os.path.join(root, "mouth"))
+    times["extract_surface_area"] = time.perf_counter() - t0
+    import pandas as pd
+
+    df = pd.read_csv(written[0], index_col=0) if written else None
+
+    def well_formed(segs) -> bool:
+        return all(0 <= a["start"] < a["end"] <= len(wav) for a in segs) and all(
+            a["end"] <= b["start"] for a, b in zip(segs, segs[1:]))
+
+    checks = {
+        "the VAD segments lie in the wav, in order": well_formed(found[False])
+        and well_formed(found[True]),
+        "the pickle holds smoke.wav, its segments those of spectral_vad on the file":
+            list(info) == ["smoke.wav"]
+            and info["smoke.wav"] == preprocess.spectral_vad(back[0], 16000,
+                                                             separate_fusion=True),
+        f"one mouth-open CSV of {jpgs} rows, one a crop": jpgs > 0 and df is not None
+        and len(written) == 1 and len(df) == jpgs
+        and list(df.columns) == ["frame", "surface_area_mouth", "mouth_open"],
+        "mouth_open is 0 or 1, 0 on the first 29 rows": df is not None
+        and set(df["mouth_open"]) <= {0, 1} and not df["mouth_open"][:29].any(),
+    }
+    for name, ok in checks.items():
+        log(f"  check preprocess: {name}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError("preprocess: checks failed")
+    log(f"preprocess on the {CLIP_SECONDS} s smoke wav: segments {len(found[False])} raw, "
+        f"{len(found[True])} with separate_fusion; pickle {len(info)} file; mouth-open CSV "
+        f"{len(df)} rows from {jpgs} crops; host times "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in times.items()) + f" (host of {card})")
+
+
+def write_video(path: str, frames: np.ndarray) -> None:
+    import cv2
+
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), FPS, (WIDTH, HEIGHT))
+    for f in frames:
+        vw.write(f)
+    vw.release()
+
+
+def kept_boxes_agree(got: np.ndarray, want: np.ndarray, atol: float) -> bool:
+    """Each frame's kept boxes, as sets, within ``atol`` px of each other."""
+    for g, w in zip(got, want):
+        kg, kw = g[g[:, 5] > 0.5, :4], w[w[:, 5] > 0.5, :4]
+        if len(kg) != len(kw):
+            return False
+        used = np.zeros(len(kw), bool)
+        for box in kg:
+            hit = np.flatnonzero(~used & (np.abs(kw - box).max(1) <= atol))
+            if not hit.size:
+                return False
+            used[hit[0]] = True
+    return True
+
+
+def phase_s3fd(card: str, frames: np.ndarray) -> dict:
+    """``cli.detect_demo`` on the smoke clip written as a video: S3FD (seeded
+    weights written as ``s3fd_weights.pth``, 640 long side, batches of 32,
+    bf16, ``--threshold 0.5``), then RetinaFace r50. Each: one run in which
+    every distinct kernel call is held against its plain version, then one
+    with the counts set to 0 just before: K1 7 launches, all in the S3FD run
+    in its ``plus_one=False`` mode, all in the RetinaFace run in its +1 mode;
+    the annotated video written. Then the first batch through the S3FD stage
+    on the card against the same weights in f32 on the CPU: the card in f32,
+    its kept boxes as sets within 0.01 px (and row for row, keep masks equal,
+    where the candidates come in the same order); the served bf16 forward's
+    regressions and scores on the first 4 frames within 5 % relative L2. K1's numbers in its
+    no-+1 mode at the S3FD path's first call. Returns K1's launches by path
+    and those numbers."""
+    from avcer_tpu_torch.cli import detect_demo
+    from avcer_tpu_torch.core import convert
+    from avcer_tpu_torch.models.s3fd import S3FDNet
+    from avcer_tpu_torch.pipeline.detect_s3fd import S3FD_RGB_MEAN, S3FDStage
+    from avcer_tpu_torch.pipeline.media import VideoReader
+
+    root = os.path.join(ROOT, "build", "smoke_s3fd")
+    if os.path.isdir(root):
+        shutil.rmtree(root)
+    wdir = os.path.join(root, "weights")
+    os.makedirs(wdir)
+    model = S3FDNet()
+    layers.seeded_init_(model, torch.Generator().manual_seed(0))
+    model.reset_l2norm_scales()
+    wfile = os.path.join(wdir, checkpoint.TORCH_FILES["s3fd"])
+    torch.save(model.state_dict(), wfile)
+    clip = os.path.join(root, "smoke.avi")
+    write_video(clip, frames)
+    n = frames.shape[0]
+    batches = -(-n // DETECT_BATCH)
+    launches_by_path, fps = {}, {}
+    for method, extra in (("s3fd", ["--threshold", str(S3FD_THRESHOLD)]), ("retinaface", [])):
+        title = f"detect_demo --method {method}"
+        out = os.path.join(root, f"annotated_{method}.avi")
+        argv = ["--input", clip, "--method", method, "--weights_dir", wdir, "--output", out,
+                "--device", "cuda"] + extra
+        held: dict = {}
+        with holding_new_calls(held):
+            rc, _, _ = run_cli(detect_demo.main, argv)
+        reset_counts()
+        rc2, printed, wall = run_cli(detect_demo.main, argv)
+        launches = counts()
+        by_mode = dict(nms_kernel.nms_mask.launches_by_mode)
+        HELD.update(held)
+        line = printed.strip().splitlines()[0] if printed.strip() else ""
+        m = re.fullmatch(r"(\d+) frames, faces on (\d+), ([\d.]+) fps", line)
+        plus_one = method == "retinaface"
+        checks = {
+            "exit 0 twice": rc == rc2 == 0,
+            f"'{n} frames, faces on F, X fps'": bool(m) and int(m.group(1)) == n,
+            f"K1 launches == {batches} detect batches, all with plus_one={plus_one}":
+                launches["nms_mask"] == batches and by_mode == {plus_one: batches,
+                                                                not plus_one: 0},
+            "K1 held on the path": any(name == "nms_mask" for name, _ in held.values()),
+            "the annotated video written": os.path.exists(out) and os.path.getsize(out) > 0,
+        }
+        for name, ok in checks.items():
+            log(f"  check {title}: {name}: {'ok' if ok else 'FAILED'}")
+        if not all(checks.values()):
+            raise AssertionError(f"{title}: checks failed; printed {printed!r}, launches "
+                                 f"{launches}, by mode {by_mode}")
+        launches_by_path[f"{title} (plus_one={plus_one})"] = launches["nms_mask"]
+        fps[method] = float(m.group(3))
+        log(f"{title}: {line} (demo wall {wall:.2f} s with the model's build and the "
+            f"annotated video) on {card}")
+
+    # the first batch, card against the CPU, and the detector alone
+    stage = detect_demo.build_stage("s3fd", "resnet50", S3FD_THRESHOLD, 640, wdir,
+                                    device=DEVICE)
+    reader = VideoReader(clip)
+    first, _ = next(reader.batches(DETECT_BATCH))
+    reader.release()
+    x_dev, _ = stage.prepare_batch(first)
+    calls = []
+
+    def capture(*args, **kw):
+        calls.append((args, kw))
+        return nms_kernel.nms_mask(*args, **kw)
+
+    detect_s3fd_module.nms_mask = capture
+    try:
+        packed16 = stage.forward(x_dev).cpu().numpy()
+    finally:
+        detect_s3fd_module.nms_mask = nms_kernel.nms_mask
+    (boxes, valid, thresh), kw = calls[0]
+    keep = nms_kernel.nms_mask(boxes, valid, thresh, **kw)
+    numbers = nms_numbers(boxes, valid, keep, thresh, plus_one=False)
+    numbers["valid_per_frame"] = float(valid.float().sum(1).mean())
+    numbers["kept_per_frame"] = float(keep.float().sum(1).mean())
+    model32 = S3FDNet()
+    model32.load_state_dict(convert.release_state_dict(
+        "s3fd", checkpoint.load_torch_state_dict(wfile)), strict=True)
+    model32.eval().requires_grad_(False)
+    cfg = stage.cfg
+    t0 = time.perf_counter()
+    cpu_stage = S3FDStage(cfg, model32, device="cpu")
+    packed_cpu = cpu_stage.forward(cpu_stage.prepare_batch(first)[0]).numpy()
+    cpu_s = time.perf_counter() - t0
+    card32 = S3FDStage(cfg, copy.deepcopy(model32).to(DEVICE), device=DEVICE)
+    packed32 = card32.forward(x_dev).cpu().numpy()
+    mean = torch.tensor(S3FD_RGB_MEAN)
+    x_cpu = torch.from_numpy(first[:4]).flip(-1).float() - mean
+    with torch.inference_mode():
+        want = model32(x_cpu)
+        got16 = stage.model(x_cpu.to(DEVICE))
+    errs = {name: rel_l2(g.float().cpu(), w) for name, g, w in zip(("loc", "conf"), got16, want)}
+    same_order = np.abs(packed32[..., :4] - packed_cpu[..., :4]).max(axis=(1, 2)) <= 0.01
+    rows_equal = bool((packed32[same_order, :, 5] == packed_cpu[same_order, :, 5]).all())
+    checks = {
+        "f32 card vs f32 CPU: kept boxes agree as sets within 0.01 px":
+            kept_boxes_agree(packed32, packed_cpu, 0.01),
+        f"f32 card vs f32 CPU: keep masks equal row for row on the {int(same_order.sum())} "
+        f"of {len(first)} frames whose candidates come in the same order": rows_equal,
+        "f32 card vs f32 CPU: scores within 1e-5": bool(
+            np.abs(packed32[..., 4] - packed_cpu[..., 4]).max() <= 1e-5),
+        "bf16 card vs f32 CPU, first 4 frames: loc and conf within 5 % relative L2":
+            max(errs.values()) < 0.05,
+        "landmark slots zero": bool((packed16[..., 6:] == 0).all()),
+    }
+    agree16 = np.mean([kept_boxes_agree(packed16[i:i + 1], packed_cpu[i:i + 1], 1.0)
+                       for i in range(len(first))])
+    for name, ok in checks.items():
+        log(f"  check S3FD first batch: {name}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError("S3FD card outputs disagree with the f32 CPU reference")
+    # the detector alone, the clip's 7 batches, frames already decoded
+    reader = VideoReader(clip)
+    decoded = [b for b, _ in reader.batches(DETECT_BATCH)]
+    reader.release()
+    for b in decoded[:1]:
+        stage.dispatch(b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in decoded:
+        packed, scale, _ = stage.dispatch(b)
+        stage.unpack(packed.cpu().numpy(), scale)
+    detect_s = time.perf_counter() - t0
+    log(f"S3FD first batch: bf16 card vs f32 CPU relative L2 (first 4 frames) {errs}, kept "
+        f"boxes within 1 px "
+        f"on {agree16:.0%} of frames (reported); the f32 CPU stage {cpu_s:.1f} s; the stage "
+        f"alone over {n} frames ({len(decoded)} batches, decoded): {detect_s * 1e3:.1f} ms = "
+        f"{n / detect_s:.1f} fps; K1 no-+1 at {numbers['shape']}: {numbers['ms']:.4f} ms a "
+        f"call, device {ms_text(numbers['device_ms'])}, plain {numbers['plain_ms']:.4f} ms, bound "
+        f"{numbers['bound_ms']:.6f} ms ({numbers['bound_by']}); "
+        f"{numbers['valid_per_frame']:.1f} valid and {numbers['kept_per_frame']:.1f} kept "
+        f"candidates a frame, on {card}")
+    numbers.update(demo_fps=fps, stage_fps=n / detect_s)
+    return {"launches_by_path": launches_by_path, "s3fd_mode": numbers}
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -1800,6 +2258,18 @@ def main() -> int:
     c64_int8["launches_by_path"] = c64_launches
     if min(c64_launches.values()) <= 0:
         raise AssertionError(f"fused_ssh_heads int8 at C = 64: launches {c64_launches}")
+    t0 = time.perf_counter()
+    phase_offline_eval(card, frames, wav)
+    log(f"offline evaluation phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_preprocess(card, wav)
+    log(f"preprocessing phase: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    s3fd = phase_s3fd(card, frames)
+    log(f"S3FD and detect_demo phase: {time.perf_counter() - t0:.2f} s")
+    nms = next(k for k in kernels if k["name"] == "nms_mask")
+    nms["launches_by_path"] = s3fd["launches_by_path"]
+    nms["s3fd_mode"] = s3fd["s3fd_mode"]
     for k in kernels + mobilenet_kernels:
         errs = [err for name, err in HELD.values() if name == k["name"]]
         k["path_calls_held"] = len(errs)

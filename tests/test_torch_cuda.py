@@ -63,6 +63,33 @@ def test_nms_kernel_equals_plain(cuda_device, seed, b, k):
     np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("b,k", [(32, 64), (3, 8), (2, 65), (1, 1024)])
+def test_nms_kernel_no_plus_one_equals_plain(cuda_device, seed, b, k):
+    """S3FD's mode (``plus_one=False``) at IoU 0.3, bit for bit the plain
+    version: the main path's [32, 64], and boxes that touch along an edge,
+    zero-width and zero-area boxes and their duplicates (IoU 0 / 0)."""
+    boxes, valid = nms_case(seed, b, k)
+    if k >= 8:
+        boxes[:, 0] = [200, 200, 210, 210]
+        boxes[:, 1] = [210, 200, 220, 210]  # touches row 0: IoU 0 without the +1
+        boxes[:, 3] = [230, 230, 230, 240]  # zero width
+        boxes[:, 4] = [230, 230, 230, 240]
+        boxes[:, 6] = [250, 250, 250, 250]  # a point
+        valid[:, :8] = True
+    bt = torch.from_numpy(boxes).to(cuda_device)
+    vt = torch.from_numpy(valid).to(cuda_device)
+    want = nms_kernel.nms_mask_plain(bt, vt, 0.3, plus_one=False).cpu().numpy()
+    before = dict(nms_kernel.nms_mask.launches_by_mode)
+    got = nms_kernel.nms_mask(bt, vt, 0.3, plus_one=False)
+    torch.cuda.synchronize()
+    assert nms_kernel.nms_mask.launches_by_mode[False] == before[False] + 1
+    assert nms_kernel.nms_mask.launches_by_mode[True] == before[True]
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    if k >= 8:
+        assert want[:, 1].all()  # kept: only the +1 makes the touching rows overlap
+
+
 def test_nms_kernel_threshold_rows(cuda_device):
     boxes, valid = nms_case(0, 1, 8)
     valid[:] = True
