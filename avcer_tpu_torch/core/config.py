@@ -1,10 +1,12 @@
 """Typed configuration of the inference pipeline: the port's own copy of the
 dataclasses in avcer_tpu/core/config.py, field for field with the same
 defaults (tests/test_torch_ops.py pins them), so that one side's values can
-be handed to the other. The training configs and the JAX package's
-``pipeline_config_from_args`` are not copied: the port's CLI builds its
-config itself (``avcer_tpu_torch.cli.run``). ``MeshConfig`` is kept because
-``PipelineConfig`` holds one; the port runs ``data == 1`` only.
+be handed to the other, the training configs ``OptimConfig`` and
+``TrainConfig`` included. The JAX package's ``pipeline_config_from_args`` is
+not copied: the port's CLI builds its config itself
+(``avcer_tpu_torch.cli.run``). ``MeshConfig`` is kept because
+``PipelineConfig`` and ``TrainConfig`` hold one; the port runs ``data ==
+model == pipe == 1`` only.
 
 Comments that speak of the TPU, the MXU, VMEM or Pallas describe the JAX
 package's measurements and switches; on the card the fused switches select
@@ -237,3 +239,38 @@ class PipelineConfig:
     def to_json(self, **kw: Any) -> str:
         return json.dumps(_asdict(self), indent=2, **kw)
 
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """Adam + CosineAnnealingWarmRestarts with the reference's per-batch
+    ``epoch + idx/iters`` stepping (net_trainer.py:437, train_c_audio.py:246-250)."""
+
+    lr: float = 1e-4
+    t0: int = 10
+    t_mult: int = 1
+    eta_min: float = 0.0
+    weight_decay: float = 0.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: str = "v3"
+    num_classes: int = 8
+    epochs: int = 100
+    batch_size: int = 24
+    seed: int = 0
+    augmentation: bool = False
+    filtered: bool = True
+    label_smoothing: float = 0.2
+    mixup_alpha: float = 0.3
+    loss: str = "weighted_ce"  # weighted_ce | soft_focal | mse | ccc
+    #: classification (EXPR) or regression (VA task, net_trainer.py:18-24)
+    problem: str = "classification"
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    log_root: str = "logs"
+    #: model-selection metric (train_c_audio.py:217)
+    selection_metric: str = "f1"
+
+    def to_json(self, **kw: Any) -> str:
+        return json.dumps(_asdict(self), indent=2, **kw)

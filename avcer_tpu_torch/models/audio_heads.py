@@ -14,6 +14,11 @@ Parameter names follow ``TwinExprModel`` (``gru`` is the reference's
 4, 5), so release files load strictly. The GRU is the JAX package's
 ``lax.scan``, not a TPU kernel: it runs as the library's ``nn.GRU`` in f32
 (its weights stay f32 under ``cast_compute``), on the card cuDNN's.
+
+``forward`` follows ``module.training`` as the JAX package's
+``deterministic=not train`` does: dropout in the encoder and the transformer
+layers, batch statistics in the time downsample's BatchNorms (momentum 0.1).
+``return_features`` also gives the pooled features (the head's input).
 """
 
 from __future__ import annotations
@@ -61,10 +66,12 @@ class ExprModel(nn.Module):
         )
         self.feature_downsample = nn.Linear(f, num_classes)
 
-    def forward(self, wav: torch.Tensor, w2v_mode: str = "full") -> torch.Tensor:
+    def forward(self, wav: torch.Tensor, w2v_mode: str = "full",
+                return_features: bool = False):
         """``w2v_mode`` is ``Wav2Vec2Model.forward``'s ``mode``: with
         ``"features_only"`` the conv features come back and the head does not
-        run; with ``"from_features"`` ``wav`` holds such features."""
+        run; with ``"from_features"`` ``wav`` holds such features. With
+        ``return_features``: (logits, pooled features [B, F])."""
         h = self.wav2vec2(wav, mode=w2v_mode)
         if w2v_mode == "features_only":
             return h
@@ -77,4 +84,6 @@ class ExprModel(nn.Module):
             raise ValueError(
                 f"time downsample needs >= 51 frames, got {h.shape[1]} "
                 "(a 4 s / 16 kHz window gives 199)")
-        return self.feature_downsample(self.time_downsample(h.transpose(1, 2)))
+        pooled = self.time_downsample(h.transpose(1, 2))
+        logits = self.feature_downsample(pooled)
+        return (logits, pooled) if return_features else logits

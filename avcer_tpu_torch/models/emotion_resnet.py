@@ -18,7 +18,12 @@ layer4's entry is never fused. Tensors keep the NCHW shape between sections
 ``quant`` is the JAX package's int8 variant over the same state dict: the
 stem and every bottleneck conv are ``layers.QConv``; the fc head stays exact.
 With ``fused`` the chains run the fused kernel's int8 mode; calibration
-forwards (``layers.calibrating``) always run the unfused modules.
+forwards (``layers.calibrating``) always run the unfused modules, and so does
+a model in ``training``, as the JAX package fuses only when not training
+(avcer_tpu/models/emotion_resnet.py:161). In ``training`` every BatchNorm
+takes batch statistics and moves its running ones with torch's momentum
+``BN_MOMENTUM`` = 0.01 (the reference passes 0.99 to ``nn.BatchNorm2d``,
+which the JAX package reads as the weight of the old value).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from avcer_tpu_torch.models.layers import BatchNorm, FoldCache
 from avcer_tpu_torch.models.retinaface import fold_pairs, fused_section, make_conv
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.01
 
 
 def same_pad(i: int, k: int, s: int, d: int = 1) -> tuple[int, int]:
@@ -44,14 +50,14 @@ class Bottleneck(nn.Module):
                  quant: bool = False):
         super().__init__()
         self.conv1 = make_conv(in_ch, planes, 1, stride, 0, quant)
-        self.batch_norm1 = BatchNorm(planes, BN_EPS)
+        self.batch_norm1 = BatchNorm(planes, BN_EPS, BN_MOMENTUM)
         self.conv2 = make_conv(planes, planes, 3, 1, 1, quant)
-        self.batch_norm2 = BatchNorm(planes, BN_EPS)
+        self.batch_norm2 = BatchNorm(planes, BN_EPS, BN_MOMENTUM)
         self.conv3 = make_conv(planes, planes * 4, 1, 1, 0, quant)
-        self.batch_norm3 = BatchNorm(planes * 4, BN_EPS)
+        self.batch_norm3 = BatchNorm(planes * 4, BN_EPS, BN_MOMENTUM)
         self.i_downsample = (
             nn.Sequential(make_conv(in_ch, planes * 4, 1, stride, 0, quant),
-                          BatchNorm(planes * 4, BN_EPS))
+                          BatchNorm(planes * 4, BN_EPS, BN_MOMENTUM))
             if downsample else None
         )
 
@@ -88,7 +94,7 @@ class EmotionResNet50(FoldCache):
         self.quant = quant
         # in int8 the stem is quantised too (unlike the detector's)
         self.conv_layer_s2_same = make_conv(3, 64, 7, 2, 0, quant)
-        self.batch_norm1 = BatchNorm(64, BN_EPS)
+        self.batch_norm1 = BatchNorm(64, BN_EPS, BN_MOMENTUM)
         in_ch = 64
         for li, (blocks, planes) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512))):
             stride = 1 if li == 0 else 2
@@ -111,7 +117,7 @@ class EmotionResNet50(FoldCache):
         x = F.max_pool2d(x, 3, stride=2)
         for li in range(4):
             layer = getattr(self, f"layer{li + 1}")
-            if not self.fused or self.calibrating:
+            if not self.fused or self.calibrating or self.training:
                 x = layer(x)
                 continue
             start = 0

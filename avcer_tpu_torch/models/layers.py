@@ -1,9 +1,16 @@
 """Shared building blocks (avcer_tpu/models/layers.py), only the parts the
 ported path uses.
 
-- ``BatchNorm``: inference BatchNorm with torch's state names, computed like
-  avcer_tpu's ``TorchBatchNorm``: scale and shift folded in f32, applied in
-  the activation's dtype. Each model passes its own eps.
+- ``BatchNorm``: BatchNorm with torch's state names, computed like
+  avcer_tpu's ``TorchBatchNorm``. In eval mode scale and shift are folded in
+  f32 and applied in the activation's dtype; in ``training`` the batch's
+  mean and biased variance are taken in f32 and the running statistics move
+  as ``new = (1 - m) * old + m * batch`` with the unbiased variance (torch's
+  ``momentum=m``). Each model passes its own eps and momentum.
+- ``Dropout``: the JAX package's ``nn.Dropout`` (keep with probability
+  ``1 - p``, kept values divided by ``1 - p``), active only in ``training``,
+  its masks drawn from an explicit ``torch.Generator`` that
+  ``set_dropout`` hands to every dropout of a model.
 - ``fold_bn`` and ``FoldCache``: a convolution and its inference BatchNorm
   folded to ``(w, inv, shift)`` for the fused kernels, folded once and kept.
 - ``LayerNorm``: computed in f32 and cast back to the input's dtype, the
@@ -20,7 +27,13 @@ ported path uses.
   activation scales' three modes (calibrating, calibrated, uncalibrated) and
   the tree of calibrated scales (``act_scales``, ``load_act_scales``,
   ``merge_act_scales_trees``). ``fold_bn_q`` folds a ``QConv`` and its
-  BatchNorm for the fused kernels' int8 mode.
+  BatchNorm for the fused kernels' int8 mode. Differentiated, an int8 module
+  is a straight-through estimator (avcer_tpu's ``_ste``): the int8 program's
+  forward, the exact op's gradient.
+- ``drop_caches``: forgets the folded and quantised weights a model keeps, as
+  a training step must after it moves the parameters in place; while
+  ``training`` the int8 modules quantise their weight anew at every call and
+  ``FoldCache.folded`` refuses (a model in training takes no fused path).
 
 The int8 products go through ``torch._int_mm`` (int8 x int8 -> int32 on the
 tensor cores through cuBLASLt on the card, exact on the CPU too): a linear
@@ -39,12 +52,14 @@ import torch.nn.functional as F
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over dim 1 of [B, C, ...] with the state names of
-    ``nn.BatchNorm{1,2}d`` (so torch checkpoints load strictly)."""
+    """BatchNorm over dim 1 of [B, C, ...] with the state names of
+    ``nn.BatchNorm{1,2}d`` (so torch checkpoints load strictly). ``momentum``
+    in torch's convention (the weight of the batch's statistics)."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -52,10 +67,64 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        if self.training:
+            return self._batch_stats(x, shape)
         inv = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
         shift = self.bias.float() - self.running_mean.float() * inv
-        shape = (1, -1) + (1,) * (x.dim() - 2)
         return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
+
+    def _batch_stats(self, x: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+        """The batch's mean and biased variance in f32 normalise ``x``; the
+        running statistics take them in (the variance unbiased)."""
+        xf = x.float()
+        dims = [0] + list(range(2, x.dim()))
+        mean = xf.mean(dim=dims)
+        var = xf.var(dim=dims, unbiased=False)
+        with torch.no_grad():
+            n = xf.numel() // xf.shape[1]
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * (var * n / max(n - 1, 1)))
+            self.num_batches_tracked += 1
+        inv = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((xf - mean.view(shape)) * inv.view(shape) + self.bias.float().view(shape)
+                ).to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout(p)``: in ``training`` each value is kept with
+    probability ``1 - p`` and divided by ``1 - p``, else zero; in eval mode,
+    or at ``p == 0``, the identity. The masks come from ``generator`` (a
+    ``torch.Generator`` on the input's device, see ``set_dropout``), never
+    from the global one: a training forward without it raises."""
+
+    def __init__(self, p: float = 0.1):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in training needs a generator: layers.set_dropout("
+                               "model, generator=torch.Generator(device))")
+        keep_prob = 1.0 - self.p
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def set_dropout(model: nn.Module, generator: Optional[torch.Generator] = None,
+                p: Optional[float] = None) -> None:
+    """Hand ``generator`` to every ``Dropout`` of ``model`` (and, where ``p``
+    is given, set every probability to it: ``p=0.0`` turns dropout off)."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            if generator is not None:
+                m.generator = generator
+            if p is not None:
+                m.p = p
 
 
 @torch.no_grad()
@@ -92,6 +161,9 @@ class FoldCache(nn.Module):
         self._folds: dict = {}
 
     def folded(self, key, make):
+        if self.training:
+            raise RuntimeError("folded weights are for inference: a model in training "
+                               "takes its unfused modules")
         if key not in self._folds:
             self._folds[key] = make()
         return self._folds[key]
@@ -127,12 +199,14 @@ def scaled_dot_attention(
 ) -> torch.Tensor:
     """Unmasked attention as avcer_tpu's plain op: logits accumulated in f32
     (bf16 products are exact in f32), f32 softmax, weights cast to ``dtype``
-    before the product with V."""
+    before the product with V. Under ``torch.autocast`` (training) it keeps
+    these types: autocast would round the f32 logits' product to bf16."""
     d = q.shape[-1]
     sqrt_d = torch.tensor(float(d), dtype=torch.float32).sqrt().to(q.device)
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / sqrt_d
-    weights = torch.softmax(logits, dim=-1).to(dtype)
-    return torch.matmul(weights, v.to(dtype))
+    with torch.autocast(q.device.type, enabled=False):
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / sqrt_d
+        weights = torch.softmax(logits, dim=-1).to(dtype)
+        return torch.matmul(weights, v.to(dtype))
 
 
 def cast_compute(model: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -271,11 +345,22 @@ class QModule(nn.Module):
 
     def quantized_weight(self) -> tuple[torch.Tensor, torch.Tensor]:
         """``quantize_weight`` of the master weight, made once and kept until
-        the parameters move or a state dict is loaded."""
+        the parameters move or a state dict is loaded; in ``training`` made
+        anew at every call (an optimizer step moves the weight in place)."""
+        if self.training:
+            with torch.no_grad():
+                return quantize_weight(self.weight)
         if self._wq is None:
             with torch.no_grad():
                 self._wq = quantize_weight(self.weight)
         return self._wq
+
+    def straight_through(self, x: torch.Tensor, int8_fn, exact_fn) -> torch.Tensor:
+        """``int8_fn(x, weight)``; where autograd records the call, through
+        ``_STE``: the same forward, the gradient of ``exact_fn(x, weight)``."""
+        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad):
+            return _STE.apply(x, self.weight, int8_fn, exact_fn)
+        return int8_fn(x, self.weight)
 
     def _apply(self, fn, *args, **kwargs):
         self._wq = None
@@ -302,10 +387,17 @@ class QConv(QModule):
         self.bias = nn.Parameter(torch.zeros(oup)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = int8_conv(x, self.weight, stride=self.stride, padding=self.padding,
-                      out_dtype=self.dtype, act_amax=self.activation_amax(x),
-                      wq=self.quantized_weight())
-        return self._add_bias(y, (1, -1, 1, 1))
+        amax = self.activation_amax(x)
+
+        def int8_fn(xx, w):
+            return int8_conv(xx, w, stride=self.stride, padding=self.padding,
+                             out_dtype=self.dtype, act_amax=amax, wq=self.quantized_weight())
+
+        def exact_fn(xx, w):
+            return F.conv2d(xx.float(), w.float(), stride=self.stride,
+                            padding=self.padding).to(self.dtype)
+
+        return self._add_bias(self.straight_through(x, int8_fn, exact_fn), (1, -1, 1, 1))
 
 
 class QConv1d(QModule):
@@ -319,11 +411,17 @@ class QConv1d(QModule):
         self.bias = nn.Parameter(torch.zeros(oup)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        wq, sw = self.quantized_weight()
-        y = int8_conv(x[:, :, None, :], self.weight, stride=(1, self.stride),
-                      out_dtype=self.dtype, act_amax=self.activation_amax(x),
-                      wq=(wq[:, :, None, :], sw))[:, :, 0]
-        return self._add_bias(y, (1, -1, 1))
+        amax = self.activation_amax(x)
+
+        def int8_fn(xx, w):
+            wq, sw = self.quantized_weight()
+            return int8_conv(xx[:, :, None, :], w, stride=(1, self.stride), out_dtype=self.dtype,
+                             act_amax=amax, wq=(wq[:, :, None, :], sw))[:, :, 0]
+
+        def exact_fn(xx, w):
+            return F.conv1d(xx.float(), w.float(), stride=self.stride).to(self.dtype)
+
+        return self._add_bias(self.straight_through(x, int8_fn, exact_fn), (1, -1, 1))
 
 
 class QDense(QModule):
@@ -335,9 +433,50 @@ class QDense(QModule):
         self.bias = nn.Parameter(torch.zeros(oup)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = int8_matmul(x, self.weight, out_dtype=self.dtype,
-                        act_amax=self.activation_amax(x), wq=self.quantized_weight())
-        return self._add_bias(y, (-1,))
+        amax = self.activation_amax(x)
+
+        def int8_fn(xx, w):
+            return int8_matmul(xx, w, out_dtype=self.dtype, act_amax=amax,
+                               wq=self.quantized_weight())
+
+        def exact_fn(xx, w):
+            return torch.matmul(xx.float(), w.float().t()).to(self.dtype)
+
+        return self._add_bias(self.straight_through(x, int8_fn, exact_fn), (-1,))
+
+
+class _STE(torch.autograd.Function):
+    """Straight-through estimator (avcer_tpu/models/layers.py ``_ste``): the
+    forward is ``int8_fn(x, weight)``, the backward the vector-Jacobian
+    product of ``exact_fn(x, weight)`` at the same inputs."""
+
+    @staticmethod
+    def forward(ctx, x, weight, int8_fn, exact_fn):
+        ctx.save_for_backward(x, weight)
+        ctx.exact_fn = exact_fn
+        return int8_fn(x, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_(wanted[0])
+            wd = weight.detach().requires_grad_(wanted[1])
+            inputs = [t for t, w in zip((xd, wd), wanted) if w]
+            grads = iter(torch.autograd.grad(ctx.exact_fn(xd, wd), inputs, g))
+        return (next(grads) if wanted[0] else None, next(grads) if wanted[1] else None,
+                None, None)
+
+
+def drop_caches(model: nn.Module) -> None:
+    """Forget every folded weight (``FoldCache``) and quantised weight
+    (``QModule``) of ``model``: after an optimizer step they would be stale."""
+    for m in model.modules():
+        if isinstance(m, FoldCache):
+            m._folds.clear()
+        elif isinstance(m, QModule):
+            m._wq = None
 
 
 def q_modules(model: nn.Module) -> dict[str, QModule]:

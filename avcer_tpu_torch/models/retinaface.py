@@ -33,7 +33,8 @@ only the pointwise convs are quantised: the first conv (3 input channels) and
 every depthwise conv stay in the compute dtype. With the fused
 switches the int8 convs run inside the fused kernels' int8 mode, folded to
 ``(wq, mult, shift)`` with the activation scales in the kernels' order.
-Calibration forwards (``layers.calibrating``) always run the unfused modules.
+Calibration forwards (``layers.calibrating``) and a model in ``training`` always
+run the unfused modules.
 The space-to-depth stem is not ported yet.
 """
 
@@ -173,7 +174,7 @@ class ResNet50Body(FoldCache):
         h = F.relu(self.bn1(self.conv1(x)))
         h = F.max_pool2d(h, 3, stride=2, padding=1)
         outs = []
-        fused = not self.calibrating
+        fused = not (self.calibrating or self.training)
         for li in range(4):
             layer = getattr(self, f"layer{li + 1}")
             blocks = len(layer)
@@ -303,7 +304,8 @@ class Head(nn.Module):
 
 class RetinaFace(FoldCache):
     """Normalised BGR frames [B, H, W, 3] -> (loc [B, A, 4], conf [B, A, 2]
-    softmaxed in f32, landms [B, A, 10]).
+    softmaxed in f32, landms [B, A, 10]). ``raw_conf``: conf as the heads'
+    logits (the JAX package's option, for the multibox loss in training).
 
     ``fused_ssh``: each scale's SSH module and heads as one kernel call after
     the unfused FPN. With ``fused_fpn`` too, the FPN goes into the same calls:
@@ -313,9 +315,10 @@ class RetinaFace(FoldCache):
     def __init__(self, num_anchors: int = 2, fused_layer1: bool = False,
                  fused_tails: bool = False, fused_entries: bool = False,
                  fused_ssh: bool = False, fused_fpn: bool = False, quant: bool = False,
-                 backbone: str = "resnet50"):
+                 backbone: str = "resnet50", raw_conf: bool = False):
         super().__init__()
         self.backbone = backbone
+        self.raw_conf = raw_conf
         self.fused_ssh = fused_ssh
         self.fused_fpn = fused_fpn
         self.quant = quant
@@ -381,17 +384,20 @@ class RetinaFace(FoldCache):
             per_scale[i] = (res[0].reshape(b, -1, 4), res[1].reshape(b, -1, 2),
                             res[2].reshape(b, -1, 10))
         loc, conf, landms = (torch.cat([o[k] for o in per_scale], dim=1) for k in range(3))
-        return loc, torch.softmax(conf.float(), dim=-1), landms
+        return loc, self._conf(conf), landms
+
+    def _conf(self, conf: torch.Tensor) -> torch.Tensor:
+        return conf if self.raw_conf else torch.softmax(conf.float(), dim=-1)
 
     def forward(self, x: torch.Tensor):
         dtype = self.BboxHead[0].conv1x1.weight.dtype
         x = x.permute(0, 3, 1, 2).to(dtype)
         feats = self.body(x)
-        if self.fused_ssh and not self.calibrating:
+        if self.fused_ssh and not (self.calibrating or self.training):
             return self._fused_heads(feats if self.fused_fpn else self.fpn(feats), dtype)
         fpn = self.fpn(feats)
         feats = [self.ssh1(fpn[0]), self.ssh2(fpn[1]), self.ssh3(fpn[2])]
         loc = torch.cat([self.BboxHead[i](f) for i, f in enumerate(feats)], dim=1)
         conf = torch.cat([self.ClassHead[i](f) for i, f in enumerate(feats)], dim=1)
         landms = torch.cat([self.LandmarkHead[i](f) for i, f in enumerate(feats)], dim=1)
-        return loc, torch.softmax(conf.float(), dim=-1), landms
+        return loc, self._conf(conf), landms

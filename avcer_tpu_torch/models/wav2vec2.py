@@ -5,9 +5,21 @@
 - feature projection: LayerNorm -> Linear;
 - grouped positional conv (kernel 128, 16 groups, weight norm fused into the
   weight), the trailing frame trimmed for an even kernel, GELU;
-- stable-layer-norm (pre-LN) encoder layers whose self-attention runs the
-  CUDA kernel on the card (``ops.cuda.attention_kernel.mha``), then a final
-  LayerNorm. No attention mask, as the reference passes none.
+- stable-layer-norm (pre-LN) encoder layers, then a final LayerNorm. No
+  attention mask, as the reference passes none. Each layer's self-attention
+  takes its route from ``attention_route``: the CUDA kernel
+  (``ops.cuda.attention_kernel.mha``, K2) where no gradient has to pass
+  through it (eval, serving, frozen layers in training), the autograd
+  attention ``layers.scaled_dot_attention`` where one does (a layer whose
+  parameters or input require grad). The kernel has no backward, as the
+  Pallas kernel has none.
+
+Training mode (``module.training``): dropout 0.1 where the JAX package has
+it (after the feature projection, after the positional embedding is added,
+after the attention's output projection, after the FFN's GELU and after its
+output), in frozen layers too; ``Wav2Vec2Config.remat`` recomputes each
+trainable encoder layer in the backward pass (``torch.utils.checkpoint``,
+non-reentrant), its dropout masks drawn again from the same generator state.
 
 LayerNorms run in f32 and cast back at the JAX package's rounding points.
 Parameter names are HF ``Wav2Vec2Model``'s, except that the positional conv
@@ -30,15 +42,19 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
-from avcer_tpu_torch.models.layers import LayerNorm, QConv1d, QDense, gelu_exact
+from avcer_tpu_torch.models.layers import (Dropout, LayerNorm, QConv1d, QDense, gelu_exact,
+                                           scaled_dot_attention)
 from avcer_tpu_torch.ops.cuda.attention_kernel import mha
+
+DROPOUT = 0.1
 
 
 @dataclass(frozen=True)
 class Wav2Vec2Config:
-    """Same fields and defaults as avcer_tpu's Wav2Vec2Config, less the TPU
-    options (Pallas attention, remat)."""
+    """Same fields and defaults as avcer_tpu's Wav2Vec2Config, less the
+    Pallas attention switch (``attention_route`` decides)."""
 
     hidden_size: int = 1024
     num_layers: int = 12
@@ -51,6 +67,9 @@ class Wav2Vec2Config:
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
     layer_norm_eps: float = 1e-5
+    #: recompute the trainable encoder layers in the backward pass
+    #: (training only): activation memory for batches of 24 4 s windows
+    remat: bool = False
     #: int8 serving (see the module docstring); calibrated through AudioStage
     quant: bool = False
 
@@ -95,9 +114,10 @@ class FeatureProjection(nn.Module):
         super().__init__()
         self.layer_norm = LayerNorm(c.conv_dim[-1], eps=c.layer_norm_eps)
         self.projection = nn.Linear(c.conv_dim[-1], c.hidden_size)
+        self.dropout = Dropout(DROPOUT)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.projection(self.layer_norm(x))
+        return self.dropout(self.projection(self.layer_norm(x)))
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -119,6 +139,18 @@ def dense(c: Wav2Vec2Config, inp: int, oup: int) -> nn.Module:
     return QDense(inp, oup) if c.quant else nn.Linear(inp, oup)
 
 
+def attention_route(layer: nn.Module, x: torch.Tensor) -> str:
+    """Where the self-attention of ``layer`` on input ``x`` runs: "kernel"
+    (K2, which carries no gradient) unless autograd records the call and
+    ``x`` or a parameter of ``layer`` requires grad, then "autograd"
+    (``layers.scaled_dot_attention``, the JAX training path's XLA attention).
+    No fallback: on the card a "kernel" call launches K2 or raises."""
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or any(p.requires_grad for p in layer.parameters())):
+        return "autograd"
+    return "kernel"
+
+
 class Attention(nn.Module):
     def __init__(self, c: Wav2Vec2Config):
         super().__init__()
@@ -134,7 +166,11 @@ class Attention(nn.Module):
         def heads(x: torch.Tensor) -> torch.Tensor:  # -> [B, H, T, D]
             return x.reshape(b, t, self.num_heads, d // self.num_heads).transpose(1, 2).contiguous()
 
-        attn = mha(heads(self.q_proj(h)), heads(self.k_proj(h)), heads(self.v_proj(h)))
+        q, k, v = heads(self.q_proj(h)), heads(self.k_proj(h)), heads(self.v_proj(h))
+        if attention_route(self, h) == "kernel":
+            attn = mha(q, k, v)
+        else:
+            attn = scaled_dot_attention(q, k, v, dtype=q.dtype)
         return self.out_proj(attn.transpose(1, 2).reshape(b, t, d))
 
 
@@ -143,9 +179,12 @@ class FeedForward(nn.Module):
         super().__init__()
         self.intermediate_dense = dense(c, c.hidden_size, c.intermediate_size)
         self.output_dense = dense(c, c.intermediate_size, c.hidden_size)
+        self.intermediate_dropout = Dropout(DROPOUT)
+        self.output_dropout = Dropout(DROPOUT)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.output_dense(gelu_exact(self.intermediate_dense(x)))
+        h = self.intermediate_dropout(gelu_exact(self.intermediate_dense(x)))
+        return self.output_dropout(self.output_dense(h))
 
 
 class EncoderLayerStableLN(nn.Module):
@@ -155,12 +194,39 @@ class EncoderLayerStableLN(nn.Module):
         super().__init__()
         self.layer_norm = LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
         self.attention = Attention(c)
+        self.dropout = Dropout(DROPOUT)
         self.final_layer_norm = LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
         self.feed_forward = FeedForward(c)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attention(self.layer_norm(x))
+        x = x + self.dropout(self.attention(self.layer_norm(x)))
         return x + self.feed_forward(self.final_layer_norm(x))
+
+
+def checkpointed(layer: nn.Module, h: torch.Tensor) -> torch.Tensor:
+    """``layer(h)`` with its activations recomputed in the backward pass. The
+    recompute draws its dropout masks from the generators' states of the
+    first call (``torch.utils.checkpoint`` restores only the global
+    generators), and leaves the generators where they were."""
+    gens = list({id(m.generator): m.generator for m in layer.modules()
+                 if isinstance(m, Dropout) and m.generator is not None}.values())
+    first = [g.get_state() for g in gens]
+    calls = []
+
+    def run(x: torch.Tensor) -> torch.Tensor:
+        calls.append(None)
+        if len(calls) == 1:
+            return layer(x)
+        now = [g.get_state() for g in gens]
+        for g, state in zip(gens, first):
+            g.set_state(state)
+        try:
+            return layer(x)
+        finally:
+            for g, state in zip(gens, now):
+                g.set_state(state)
+
+    return torch.utils.checkpoint.checkpoint(run, h, use_reentrant=False)
 
 
 class Encoder(nn.Module):
@@ -169,11 +235,16 @@ class Encoder(nn.Module):
         self.pos_conv_embed = PositionalConvEmbedding(c)
         self.layers = nn.ModuleList(EncoderLayerStableLN(c) for _ in range(c.num_layers))
         self.layer_norm = LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.dropout = Dropout(DROPOUT)
+        self.remat = c.remat
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        h = h + self.pos_conv_embed(h)
+        h = self.dropout(h + self.pos_conv_embed(h))
         for layer in self.layers:
-            h = layer(h)
+            if self.remat and self.training and attention_route(layer, h) == "autograd":
+                h = checkpointed(layer, h)
+            else:
+                h = layer(h)
         return self.layer_norm(h)
 
 

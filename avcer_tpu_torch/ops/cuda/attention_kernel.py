@@ -6,9 +6,18 @@ this module (``mha_plain``); a CUDA tensor launches a kernel or raises. Which
 of the two kernels runs depends on the dtype and the shape only
 (``kernel_for``): bf16 with D a multiple of 16 and T <= 256 goes to the
 tensor-core kernel ``tc``, everything else (f32, longer sequences, other head
-dims) to the f32-exact CUDA-core kernel ``exact``. The port has no
-``use_pallas_attention`` option: on the card the wav2vec2 encoder layers
-always run a kernel.
+dims) to the f32-exact CUDA-core kernel ``exact``.
+
+Gradient rule. The kernels have no backward, as the Pallas kernel has none:
+``mha`` writes its result into a fresh tensor outside autograd. So on the
+card it refuses (``RuntimeError``) an operand that requires grad while grad
+mode is on, rather than return a result that would drop the gradient. The
+wav2vec2 encoder chooses per layer (``models.wav2vec2.attention_route``):
+this kernel where no gradient has to pass (eval, serving under
+``inference_mode``, frozen layers in training), the autograd attention
+``models.layers.scaled_dot_attention`` in a layer that trains, as the JAX
+package trains through XLA's attention (``use_pallas_attention`` is False
+there by default).
 """
 
 from __future__ import annotations
@@ -66,6 +75,11 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         return mha_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"mha: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "mha: an operand requires grad, and the kernel has no backward: its result "
+            "would carry no gradient. Run the autograd attention there "
+            "(models.wav2vec2.attention_route), or call mha under torch.no_grad()")
     for name, x in (("k", k), ("v", v)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(

@@ -86,7 +86,25 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    weights written as ``s3fd_weights.pth``, 640, batch 32, bf16), with K1 in
    its no-+1 mode, every distinct call held against the plain version and
    the first batch against an f32 CPU forward of the same weights; then
-   RetinaFace r50 through the same CLI.
+   RetinaFace r50 through the same CLI;
+12. training at full width, on a seeded corpus written in the loaders'
+   layouts (two 48 s ABAW videos, five 10 s MELD utterances: 73 windows):
+   ``cli.train_audio`` V3 with 8 classes (wav2vec2-large 12 layers, the last
+   4 trained, batches of 24 4 s windows, bf16 under autocast, REMAT and
+   AUGMENTATION on) for 2 epochs of 3 steps, then ``--resume`` for a third
+   with every K2 call held against the plain version, each step timed with
+   its loss, K2 launches (8: one a frozen layer) and the last encoder
+   layer's q/k/v gradient norms (non-zero); V1 with 7 classes (soft focal),
+   every K2 call held; ``cli.train_visual`` static (EmotionResNet50, batches
+   of 64 seeded 224 x 224 jpg crops, bf16, 3 steps, the BatchNorm running
+   statistics moved) and dynamic (TemporalLSTM on seeded .npz features);
+   ``cli.extract_features`` from V3's best export, every K2 call held;
+   ``train_synthetic_detector`` (mobilenet0.25, 256, batch 4, 20 steps) and
+   ``evaluate_bucket_recall`` through ``DetectStage``, every K1 call held;
+   one V3 train step at full width, batch 2, f32, dropout off, on the card
+   against the same step on the CPU. The kernels line gives the K1 and K2
+   launches of each training path (``launches_by_training_path``).
+   ``--phase training`` runs phases 1, 2 and 12 alone (no kernels line).
 
 Prints a JSON line of kernel results, then, last, one JSON object with the
 device. Imports nothing of JAX and nothing of the JAX package.
@@ -100,6 +118,7 @@ import dataclasses
 import glob
 import io
 import json
+import logging
 import os
 import pickle
 import re
@@ -495,10 +514,11 @@ def hold_on_path(name: str, args: tuple, kw: dict):
         err, tol = float((got != plain(*args, **kw)).sum()), None
         ok = err == 0
     else:
-        if name == "mha":
-            want, tol = plain(*(a.float() for a in args)), dict(atol=1e-5, rtol=4e-3)
-        else:
-            want, tol = plain(*args, **kw), INT8_TOL if quant else BF16_TOL
+        with torch.autocast("cuda", enabled=False):  # a training path runs under autocast
+            if name == "mha":
+                want, tol = plain(*(a.float() for a in args)), dict(atol=1e-5, rtol=4e-3)
+            else:
+                want, tol = plain(*args, **kw), INT8_TOL if quant else BF16_TOL
         pairs = [(g.float(), w.float()) for g, w in zip(
             got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,))]
         err = max(float((g - w).abs().max()) for g, w in pairs)
@@ -1882,7 +1902,7 @@ def phase_offline_eval(card: str, frames: np.ndarray, wav: np.ndarray) -> None:
         pd.DataFrame({"Neutral": labels}).to_csv(os.path.join(ann, name + ".csv"), index=False)
     rc, out, wall = run_cli(eval_offline.main, [
         "--ann_root", ann, "--preds_root", tree, "--save_root", report, "--optimize_weights",
-        "--num_dirichlet", str(EVAL_DIRICHLET), "--device", "cuda"])
+        "--num_dirichlet", str(EVAL_DIRICHLET), "--device", DEVICE])
     lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
     for ln in lines:
         log(f"eval_offline JSON: {json.dumps(ln)}")
@@ -2095,7 +2115,7 @@ def phase_s3fd(card: str, frames: np.ndarray) -> dict:
         title = f"detect_demo --method {method}"
         out = os.path.join(root, f"annotated_{method}.avi")
         argv = ["--input", clip, "--method", method, "--weights_dir", wdir, "--output", out,
-                "--device", "cuda"] + extra
+                "--device", DEVICE] + extra
         held: dict = {}
         with holding_new_calls(held):
             rc, _, _ = run_cli(detect_demo.main, argv)
@@ -2210,9 +2230,452 @@ def phase_s3fd(card: str, frames: np.ndarray) -> dict:
     return {"launches_by_path": launches_by_path, "s3fd_mode": numbers}
 
 
+TRAIN_BATCH, TRAIN_STEPS = 24, 3  # cli.train_audio's batch; steps an epoch in the smoke corpus
+TRAIN_SR, TRAIN_FPS = 16000, 25
+TRAIN_LOG = "avcer_tpu_torch"
+
+
+class Always(dict):
+    """A ``holding_new_calls`` record that holds every call, not only the
+    first of each signature; ``calls`` lists (entry, error) of each."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls: list = []
+
+    def __contains__(self, key) -> bool:
+        return False
+
+    def __setitem__(self, key, value) -> None:
+        self.calls.append(value)
+        super().__setitem__(key, value)
+
+
+def write_training_corpus(root: str, seed: int) -> dict:
+    """A seeded ABAW-EXPR + MELD corpus in the layouts the loaders read: two
+    48 s ABAW videos (labels 0-7 at 25 fps with a header line, every mouth
+    open, a 16 kHz wav each, a 4-frame MJPG video for the frame rate) and
+    five 10 s MELD utterances (labels csv, VAD pickle, wavs). 73 windows of
+    4 s: three batches of 24. Returns cli.train_audio's config keys."""
+    import cv2
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    dirs = {k: os.path.join(root, k) for k in ("wav", "labels", "feats", "video", "meld")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    for v in range(2):
+        n = 1200
+        with open(os.path.join(dirs["labels"], f"video{v}.txt"), "w") as f:
+            f.write("Neutral,Anger,Disgust,Fear,Happiness,Sadness,Surprise,Other\n")
+            f.write("\n".join(str(int(x)) for x in rng.integers(0, 8, n)) + "\n")
+        pd.DataFrame({"feat_id": np.arange(n), "frame": np.arange(1, n + 1),
+                      "surface_area_mouth": rng.random(n), "mouth_open": np.ones(n, int)}
+                     ).to_csv(os.path.join(dirs["feats"], f"video{v}.csv"), index=False)
+        write_wav(os.path.join(dirs["wav"], f"video{v}.wav"),
+                  (rng.normal(size=(n // TRAIN_FPS + 1) * TRAIN_SR) * 0.1).astype(np.float32),
+                  TRAIN_SR)
+        vw = cv2.VideoWriter(os.path.join(dirs["video"], f"video{v}.avi"),
+                             cv2.VideoWriter_fourcc(*"MJPG"), TRAIN_FPS, (64, 64))
+        for _ in range(4):
+            vw.write(rng.integers(0, 255, (64, 64, 3), np.uint8))
+        vw.release()
+    emotions = ["neutral", "anger", "disgust", "fear", "joy", "sadness", "surprise"]
+    rows, vad = [], {}
+    for u in range(5):
+        fn = f"dia{u}_utt{u}.wav"
+        rows.append({"Dialogue_ID": u, "Utterance_ID": u, "Emotion": emotions[u]})
+        n = 10 * TRAIN_SR
+        write_wav(os.path.join(dirs["meld"], fn), (rng.normal(size=n) * 0.1).astype(np.float32),
+                  TRAIN_SR)
+        vad[fn] = [{"start": TRAIN_SR // 5, "end": n - 3 * TRAIN_SR // 10}]
+    pd.DataFrame(rows).to_csv(os.path.join(root, "meld.csv"), index=False)
+    with open(os.path.join(root, "vad.pickle"), "wb") as f:
+        pickle.dump(vad, f)
+    return {"ABAW_WAV_ROOT": dirs["wav"], "ABAW_FILTERED_WAV_ROOT": dirs["wav"],
+            "ABAW_VIDEO_ROOT": dirs["video"], "ABAW_LABELS_ROOT": dirs["labels"],
+            "ABAW_FEATURES_ROOT": dirs["feats"], "MELD_WAV_ROOT": dirs["meld"],
+            "MELD_LABELS_PATH": os.path.join(root, "meld.csv"),
+            "MELD_VAD_PATH": os.path.join(root, "vad.pickle")}
+
+
+@contextlib.contextmanager
+def recording_steps(records: list):
+    """Every ``Trainer.train_step`` of the body, timed by the host clock
+    after a synchronise, with its loss, its K2 launches, the peak device
+    memory so far and, for a model with wav2vec2, the gradient norms of the
+    last encoder layer's q, k and v projections."""
+    from avcer_tpu_torch.train.trainer import Trainer
+
+    step = Trainer.train_step
+
+    def recorded(self, state, x, y):
+        torch.cuda.synchronize()
+        before = attention_kernel.mha.launches
+        t0 = time.perf_counter()
+        out = step(self, state, x, y)
+        torch.cuda.synchronize()
+        rec = {"ms": (time.perf_counter() - t0) * 1e3, "loss": out[1],
+               "mha": attention_kernel.mha.launches - before,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        w2v = getattr(state.model, "wav2vec2", None)
+        if w2v is not None:
+            attn = w2v.encoder.layers[-1].attention
+            rec["grad_qkv"] = [float(getattr(attn, f"{p}_proj").weight.grad.norm())
+                               for p in "qkv"]
+        records.append(rec)
+        return out
+
+    Trainer.train_step = recorded
+    try:
+        yield
+    finally:
+        Trainer.train_step = step
+
+
+@contextlib.contextmanager
+def log_lines(lines: list):
+    """The port's log records of the body, as text."""
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    handler = Keep(level=logging.INFO)
+    logger = logging.getLogger(TRAIN_LOG)
+    old = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(old)
+
+
+def train_run(card: str, title: str, main, argv, records: list, hold: bool) -> dict:
+    """One training entry point run with the counts set to 0 just before;
+    with ``hold`` every kernel call of the run held against its plain
+    version. Returns the run's counts, its log lines and the held calls."""
+    held, lines = Always(), []
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    first = len(records)
+    t0 = time.perf_counter()
+    with log_lines(lines), recording_steps(records), \
+            (holding_new_calls(held) if hold else contextlib.nullcontext()):
+        rc, _, _ = run_cli(main, argv)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    steps = records[first:]
+    if rc != 0:
+        raise AssertionError(f"{title}: exit {rc}")
+    per_step = (f"{len(steps)} steps, step ms {[round(s['ms'], 1) for s in steps]} (the first "
+                f"with its warm-up), loss {[round(s['loss'], 4) for s in steps]}, K2 launches a "
+                f"step {[s['mha'] for s in steps]}, peak device memory "
+                f"{max(s['peak_gib'] for s in steps):.2f} GiB; " if steps else "")
+    log(f"{title}: {wall:.1f} s wall; {per_step}launches {launches}"
+        + (f"; {len(held.calls)} kernel calls held against the plain versions, largest error "
+           f"{max((e for _, e in held.calls), default=0.0):.3g}" if hold else "")
+        + f" on {card}")
+    return {"launches": launches, "lines": lines, "held": held.calls, "steps": steps,
+            "wall_s": wall}
+
+
+def check(title: str, checks: dict) -> None:
+    for name, ok in checks.items():
+        log(f"  check {title}: {name}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError(f"{title}: checks failed")
+
+
+def train_audio_runs(card: str, root: str, corpus: dict) -> dict:
+    """cli.train_audio at full width: V3 (12 layers, the last 4 trained),
+    8 classes, batches of 24 4 s windows, REMAT and AUGMENTATION on, bf16;
+    2 epochs, then ``--resume`` for a third; then V1 at 7 classes (soft
+    focal) for one epoch. K2 launches every step, one a frozen layer."""
+    import pandas as pd
+
+    from avcer_tpu_torch.cli import train_audio
+
+    records: list = []
+    out = {}
+    for variant, classes, frozen in (("v3", 8, 8), ("v1", 7, 10)):
+        logs = os.path.join(root, f"logs_{variant}")
+        cfg = dict(train_audio.example_config(), **corpus, LOGS_ROOT=logs,
+                   MODEL_PARAMS={"model": variant, "num_classes": classes},
+                   AUGMENTATION=True, FILTERED=True, NUM_EPOCHS=1 if variant == "v1" else 2,
+                   BATCH_SIZE=TRAIN_BATCH, REMAT=True)
+        path = os.path.join(root, f"train_{variant}.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        argv = ["--config", path, "--device", DEVICE]
+        runs = [train_run(card, f"cli.train_audio {variant} {classes} classes"
+                          + (", epochs 0-1" if variant == "v3" else ", epoch 0"),
+                          train_audio.main, argv, records, hold=variant == "v1")]
+        if variant == "v3":
+            runs.append(train_run(card, "cli.train_audio v3 8 classes --resume --epochs 3",
+                                  train_audio.main, argv + ["--resume", "--epochs", "3"],
+                                  records, hold=True))
+        steps = [s for r in runs for s in r["steps"]]
+        stats = pd.read_csv(os.path.join(logs, "run", "stats.csv"))
+        checks = {
+            "every loss finite": all(np.isfinite(s["loss"]) for s in steps),
+            f"K2 launches {frozen} a step (one a frozen encoder layer)":
+                all(s["mha"] == frozen for s in steps) and bool(steps),
+            "every K2 launch in the tensor-core kernel":
+                all(r["launches"]["mha_exact"] == 0 for r in runs),
+            "the last encoder layer's q, k, v gradients non-zero every step":
+                all(min(s["grad_qkv"]) > 0 for s in steps),
+            "the best export written": os.path.exists(os.path.join(logs, f"best_{variant}.pth")),
+        }
+        if variant == "v3":
+            checks.update({
+                f"{TRAIN_STEPS} steps an epoch": [len(r["steps"]) for r in runs] ==
+                                                 [2 * TRAIN_STEPS, TRAIN_STEPS],
+                "--resume continues from epoch 1": any(
+                    "resumed from epoch 1" in m for m in runs[1]["lines"]),
+                "stats.csv holds epochs 0, 1, 2": stats["epoch"].tolist() == [0, 1, 2],
+                "every K2 call of the resumed epoch held": len(runs[1]["held"]) ==
+                                                           TRAIN_STEPS * frozen,
+            })
+        else:
+            checks["every K2 call held"] = len(runs[0]["held"]) == len(steps) * frozen
+        check(f"cli.train_audio {variant}", checks)
+        out[variant] = {"runs": runs, "logs": logs, "config": path, "stats": stats}
+    return out
+
+
+def write_crops(root: str, seed: int, n: int) -> None:
+    """``n`` seeded 224 x 224 jpg crops in ``root/<class>/`` over 7 classes."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        d = os.path.join(root, str(i % 7))
+        os.makedirs(d, exist_ok=True)
+        cv2.imwrite(os.path.join(d, f"{i:04d}.jpg"), rng.integers(0, 255, (224, 224, 3), np.uint8))
+
+
+def train_visual_runs(card: str, root: str) -> dict:
+    """cli.train_visual: static (EmotionResNet50, batches of 64 224 x 224
+    seeded jpg crops, bf16, 3 steps) and dynamic (TemporalLSTM, f32, seeded
+    .npz features, 2 epochs)."""
+    from avcer_tpu_torch.cli import train_visual
+
+    crops, feats = os.path.join(root, "crops"), os.path.join(root, "features")
+    write_crops(crops, 1, 3 * 64)
+    os.makedirs(feats)
+    rng = np.random.default_rng(2)
+    for i in range(8):
+        np.savez(os.path.join(feats, f"video{i}.npz"),
+                 features=rng.normal(size=(200, 512)).astype(np.float32),
+                 labels=rng.integers(0, 7, 200))
+    records: list = []
+    out = {}
+    for model, data, extra in (("static", crops, ["--epochs", "1", "--batch_size", "64"]),
+                               ("dynamic", feats, ["--epochs", "2", "--batch_size", "64"])):
+        logs = os.path.join(root, f"logs_{model}")
+        run = train_run(card, f"cli.train_visual --model {model}", train_visual.main,
+                        ["--data_root", data, "--model", model, "--log_root", logs,
+                         "--device", DEVICE] + extra, records, hold=False)
+        best = checkpoint.load_torch_state_dict(os.path.join(logs, f"best_{model}.pth"))
+        checks = {"every loss finite": all(np.isfinite(s["loss"]) for s in run["steps"]),
+                  "steps": len(run["steps"]) == (3 if model == "static" else 2 * 4)}
+        if model == "static":
+            # every BatchNorm starts at mean 0 and variance 1 (seeded init)
+            moved = max(max(float(best[k].abs().max()) for k in best if k.endswith("running_mean")),
+                        max(float((best[k] - 1).abs().max()) for k in best
+                            if k.endswith("running_var")))
+            out["bn_running_change"] = moved
+            checks["the BatchNorm running statistics moved"] = moved > 0
+            log(f"cli.train_visual --model static: largest change of a BatchNorm running "
+                f"statistic after 3 steps {moved:.4g} (momentum 0.01)")
+        check(f"cli.train_visual --model {model}", checks)
+        out[model] = run
+    return out
+
+
+def extract_features_run(card: str, root: str, audio: dict) -> dict:
+    """cli.extract_features from the V3 run's best export over the ABAW
+    windows, every K2 call held against its plain version."""
+    from avcer_tpu_torch.cli import extract_features
+
+    v3 = audio["v3"]
+    out_path = os.path.join(root, "features.pkl")
+    run = train_run(card, "cli.extract_features", extract_features.main,
+                    ["--config", v3["config"], "--checkpoint",
+                     os.path.join(v3["logs"], "best_v3.pth"), "--out", out_path,
+                     "--device", DEVICE], [], hold=True)
+    with open(out_path, "rb") as f:
+        grouped = pickle.load(f)
+    n = sum(len(g["targets"]) for g in grouped.values())
+    batches = -(-n // 16)
+    check("cli.extract_features", {
+        "two files, logits [n, 8] and features [n, 1024], finite": len(grouped) == 2 and all(
+            g["predicts"].shape[1:] == (8,) and g["features"].shape[1:] == (1024,)
+            and np.isfinite(g["predicts"]).all() and np.isfinite(g["features"]).all()
+            for g in grouped.values()),
+        f"K2 launches 12 a batch of 16 ({batches} batches)":
+            run["launches"]["mha_tc"] == 12 * batches,
+        "every K2 call held": len(run["held"]) == 12 * batches,
+    })
+    return run
+
+
+def detector_runs(card: str) -> dict:
+    """train_synthetic_detector (mobilenet0.25, 256, batch 4, 20 steps) and
+    evaluate_bucket_recall at native resolution and the 320 bucket (8
+    scenes each, 640 x 360), every K1 call held."""
+    from avcer_tpu_torch.train import detection
+
+    t0 = time.perf_counter()
+    sd, losses = detection.train_synthetic_detector(steps=20, image_size=256, batch=4,
+                                                    device=DEVICE)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    held = Always()
+    reset_counts()
+    t0 = time.perf_counter()
+    with holding_new_calls(held):
+        res = detection.evaluate_bucket_recall(sd, scene_hw=(HEIGHT, WIDTH), buckets=[0, 320],
+                                               size_bins=[32, 64, 128], n_scenes=8,
+                                               device=DEVICE)
+    eval_s = time.perf_counter() - t0
+    launches = counts()
+    log(f"train_synthetic_detector: 20 steps in {train_s:.2f} s, loss {losses[0]:.3f} -> "
+        f"{losses[-1]:.3f}; evaluate_bucket_recall {eval_s:.2f} s: {res}; launches {launches}, "
+        f"{len(held.calls)} K1 calls held, on {card}")
+    check("detector training", {
+        "every loss finite": all(np.isfinite(losses)),
+        "K1 launches 16 (2 buckets x 8 scenes, batches of one)": launches["nms_mask"] == 16,
+        "every K1 call held": len(held.calls) == 16,
+        "recall in [0, 1]": all(0 <= r["recall"] <= 1 for b in res.values() for r in b.values()),
+    })
+    return {"launches": launches["nms_mask"], "losses": losses, "recall": res,
+            "train_s": train_s, "eval_s": eval_s}
+
+
+def step_against_cpu(card: str) -> dict:
+    """One train step of ExprModel V3 at full width (12 layers, 4 trained),
+    batch 2 of 4 s, f32, dropout off, no mixup, on the card and on the CPU
+    from the same seeded weights: the loss within rtol 1e-4, the trainable
+    gradient within 1e-3 relative L2, and the updated parameters: Adam's
+    first update is lr * g / (|g| + 1e-8), so where |g| is above 1e-4 of the
+    largest gradient both sides move by lr to rounding (atol lr / 100), and
+    everywhere within 2 lr."""
+    from avcer_tpu_torch.core.config import TrainConfig
+    from avcer_tpu_torch.models.audio_heads import ExprModel
+    from avcer_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(3)
+    x = (rng.normal(size=(2, 4 * TRAIN_SR)) * 0.5).astype(np.float32)
+    y = rng.integers(0, 8, 2)
+    cfg = TrainConfig()
+    sides = {}
+    for device in ("cpu", DEVICE):
+        trainer = Trainer(ExprModel("v3", 8), cfg, iters_per_epoch=3, device=device)
+        state = trainer.init_state(seed=0)
+        layers.set_dropout(state.model, p=0.0)
+        start = {n: p.detach().cpu().clone() for n, p in state.model.named_parameters()
+                 if p.requires_grad}
+        reset_counts()
+        t0 = time.perf_counter()
+        state, loss, _ = trainer.train_step(state, x, y)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        sides[device] = {"loss": loss, "s": time.perf_counter() - t0, "start": start,
+                         "launches": counts(),
+                         "grad": {n: p.grad.detach().cpu() for n, p in
+                                  state.model.named_parameters() if p.requires_grad},
+                         "param": {n: p.detach().cpu() for n, p in
+                                   state.model.named_parameters() if p.requires_grad}}
+        del trainer, state
+    cpu, gpu = sides["cpu"], sides[DEVICE]
+    names = list(cpu["grad"])
+    num = sum(float(((gpu["grad"][n].double() - cpu["grad"][n].double()) ** 2).sum())
+              for n in names)
+    den = sum(float((cpu["grad"][n].double() ** 2).sum()) for n in names)
+    grad_rel = (num / den) ** 0.5
+    scale = max(float(cpu["grad"][n].abs().max()) for n in names)
+    lr = cfg.optim.lr
+    sure_err, any_err = 0.0, 0.0
+    for n in names:
+        diff = (gpu["param"][n] - cpu["param"][n]).abs()
+        sure = cpu["grad"][n].abs() >= 1e-4 * scale
+        sure_err = max(sure_err, float(diff[sure].max()) if bool(sure.any()) else 0.0)
+        any_err = max(any_err, float(diff.max()))
+    log(f"train step V3 full width, batch 2, f32, dropout off: loss card {gpu['loss']:.6f} vs "
+        f"CPU {cpu['loss']:.6f}; trainable gradient relative L2 {grad_rel:.3g}; parameters after "
+        f"the step: largest difference {sure_err / lr:.4f} lr where |g| >= 1e-4 of the largest, "
+        f"{any_err / lr:.3f} lr anywhere; K2 (exact, f32) launches on the card "
+        f"{gpu['launches']['mha_exact']}; the step {gpu['s']:.2f} s on {card} (with its "
+        f"warm-up), {cpu['s']:.1f} s on the CPU")
+    check("train step, card against CPU", {
+        "loss within rtol 1e-4": abs(gpu["loss"] - cpu["loss"]) <= 1e-4 * abs(cpu["loss"]),
+        "gradient within 1e-3 relative L2": grad_rel <= 1e-3,
+        "parameters within lr / 100 where |g| >= 1e-4 of the largest": sure_err <= lr / 100,
+        "parameters within 2 lr everywhere": any_err <= 2 * lr,
+        "K2 launches 8 (f32: the exact kernel)": gpu["launches"]["mha_exact"] == 8,
+    })
+    return {"loss": [gpu["loss"], cpu["loss"]], "grad_rel_l2": grad_rel,
+            "param_err_lr": sure_err / lr, "launches": gpu["launches"]["mha_exact"]}
+
+
+def phase_training(card: str) -> dict:
+    """The training entry points at full width (see the module docstring,
+    phase 12). Returns the K1 and K2 launches of each training path."""
+    root = os.path.join(ROOT, "build", "smoke_training")
+    if os.path.isdir(root):
+        shutil.rmtree(root)
+    os.makedirs(root)
+    corpus = write_training_corpus(os.path.join(root, "corpus"), 0)
+    audio = train_audio_runs(card, root, corpus)
+    torch.cuda.empty_cache()
+    visual = train_visual_runs(card, root)
+    features = extract_features_run(card, root, audio)
+    torch.cuda.empty_cache()
+    detector = detector_runs(card)
+    versus_cpu = step_against_cpu(card)
+    v3, v1 = audio["v3"]["runs"], audio["v1"]["runs"]
+    mha_tc = {
+        "cli.train_audio v3 epochs 0-1 (6 steps)": v3[0]["launches"]["mha_tc"],
+        "cli.train_audio v3 --resume, epoch 2 (3 steps)": v3[1]["launches"]["mha_tc"],
+        f"cli.train_audio v1 7 classes ({len(v1[0]['steps'])} steps)": v1[0]["launches"]["mha_tc"],
+        "cli.extract_features": features["launches"]["mha_tc"],
+    }
+    steps_v3 = [s for r in v3 for s in r["steps"]]
+    summary = {
+        "audio_v3": {"step_ms": [s["ms"] for s in steps_v3],
+                     "median_step_ms": float(np.median([s["ms"] for s in steps_v3[1:]])),
+                     "peak_gib": max(s["peak_gib"] for s in steps_v3),
+                     "loss": [s["loss"] for s in steps_v3],
+                     "mha_per_step": [s["mha"] for s in steps_v3],
+                     "grad_qkv_layer11": [s["grad_qkv"] for s in steps_v3]},
+        "audio_v1": {"step_ms": [s["ms"] for s in v1[0]["steps"]],
+                     "peak_gib": max(s["peak_gib"] for s in v1[0]["steps"]),
+                     "loss": [s["loss"] for s in v1[0]["steps"]]},
+        "static": {"step_ms": [s["ms"] for s in visual["static"]["steps"]],
+                   "peak_gib": max(s["peak_gib"] for s in visual["static"]["steps"]),
+                   "loss": [s["loss"] for s in visual["static"]["steps"]],
+                   "bn_running_change": visual["bn_running_change"]},
+        "dynamic": {"step_ms": [s["ms"] for s in visual["dynamic"]["steps"]],
+                    "loss": [s["loss"] for s in visual["dynamic"]["steps"]]},
+        "extract_features_s": features["wall_s"],
+        "detector": {k: detector[k] for k in ("train_s", "eval_s", "recall")},
+        "step_against_cpu": versus_cpu,
+    }
+    log("training summary: " + json.dumps(summary))
+    return {"mha_tc": mha_tc,
+            "mha_exact": {"train step on the card against the CPU (f32)": versus_cpu["launches"]},
+            "nms_mask": {"evaluate_bucket_recall (2 buckets x 8 scenes)": detector["launches"]}}
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
+    if sys.argv[1:] == ["--phase", "training"]:
+        phase_training(card)
+        return 0
     pipe, fused_pipe = build(card, False), build(card, True)
     int8_pipe, int8_fused_pipe = build(card, False, True), build(card, True, True)
     kernels = phase_kernels(card, fused_pipe, int8_fused_pipe)
@@ -2270,6 +2733,15 @@ def main() -> int:
     nms = next(k for k in kernels if k["name"] == "nms_mask")
     nms["launches_by_path"] = s3fd["launches_by_path"]
     nms["s3fd_mode"] = s3fd["s3fd_mode"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    training = phase_training(card)
+    log(f"training phase: {time.perf_counter() - t0:.2f} s")
+    for k in kernels:
+        if k["name"] in ("nms_mask", "mha_tc", "mha_exact"):
+            k["launches_by_training_path"] = training[k["name"]]
+    if min(training["mha_tc"].values()) <= 0 or min(training["nms_mask"].values()) <= 0:
+        raise AssertionError(f"training paths without their kernels: {training}")
     for k in kernels + mobilenet_kernels:
         errs = [err for name, err in HELD.values() if name == k["name"]]
         k["path_calls_held"] = len(errs)

@@ -719,3 +719,47 @@ def test_expr_model_v1_bf16_on_card(cuda_device):
         got = card(wav.to(cuda_device)).float().cpu()
     assert got.shape == (3, 7)
     assert float((got - want).norm() / want.norm()) < 0.05
+
+
+def test_mha_refuses_operands_that_require_grad(cuda_device):
+    """The kernel has no backward: under grad mode a grad-requiring operand
+    raises; under no_grad, or without requires_grad, it launches."""
+    q = torch.randn(2, 4, 64, 64, device=cuda_device, dtype=torch.bfloat16)
+    for which in range(3):
+        args = [q.clone(), q.clone(), q.clone()]
+        args[which].requires_grad_(True)
+        with pytest.raises(RuntimeError, match="requires grad"):
+            attention_kernel.mha(*args)
+        before = attention_kernel.mha.launches
+        with torch.no_grad():
+            attention_kernel.mha(*args)
+        assert attention_kernel.mha.launches == before + 1
+    attention_kernel.mha(q, q, q)
+
+
+def test_autocast_bf16_train_step_on_card(cuda_device):
+    """One train step of the tiny ExprModel V3 on the card in bf16 under
+    autocast, mixup and dropout on: K2 runs once (the frozen layer 0), the
+    trainable layer 1 takes the autograd attention, its q, k, v get a
+    non-zero gradient, the loss is finite and the parameters stay f32."""
+    from avcer_tpu_torch.core.config import OptimConfig, TrainConfig
+    from avcer_tpu_torch.models.audio_heads import ExprModel
+    from avcer_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+    from avcer_tpu_torch.train.trainer import Trainer
+
+    w2v = Wav2Vec2Config(hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128,
+                         conv_dim=(16,) * 7, remat=True)
+    cfg = TrainConfig(augmentation=True, optim=OptimConfig(lr=1e-3))
+    trainer = Trainer(ExprModel("v3", 8, w2v), cfg, iters_per_epoch=2, unfreeze_last_n=1,
+                      wav2vec2_layers=2, device=cuda_device, dtype="bfloat16")
+    state = trainer.init_state()
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(4, 17600)).astype(np.float32)
+    y = rng.integers(0, 8, 4)
+    before = attention_kernel.mha.launches
+    state, loss, logits = trainer.train_step(state, x, y)
+    assert attention_kernel.mha.launches == before + 1
+    assert np.isfinite(loss) and logits.shape == (4, 8)
+    attn = state.model.wav2vec2.encoder.layers[1].attention
+    for proj in (attn.q_proj, attn.k_proj, attn.v_proj):
+        assert float(proj.weight.grad.norm()) > 0 and proj.weight.dtype == torch.float32

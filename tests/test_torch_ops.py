@@ -275,7 +275,7 @@ def test_align_audio_and_decide_equal_jax(tmp_path):
 # --- the port's own copies of jax-free modules, pinned against the originals
 
 COPIED_CONFIGS = ["DetectorConfig", "VisualConfig", "AudioConfig", "FusionConfig", "MeshConfig",
-                  "PipelineConfig"]
+                  "PipelineConfig", "OptimConfig", "TrainConfig"]
 
 
 @pytest.mark.parametrize("name", COPIED_CONFIGS)
@@ -291,8 +291,9 @@ def test_config_copy_equals_original(name):
     assert [(f.name, f.type) for f in dataclasses.fields(got)] == \
         [(f.name, f.type) for f in dataclasses.fields(want)]
     assert port_config._asdict(got()) == jax_config._asdict(want())
-    if name == "PipelineConfig":
+    if name in ("PipelineConfig", "TrainConfig"):
         assert got().to_json() == want().to_json()
+    if name == "PipelineConfig":
         values = jax_config._asdict(want(save_plot=False, weights_dir="w"))
         rebuilt = got(**{k: getattr(port_config, type(getattr(want(), k)).__name__)(**v)
                          if isinstance(v, dict) else v for k, v in values.items()})
