@@ -9,7 +9,7 @@ training config (``ABAW_WAV_ROOT``), batches of 16 in order; the logits and
 the pooled features are regrouped by source file (``regroup_by_filename``)
 and pickled. The encoder's attention runs the K2 kernel on the card (no
 gradient here). Refused by name: an orbax directory as ``--checkpoint`` (the
-port reads release files, ROADMAP queue 1, item 10).
+port reads release files; ROADMAP, "Not ported": the orbax format).
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ from collections import defaultdict
 
 import numpy as np
 
-ORBAX = "ROADMAP queue 1, item 10: the port reads release files, not the JAX orbax cache"
+ORBAX = ('ROADMAP, "Not ported": the orbax format; the port reads release files, not the JAX '
+         "orbax cache")
 
 
 def regroup_by_filename(

@@ -32,11 +32,13 @@ goes to ``audio_<padding>_<step>/``), ``--save_face_crops`` (the host-crop
 path, detect stride 1 only: every tracklet's crops as jpgs under
 ``<save>/<clip>/``) and ``--heatmaps static|dynamic`` (Grad-CAM overlays of
 the step frames under ``<save>/<clip>/heatmaps_<mode>/``). Release
-checkpoints in ``--weights_dir`` are loaded (``core.checkpoint``). Refused,
-each by name, while the arguments are parsed: ``--data_parallel`` above 1
-(ROADMAP queue 1, item 11), and ``--calibrate`` and ``--compile_cache_dir``,
-TPU-only and in its "Not ported" list. ``--device`` defaults to cuda and
-never falls back to the CPU on its own.
+checkpoints in ``--weights_dir`` are loaded (``core.checkpoint``), and the
+port's int8 calibration sidecars beside them adopted. ``--data_parallel N``
+serves over a data-parallel mesh of N devices (``MeshConfig(data=N)``, see
+``pipeline.builder``); with fewer devices the build raises the mesh error.
+Refused, each by name, while the arguments are parsed: ``--calibrate`` and
+``--compile_cache_dir``, TPU-only and in ROADMAP's "Not ported" list.
+``--device`` defaults to cuda and never falls back to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -50,10 +52,9 @@ import sys
 import time
 
 from avcer_tpu_torch.core.config import (AudioConfig, DetectorConfig, FusionConfig,
-                                         PipelineConfig, VisualConfig)
+                                         MeshConfig, PipelineConfig, VisualConfig)
 
 NOT_PORTED = {
-    "data_parallel": "ROADMAP queue 1, parallelism (item 11)",
     "calibrate": "ROADMAP, \"Not ported\": TPU batch-size calibration",
     "compile_cache_dir": "ROADMAP, \"Not ported\": the XLA compile cache",
 }
@@ -108,8 +109,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--compile_cache_dir", type=str, default=None)
     a = p.parse_args(argv)
     a.audio_head = a.audio_head or ("v3" if a.audio_classes == 8 else "v2")
-    asked = {"data_parallel": a.data_parallel > 1, "calibrate": a.calibrate,
-             "compile_cache_dir": bool(a.compile_cache_dir)}
+    asked = {"calibrate": a.calibrate, "compile_cache_dir": bool(a.compile_cache_dir)}
     refused = [f"--{flag} is not ported ({NOT_PORTED[flag]})"
                for flag, hit in asked.items() if hit]
     if refused:
@@ -164,6 +164,7 @@ def config_from_args(a: argparse.Namespace) -> PipelineConfig:
                           head=a.audio_head, num_classes=a.audio_classes),
         fusion=FusionConfig(use_published_weights=not a.no_published_weights,
                             ce_weights_type=a.ce_weights_type, ce_mask=not a.no_ce_mask),
+        mesh=MeshConfig(data=a.data_parallel),
         save_face_crops=a.save_face_crops, heatmaps=a.heatmaps,
         # refused by parse_args; check_supported is the second guard
         calibrate=a.calibrate,

@@ -1,4 +1,4 @@
-"""Audio emotion training CLI (avcer_tpu/cli/train_audio.py) on one GPU:
+"""Audio emotion training CLI (avcer_tpu/cli/train_audio.py):
 
     python -m avcer_tpu_torch.cli.train_audio --config c.json [--epochs N] [--resume]
         [--device cuda]
@@ -15,8 +15,10 @@ goes to ``<LOGS_ROOT>/best_<variant>.pth`` (a reference-layout state dict),
 the resumable checkpoint, ``stats.csv``, TensorBoard scalars and
 ``source.log`` to ``<LOGS_ROOT>/run``.
 
-Refused by name: ``DATA_PARALLEL`` or ``MODEL_PARALLEL`` above 1 (ROADMAP
-queue 1, parallelism (item 11)) and ``--compile_cache_dir`` (the XLA compile
+``DATA_PARALLEL`` and ``MODEL_PARALLEL`` set the trainer's mesh
+(``MeshConfig(data, model)``, ``train.trainer``) over the devices of
+``--device``'s kind; with fewer devices the mesh error is raised before any
+data is read. Refused by name: ``--compile_cache_dir`` (the XLA compile
 cache, ROADMAP "Not ported").
 """
 
@@ -71,14 +73,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     return a
 
 
-def check_parallel(c: dict) -> None:
-    from avcer_tpu_torch.train.trainer import PARALLELISM
-
-    big = [k for k in ("DATA_PARALLEL", "MODEL_PARALLEL") if int(c.get(k, 1)) > 1]
-    if big:
-        raise SystemExit(f"{' and '.join(big)} above 1 is not ported ({PARALLELISM})")
-
-
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     a = parse_args(argv)
@@ -87,9 +81,13 @@ def main(argv=None) -> int:
         return 0
     with open(a.config) as fh:
         c = json.load(fh)
-    check_parallel(c)
 
-    from avcer_tpu_torch.core.config import TrainConfig
+    from avcer_tpu_torch.core.config import MeshConfig, TrainConfig
+    from avcer_tpu_torch.parallel.mesh import default_devices
+    from avcer_tpu_torch.train.trainer import make_train_mesh
+
+    mesh = MeshConfig(data=int(c.get("DATA_PARALLEL", 1)), model=int(c.get("MODEL_PARALLEL", 1)))
+    make_train_mesh(mesh, default_devices(a.device))  # too few devices raise here
     from avcer_tpu_torch.models.audio_heads import ExprModel
     from avcer_tpu_torch.models.wav2vec2 import Wav2Vec2Config
     from avcer_tpu_torch.train.augment import default_train_augmentation
@@ -127,6 +125,7 @@ def main(argv=None) -> int:
         filtered=bool(c.get("FILTERED")),
         loss="weighted_ce" if num_classes == 8 else "soft_focal",
         log_root=c.get("LOGS_ROOT", "logs"),
+        mesh=mesh,
     )
     model = ExprModel(variant, num_classes, Wav2Vec2Config(remat=bool(c.get("REMAT", True))))
     trainer = Trainer(

@@ -1,7 +1,8 @@
-"""Visual model training CLI (avcer_tpu/cli/train_visual.py) on one GPU:
+"""Visual model training CLI (avcer_tpu/cli/train_visual.py):
 
     python -m avcer_tpu_torch.cli.train_visual --data_root D --model static|dynamic
-        [--epochs 10] [--batch_size 64] [--lr 1e-4] [--log_root logs/visual] [--device cuda]
+        [--epochs 10] [--batch_size 64] [--lr 1e-4] [--log_root logs/visual]
+        [--data_parallel 1] [--device cuda]
 
 ``static`` trains the EmotionResNet50 on a folder of crops
 (``<root>/<class_idx>/<img>.jpg``, resized nearest to 224 x 224 by
@@ -11,9 +12,10 @@ the TemporalLSTM in f32 on ``<root>/<name>.npz`` files holding ``features``
 [T, 512] and ``labels`` [T]: win 10 / step 5 windows with majority labels.
 Both with CE (no smoothing) and Adam with the warm-restart cosine; the best
 export is ``<log_root>/best_static.pth`` or ``best_dynamic.pth``.
-
-Refused by name: ``--data_parallel`` above 1 (ROADMAP queue 1, parallelism
-(item 11)).
+``--data_parallel N`` trains over a data-parallel mesh of N devices of
+``--device``'s kind (``MeshConfig(data=N)``, ``train.trainer``: the batch
+split over N replicas, BatchNorm on the global batch's statistics); with
+fewer devices it raises the mesh error before any data is read.
 """
 
 from __future__ import annotations
@@ -108,8 +110,6 @@ class LSTMWrap(TemporalLSTM):
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    from avcer_tpu_torch.train.trainer import PARALLELISM
-
     p = argparse.ArgumentParser(description="avcer-tpu PyTorch/CUDA visual training")
     p.add_argument("--data_root", required=True, help="AffectNet-style crop folders")
     p.add_argument("--model", choices=["static", "dynamic"], default="static")
@@ -119,24 +119,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--log_root", default="logs/visual")
     p.add_argument("--data_parallel", type=int, default=1)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    a = p.parse_args(argv)
-    if a.data_parallel > 1:
-        p.error(f"--data_parallel is not ported ({PARALLELISM})")
-    return a
+    return p.parse_args(argv)
 
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     a = parse_args(argv)
 
-    from avcer_tpu_torch.core.config import OptimConfig, TrainConfig
-    from avcer_tpu_torch.train.trainer import Trainer
+    from avcer_tpu_torch.core.config import MeshConfig, OptimConfig, TrainConfig
+    from avcer_tpu_torch.parallel.mesh import default_devices
+    from avcer_tpu_torch.train.trainer import Trainer, make_train_mesh
 
     cfg = TrainConfig(
         model=a.model, num_classes=7, epochs=a.epochs, batch_size=a.batch_size,
         optim=OptimConfig(lr=a.lr), log_root=a.log_root, loss="weighted_ce",
-        label_smoothing=0.0,
+        label_smoothing=0.0, mesh=MeshConfig(data=a.data_parallel),
     )
+    make_train_mesh(cfg.mesh, default_devices(a.device))  # too few devices raise here
     if a.model == "static":
         loader = CropLoader(iter_image_folder(a.data_root), a.batch_size)
         trainer = Trainer(StaticWrapper(num_classes=7), cfg,

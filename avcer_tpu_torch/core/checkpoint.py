@@ -6,20 +6,26 @@ For each model family:
 - the release file is present: it is loaded (``load_torch_state_dict``); a
   JAX orbax cache ``jax/<family>`` beside it is skipped with a log line;
 - only the JAX cache is present: ``NotImplementedError``. The port has no
-  orbax reader (ROADMAP queue 1, item 10), and seeded weights served beside
-  real ones would go unnoticed;
+  orbax reader (ROADMAP, "Not ported": the orbax format), and seeded weights
+  served beside real ones would go unnoticed;
 - neither: ``resolve`` returns None and the caller uses its seeded init.
 
 A JAX calibration sidecar ``jax/<family>_act_scales`` raises as well when the
 family is served in int8: the port cannot read it, and would quantise with
 other scales than the JAX package does.
+
+The port's own calibration sidecar (``save_act_scales``, written by
+``cli.convert_verify --calib_video``) is ``torch/<family>_act_scales.pt``
+under ``weights_dir``: ``torch.save`` of the scale tensors under their module
+paths, read back with ``weights_only=True``; ``pipeline.builder`` adopts it
+for every family served in int8 (elementwise running max).
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 
@@ -38,7 +44,8 @@ TORCH_FILES = {
     "s3fd": "s3fd_weights.pth",
 }
 
-_NOT_READ = "ROADMAP queue 1, item 10: the port reads release files, not the JAX orbax cache"
+_NOT_READ = ('ROADMAP, "Not ported": the orbax format; the port reads release files, not the '
+             "JAX orbax cache")
 
 
 def detector_family(backbone: str) -> str:
@@ -82,3 +89,31 @@ def resolve(weights_dir: str, family: str, int8: bool = False,
             f"{cache} holds converted weights of {family} but {path} is absent ({_NOT_READ}); "
             "put the release file beside it")
     return None
+
+
+def act_scales_path(weights_dir: str, family: str) -> str:
+    return os.path.join(weights_dir, "torch", f"{family}_act_scales.pt")
+
+
+def save_act_scales(weights_dir: str, family: str, scales: Mapping[str, torch.Tensor]) -> str:
+    """Persist calibrated int8 activation scales (``{module path: amax}``) as
+    the port's sidecar of ``family``; returns its path."""
+    path = act_scales_path(weights_dir, family)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({k: torch.as_tensor(v).detach().float().cpu() for k, v in scales.items()}, path)
+    return path
+
+
+def load_act_scales(weights_dir: str, family: str) -> Optional[dict[str, torch.Tensor]]:
+    """The port's sidecar of ``family``, or None where there is none; a file
+    that does not load is warned about and left out (the seeded scales stay),
+    as the JAX package does with a corrupt sidecar."""
+    path = act_scales_path(weights_dir, family)
+    if not os.path.isfile(path):
+        return None
+    try:
+        scales = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as e:  # noqa: BLE001 - a corrupt sidecar is skipped
+        log.warning("act_scales sidecar %s does not load (%s) — ignored", path, e)
+        return None
+    return {k: v for k, v in scales.items() if torch.is_tensor(v)}

@@ -4,9 +4,9 @@ defaults (tests/test_torch_ops.py pins them), so that one side's values can
 be handed to the other, the training configs ``OptimConfig`` and
 ``TrainConfig`` included. The JAX package's ``pipeline_config_from_args`` is
 not copied: the port's CLI builds its config itself
-(``avcer_tpu_torch.cli.run``). ``MeshConfig`` is kept because
-``PipelineConfig`` and ``TrainConfig`` hold one; the port runs ``data ==
-model == pipe == 1`` only.
+(``avcer_tpu_torch.cli.run``). ``MeshConfig`` sets the device mesh of
+serving (``data``, ``pipeline.builder``) and of training (``data``, ``model``
+or ``pipe``, ``train.trainer``; ``parallel/``).
 
 Comments that speak of the TPU, the MXU, VMEM or Pallas describe the JAX
 package's measurements and switches; on the card the fused switches select
@@ -187,9 +187,8 @@ class MeshConfig:
 
     data: int = 1
     model: int = 1
-    #: >1 = pipeline-parallel training: encoder layers stack on a leading
-    #: [L] axis sharded over "pipe" (params/grads/moments scale 1/pipe);
-    #: see train/trainer.py pp branch + parallel/pipeline.py.
+    #: >1 = pipeline-parallel training: the encoder's layers run in stages
+    #: over the "pipe" axis (GPipe, parallel/pipeline.py; train/trainer.py)
     pipe: int = 1
     #: GPipe microbatches per step (bubble = (pipe-1)/(n_micro+pipe-1));
     #: batch_size must divide data * pipe_microbatches.

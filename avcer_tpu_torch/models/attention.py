@@ -20,7 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from avcer_tpu_torch.models.layers import Dropout, LayerNorm, scaled_dot_attention
+from avcer_tpu_torch.models.layers import (Dropout, LayerNorm, scaled_dot_attention,
+                                           tp_linear_pair)
 
 DROPOUT = 0.1
 
@@ -36,6 +37,10 @@ def sinusoidal_positional_encoding(d_model: int, max_len: int = 5000) -> np.ndar
 
 
 class MultiHeadAttention(nn.Module):
+    #: the parameters the tensor-parallel rules split (``parallel.mesh``)
+    tp_names = ("query_w.weight", "keys_w.weight", "values_w.weight",
+                "ff_layer_after_concat.weight")
+
     def __init__(self, input_dim: int, num_heads: int):
         super().__init__()
         if input_dim % num_heads:
@@ -45,10 +50,14 @@ class MultiHeadAttention(nn.Module):
         self.keys_w = nn.Linear(input_dim, input_dim, bias=False)
         self.values_w = nn.Linear(input_dim, input_dim, bias=False)
         self.ff_layer_after_concat = nn.Linear(input_dim, input_dim, bias=False)
+        #: ``layers.TensorParallel`` of the row when split over the model axis
+        self.tp = None
 
     def forward(self, queries: torch.Tensor, keys: torch.Tensor,
                 values: torch.Tensor) -> torch.Tensor:
         b, t, d = queries.shape
+        if self.tp is not None:
+            return self._tp_forward(queries, keys, values)
 
         def split(y: torch.Tensor) -> torch.Tensor:
             return y.reshape(b, t, self.num_heads, d // self.num_heads).transpose(1, 2)
@@ -56,6 +65,24 @@ class MultiHeadAttention(nn.Module):
         out = scaled_dot_attention(split(self.query_w(queries)), split(self.keys_w(keys)),
                                    split(self.values_w(values)), dtype=queries.dtype)
         return self.ff_layer_after_concat(out.transpose(1, 2).reshape(b, t, d))
+
+    def _tp_forward(self, queries: torch.Tensor, keys: torch.Tensor,
+                    values: torch.Tensor) -> torch.Tensor:
+        """Shard m: heads [m H/M, (m+1) H/M) on device m of the row, the
+        output projection row-parallel, the partial products summed."""
+        tp, (b, t, d) = self.tp, queries.shape
+        heads, width = self.num_heads // tp.size, d // self.num_heads
+        parts = []
+        for m, dev in enumerate(tp.devices):
+            def split(inp: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+                y = F.linear(inp.to(dev), tp.shard(lin.weight, 0, m))
+                return y.reshape(b, t, heads, width).transpose(1, 2)
+
+            out = scaled_dot_attention(split(queries, self.query_w), split(keys, self.keys_w),
+                                       split(values, self.values_w), dtype=queries.dtype)
+            parts.append(F.linear(out.transpose(1, 2).reshape(b, t, heads * width),
+                                  tp.shard(self.ff_layer_after_concat.weight, 1, m)))
+        return tp.reduce(parts).to(parts[0].dtype)
 
 
 class AddAndNorm(nn.Module):
@@ -69,13 +96,19 @@ class AddAndNorm(nn.Module):
 
 
 class PositionWiseFeedForward(nn.Module):
+    tp_names = ("layer_1.weight", "layer_1.bias", "layer_2.weight")
+
     def __init__(self, dim: int):
         super().__init__()
         self.layer_1 = nn.Linear(dim, dim)
         self.layer_2 = nn.Linear(dim, dim)
         self.dropout = Dropout(DROPOUT)
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return tp_linear_pair(self.tp, x, self.layer_1, self.layer_2,
+                                  lambda h: F.relu(self.dropout(h))).to(x.dtype)
         return self.layer_2(F.relu(self.dropout(self.layer_1(x))))
 
 

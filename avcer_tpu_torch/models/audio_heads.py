@@ -75,6 +75,11 @@ class ExprModel(nn.Module):
         h = self.wav2vec2(wav, mode=w2v_mode)
         if w2v_mode == "features_only":
             return h
+        return self.head(h, return_features)
+
+    def head(self, h: torch.Tensor, return_features: bool = False):
+        """Everything after wav2vec2, on its hidden states [B, F, hidden] (the
+        JAX model's ``w2v_mode="hidden"``)."""
         if self.variant == "v1":
             h = self.gru(h.float())[0].to(h.dtype)
         else:

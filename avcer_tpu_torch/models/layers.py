@@ -65,6 +65,9 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+        #: (group, replica index) under a data-parallel trainer: the batch
+        #: statistics are then the global batch's (``parallel.mesh.ReplicaGroup``)
+        self.sync = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
@@ -79,10 +82,20 @@ class BatchNorm(nn.Module):
         running statistics take them in (the variance unbiased)."""
         xf = x.float()
         dims = [0] + list(range(2, x.dim()))
-        mean = xf.mean(dim=dims)
-        var = xf.var(dim=dims, unbiased=False)
+        n = xf.numel() // xf.shape[1]
+        if self.sync is None:
+            mean = xf.mean(dim=dims)
+            var = xf.var(dim=dims, unbiased=False)
+        else:
+            # two passes over the replicas' shards, as the one-device path
+            # takes the mean and then the centred squares
+            group, i = self.sync
+            count = torch.full((1,), float(n), device=xf.device)
+            sums = group.all_sum(i, torch.cat([xf.sum(dim=dims), count]))
+            n = int(round(float(sums[-1].detach())))
+            mean = sums[:-1] / n
+            var = group.all_sum(i, ((xf - mean.view(shape)) ** 2).sum(dim=dims)) / n
         with torch.no_grad():
-            n = xf.numel() // xf.shape[1]
             m = self.momentum
             self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
             self.running_var.copy_((1 - m) * self.running_var + m * (var * n / max(n - 1, 1)))
@@ -90,6 +103,44 @@ class BatchNorm(nn.Module):
         inv = torch.rsqrt(var + self.eps) * self.weight.float()
         return ((xf - mean.view(shape)) * inv.view(shape) + self.bias.float().view(shape)
                 ).to(x.dtype)
+
+
+class TensorParallel:
+    """The devices of one data row's model axis, for the modules that run
+    split over it (a ``tp_names`` tuple and a ``tp`` attribute): shard ``m``
+    of a weight on device ``m``, and the sum of the row-parallel partial
+    products on the first device. Set by ``train.trainer`` where the rules of
+    ``parallel.mesh`` split every parameter of the module."""
+
+    def __init__(self, devices):
+        self.devices = [torch.device(d) for d in devices]
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def shard(self, w: Optional[torch.Tensor], dim: int, m: int) -> Optional[torch.Tensor]:
+        return None if w is None else w.chunk(self.size, dim)[m].to(self.devices[m])
+
+    def reduce(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p.to(out.device)
+        return out
+
+
+def tp_linear_pair(tp: TensorParallel, x: torch.Tensor, first: nn.Linear, second: nn.Linear,
+                   inner) -> torch.Tensor:
+    """``second(inner(first(x)))`` with ``first`` column-parallel and
+    ``second`` row-parallel over ``tp``: shard m computes ``inner`` on its
+    slice of the features; the partial products are summed, then
+    ``second``'s bias added."""
+    parts = []
+    for m, dev in enumerate(tp.devices):
+        h = F.linear(x.to(dev), tp.shard(first.weight, 0, m), tp.shard(first.bias, 0, m))
+        parts.append(F.linear(inner(h), tp.shard(second.weight, 1, m)))
+    out = tp.reduce(parts)
+    return out if second.bias is None else out + second.bias
 
 
 class Dropout(nn.Module):
@@ -111,7 +162,10 @@ class Dropout(nn.Module):
             raise RuntimeError("Dropout in training needs a generator: layers.set_dropout("
                                "model, generator=torch.Generator(device))")
         keep_prob = 1.0 - self.p
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < keep_prob
+        # drawn on the generator's device (a tensor-parallel shard may sit on
+        # another device of its row)
+        keep = (torch.rand(x.shape, generator=self.generator, device=self.generator.device)
+                < keep_prob).to(x.device)
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -42,10 +42,11 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from avcer_tpu_torch.models.layers import (Dropout, LayerNorm, QConv1d, QDense, gelu_exact,
-                                           scaled_dot_attention)
+                                           scaled_dot_attention, tp_linear_pair)
 from avcer_tpu_torch.ops.cuda.attention_kernel import mha
 
 DROPOUT = 0.1
@@ -152,6 +153,10 @@ def attention_route(layer: nn.Module, x: torch.Tensor) -> str:
 
 
 class Attention(nn.Module):
+    #: the parameters the tensor-parallel rules split (``parallel.mesh``)
+    tp_names = ("q_proj.weight", "q_proj.bias", "k_proj.weight", "k_proj.bias",
+                "v_proj.weight", "v_proj.bias", "out_proj.weight")
+
     def __init__(self, c: Wav2Vec2Config):
         super().__init__()
         self.num_heads = c.num_heads
@@ -159,8 +164,12 @@ class Attention(nn.Module):
         self.k_proj = dense(c, c.hidden_size, c.hidden_size)
         self.v_proj = dense(c, c.hidden_size, c.hidden_size)
         self.out_proj = dense(c, c.hidden_size, c.hidden_size)
+        #: ``layers.TensorParallel`` of the row when split over the model axis
+        self.tp = None
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self._tp_forward(h)
         b, t, d = h.shape
 
         def heads(x: torch.Tensor) -> torch.Tensor:  # -> [B, H, T, D]
@@ -173,16 +182,44 @@ class Attention(nn.Module):
             attn = scaled_dot_attention(q, k, v, dtype=q.dtype)
         return self.out_proj(attn.transpose(1, 2).reshape(b, t, d))
 
+    def _tp_forward(self, h: torch.Tensor) -> torch.Tensor:
+        """Shard m takes heads [m H/M, (m+1) H/M) on device m of the row (q,
+        k, v column-parallel, their attention on its route), the output
+        projection row-parallel; the partial products summed."""
+        tp, (b, t, d) = self.tp, h.shape
+        heads, width = self.num_heads // tp.size, d // self.num_heads
+        kernel = attention_route(self, h) == "kernel"
+        parts = []
+        for m, dev in enumerate(tp.devices):
+            x = h.to(dev)
+
+            def split(lin: nn.Linear) -> torch.Tensor:
+                y = F.linear(x, tp.shard(lin.weight, 0, m), tp.shard(lin.bias, 0, m))
+                return y.reshape(b, t, heads, width).transpose(1, 2).contiguous()
+
+            q, k, v = split(self.q_proj), split(self.k_proj), split(self.v_proj)
+            attn = mha(q, k, v) if kernel else scaled_dot_attention(q, k, v, dtype=q.dtype)
+            parts.append(F.linear(attn.transpose(1, 2).reshape(b, t, heads * width),
+                                  tp.shard(self.out_proj.weight, 1, m)))
+        return (tp.reduce(parts) + self.out_proj.bias).to(parts[0].dtype)
+
 
 class FeedForward(nn.Module):
+    tp_names = ("intermediate_dense.weight", "intermediate_dense.bias", "output_dense.weight")
+
     def __init__(self, c: Wav2Vec2Config):
         super().__init__()
         self.intermediate_dense = dense(c, c.hidden_size, c.intermediate_size)
         self.output_dense = dense(c, c.intermediate_size, c.hidden_size)
         self.intermediate_dropout = Dropout(DROPOUT)
         self.output_dropout = Dropout(DROPOUT)
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self.output_dropout(tp_linear_pair(
+                self.tp, x, self.intermediate_dense, self.output_dense,
+                lambda h: self.intermediate_dropout(gelu_exact(h))).to(x.dtype))
         h = self.intermediate_dropout(gelu_exact(self.intermediate_dense(x)))
         return self.output_dropout(self.output_dense(h))
 
@@ -237,14 +274,25 @@ class Encoder(nn.Module):
         self.layer_norm = LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
         self.dropout = Dropout(DROPOUT)
         self.remat = c.remat
+        #: ``pipe(encoder, h) -> h`` runs the layer stack in its place (the
+        #: GPipe schedule of ``parallel.pipeline``)
+        self.pipe = None
+
+    def pre_layers(self, h: torch.Tensor) -> torch.Tensor:
+        return self.dropout(h + self.pos_conv_embed(h))
+
+    def run_layer(self, layer: nn.Module, h: torch.Tensor) -> torch.Tensor:
+        if self.remat and self.training and attention_route(layer, h) == "autograd":
+            return checkpointed(layer, h)
+        return layer(h)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        h = self.dropout(h + self.pos_conv_embed(h))
-        for layer in self.layers:
-            if self.remat and self.training and attention_route(layer, h) == "autograd":
-                h = checkpointed(layer, h)
-            else:
-                h = layer(h)
+        h = self.pre_layers(h)
+        if self.pipe is not None:
+            h = self.pipe(self, h)
+        else:
+            for layer in self.layers:
+                h = self.run_layer(layer, h)
         return self.layer_norm(h)
 
 
@@ -253,7 +301,10 @@ class Wav2Vec2Model(nn.Module):
 
     ``mode``: ``"full"``; ``"features_only"`` returns the conv features [B, F,
     conv_dim]; ``"from_features"`` takes such features as its input and runs
-    the projection and the encoder. Same parameters in every mode."""
+    the projection and the encoder; ``"pre_layers"`` stops before the encoder
+    layers and ``"post_layers"`` takes their output and applies the final
+    LayerNorm (the pieces around a pipelined layer stack). Same parameters in
+    every mode."""
 
     def __init__(self, config: Wav2Vec2Config | None = None):
         super().__init__()
@@ -263,8 +314,12 @@ class Wav2Vec2Model(nn.Module):
         self.encoder = Encoder(self.config)
 
     def forward(self, wav: torch.Tensor, mode: str = "full") -> torch.Tensor:
-        if mode not in ("full", "features_only", "from_features"):
+        if mode not in ("full", "features_only", "from_features", "pre_layers", "post_layers"):
             raise ValueError(f"unknown wav2vec2 mode {mode!r}")
+        if mode == "post_layers":
+            return self.encoder.layer_norm(wav)
+        if mode == "pre_layers":
+            return self.encoder.pre_layers(self.feature_projection(self.feature_extractor(wav)))
         feats = wav if mode == "from_features" else self.feature_extractor(wav)
         if mode == "features_only":
             return feats

@@ -23,6 +23,7 @@ there by default).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -104,10 +105,12 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         rc = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"attention kernel {kernel} launch failed: CUDA error {rc}")
-    mha.launches += 1
-    mha.launches_by_kernel[kernel] += 1
+    with _COUNT_LOCK:  # the data-parallel trainer's replicas launch from their own threads
+        mha.launches += 1
+        mha.launches_by_kernel[kernel] += 1
     return out
 
 
 mha.launches = 0
 mha.launches_by_kernel = {"tc": 0, "exact": 0}
+_COUNT_LOCK = threading.Lock()

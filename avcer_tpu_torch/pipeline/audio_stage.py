@@ -56,13 +56,16 @@ def make_windows(num_samples: int, cfg: AudioConfig, fps: float) -> AudioWindows
 
 class AudioStage:
     def __init__(self, model: torch.nn.Module, cfg: AudioConfig,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", mesh=None):
         if cfg.quant not in ("none", "int8") or (cfg.quant == "int8") != bool(
                 model.wav2vec2.config.quant):
             raise ValueError(f"quant={cfg.quant!r} does not fit the model it was given")
         self.cfg = cfg
         self.model = model
         self.device = torch.device(device)
+        #: under a mesh the windows are not sharded (as in the JAX package,
+        #: which replicates the weights): the stage runs on the first device
+        self.mesh = mesh
         self.window = int(cfg.window_sec * cfg.sample_rate)
         self._real_calibrated = cfg.quant != "int8"
         self._calib_lock = threading.Lock()

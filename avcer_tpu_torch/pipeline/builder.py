@@ -15,7 +15,18 @@ variant over the same state dict; the stage then seeds the activation scales
 (see each stage). A JAX tree that carries an ``act_scales`` collection hands
 its calibrated scales to the model before that, so both sides quantise with
 the same scales; the JAX package's calibration sidecars on disk are refused
-(``core.checkpoint``).
+(``core.checkpoint``). The port's own sidecars in ``weights_dir``
+(``checkpoint.save_act_scales``, written by ``cli.convert_verify
+--calib_video``) are adopted after that by every stage served in int8, as an
+elementwise running max with the stage's scales; a sidecar that no longer
+fits the model is warned about and skipped, as in the JAX package.
+
+``cfg.mesh.data > 1``: the stages serve over a data-parallel mesh
+(``parallel.mesh.make_mesh(data, 1)`` over ``mesh_devices``, default every
+CUDA device, or the CPU where ``device`` is the CPU; too few raise the mesh
+error). The detector and the static CNN keep a replica a device and shard
+their batches, the fused switches are off (as in the JAX package), and the
+stages live on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from avcer_tpu_torch.models.layers import cast_compute, load_act_scales, seeded_
 from avcer_tpu_torch.models.retinaface import RetinaFace
 from avcer_tpu_torch.models.temporal_lstm import TemporalLSTM
 from avcer_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+from avcer_tpu_torch.parallel import mesh as mesh_lib
 from avcer_tpu_torch.pipeline.audio_stage import AudioStage
 from avcer_tpu_torch.pipeline.detect import DetectStage
 from avcer_tpu_torch.pipeline.runner import Pipeline, check_supported
@@ -50,6 +62,7 @@ def build_pipeline(
     device: torch.device | str = "cuda",
     seed: int = 0,
     jax_variables: Optional[Mapping[str, Mapping[str, Any]]] = None,
+    mesh_devices: Optional[list] = None,
 ) -> Pipeline:
     """Build the detect, visual and audio stages on ``device``.
 
@@ -64,6 +77,17 @@ def build_pipeline(
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
+    mesh = None
+    if cfg.mesh.data > 1:
+        mesh = mesh_lib.make_mesh(cfg.mesh.data, 1, mesh_devices if mesh_devices is not None
+                                  else mesh_lib.default_devices(device.type))
+        device = mesh.first
+        # the fused kernels serve one device, as the Pallas kernels do
+        cfg = dataclasses.replace(
+            cfg, detector=dataclasses.replace(
+                cfg.detector, fused_layer1=False, fused_tails=False, fused_entries=False,
+                fused_ssh=False, fused_fpn=False),
+            visual=dataclasses.replace(cfg.visual, fused=False, fused_entries=False))
     w2v2 = wav2vec2_config or Wav2Vec2Config()
     if cfg.audio.quant == "int8":
         w2v2 = dataclasses.replace(w2v2, quant=True)
@@ -118,11 +142,24 @@ def build_pipeline(
         return cast_compute(model, _DTYPES[dtype_name]).to(device)
 
     detect = DetectStage(cfg.detector, place(models["retinaface"], cfg.detector.dtype),
-                         device=device)
+                         device=device, mesh=mesh)
     visual = VisualStage(place(models["emotion_resnet50"], cfg.visual.dtype),
                          models["temporal_lstm"].to(device),
                          num_classes=cfg.visual.num_classes,
                          batch_size=cfg.visual.batch_size, device=device,
-                         quant=cfg.visual.quant)
-    audio = AudioStage(place(models["expr_model"], cfg.audio.dtype), cfg.audio, device=device)
-    return Pipeline(cfg, detect, visual, audio, device=device)
+                         quant=cfg.visual.quant, mesh=mesh)
+    audio = AudioStage(place(models["expr_model"], cfg.audio.dtype), cfg.audio, device=device,
+                       mesh=mesh)
+    for stage, (family, int8) in ((detect, release["retinaface"]),
+                                  (visual, release["emotion_resnet50"]),
+                                  (audio, release["expr_model"])):
+        scales = checkpoint.load_act_scales(cfg.weights_dir, family) if int8 else None
+        if scales is None:
+            continue
+        try:
+            stage.merge_act_scales(scales)
+            log.info("%s: int8 act_scales adopted from %s", family,
+                     checkpoint.act_scales_path(cfg.weights_dir, family))
+        except Exception as e:  # noqa: BLE001 - the model changed since the sidecar was written
+            log.warning("act_scales sidecar for %s incompatible (%s) — ignored", family, e)
+    return Pipeline(cfg, detect, visual, audio, device=device, mesh=mesh)

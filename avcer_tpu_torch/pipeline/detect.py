@@ -17,10 +17,20 @@ the first real batch's first two frames, and watched every ``RECALIB_EVERY``
 batches (scales only grow; growth above 5 % is logged). Every calibration
 forward runs the model's unfused int8 modules (``layers.calibrating``), also
 when the stage serves through the fused kernels.
+
+Data parallelism (``mesh``, ``--data_parallel N``): the stage keeps one
+replica of the model a device of the mesh's data axis (the model itself where
+a device is named again), splits each network batch into N equal shards
+(raising where N does not divide it, as the JAX package's ``device_put`` onto
+the sharded batch does), runs each shard through the whole forward (network,
+decode, top-K, NMS: K1 at ``[B / N, 64, 4]``) on its device, and gathers the
+results onto the first device. The builder turns the fused switches off under
+a mesh, as the JAX package does. Calibrated scales go to every replica.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import threading
 from dataclasses import dataclass
@@ -37,6 +47,7 @@ from avcer_tpu_torch.ops import nms as nms_ops
 from avcer_tpu_torch.ops.cuda.nms_kernel import nms_mask
 from avcer_tpu_torch.ops.image import (letterbox_params, resize_bilinear_uint8,
                                        retinaface_normalize)
+from avcer_tpu_torch.parallel.mesh import split_rows
 
 
 log = logging.getLogger("avcer_tpu_torch")
@@ -59,7 +70,7 @@ class DetectStage:
     prior_boxes = staticmethod(box_ops.prior_boxes)
 
     def __init__(self, cfg: DetectorConfig, model: torch.nn.Module,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", mesh=None):
         if cfg.transfer_format != "bgr":
             raise ValueError(
                 f"transfer_format={cfg.transfer_format!r}: the I420 wire format "
@@ -76,7 +87,16 @@ class DetectStage:
         self.cfg = cfg
         self.model = model
         self.device = torch.device(device)
-        self._priors: dict[tuple[int, int], torch.Tensor] = {}
+        self.mesh = mesh
+        #: (device, model) of each shard of the data axis
+        self.replicas = [(self.device, model)]
+        if mesh is not None:
+            if cfg.batch_size % mesh.local_data:
+                raise ValueError(f"detect batch {cfg.batch_size} does not divide over the data "
+                                 f"axis of {mesh.local_data} devices")
+            self.replicas = [(dev, model if dev == self.device else copy.deepcopy(model).to(dev))
+                             for dev in (mesh.row(d)[0] for d in range(mesh.local_data))]
+        self._priors: dict[tuple, torch.Tensor] = {}
         self.quant = cfg.quant == "int8"
         if self.quant != bool(getattr(model, "quant", False)):
             raise ValueError(f"quant={cfg.quant!r} does not fit the model it was given")
@@ -96,6 +116,14 @@ class DetectStage:
         with layers.calibrating(self.model):
             self.model(retinaface_normalize(frames))
         self.calibration_forwards += 1
+        self._sync_replicas()
+
+    def _sync_replicas(self) -> None:
+        """The model's activation scales into every other replica."""
+        scales = layers.act_scales(self.model)
+        for _, rep in self.replicas:
+            if rep is not self.model and scales:
+                layers.load_act_scales(rep, scales)
 
     def calibrate(self, frames: np.ndarray) -> None:
         """Take the running max-abs of every int8 conv's input over ``frames``
@@ -110,6 +138,7 @@ class DetectStage:
         if not cur:
             return
         layers.load_act_scales(self.model, layers.merge_act_scales_trees(cur, scales))
+        self._sync_replicas()
         self._real_calibrated = True
 
     def _watch_calibration(self, frames_dev: torch.Tensor) -> None:
@@ -154,11 +183,12 @@ class DetectStage:
             x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
         return x, 1.0
 
-    def _priors_for(self, h: int, w: int) -> torch.Tensor:
-        if (h, w) not in self._priors:
-            self._priors[(h, w)] = torch.from_numpy(
-                self.prior_boxes((h, w)).copy()).to(self.device)
-        return self._priors[(h, w)]
+    def _priors_for(self, h: int, w: int, device: torch.device | None = None) -> torch.Tensor:
+        device = self.device if device is None else device
+        if (h, w, device) not in self._priors:
+            self._priors[(h, w, device)] = torch.from_numpy(
+                self.prior_boxes((h, w)).copy()).to(device)
+        return self._priors[(h, w, device)]
 
     @torch.inference_mode()
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
@@ -166,15 +196,23 @@ class DetectStage:
         Returns packed [B / stride, K, 16] f32: boxes 0:4, score 4, keep 5,
         landmarks 6:16, in bucket pixel coordinates. With a detect stride the
         network sees every stride-th frame only; the caller keeps the whole
-        batch on the device for the crop stage."""
-        h, w = frames.shape[1], frames.shape[2]
+        batch on the device for the crop stage. Under a mesh each shard runs
+        on its replica and the results come back to the first device."""
         if self.cfg.stride > 1:
             frames = frames[::self.cfg.stride]
-        loc, conf, landms = self.model(retinaface_normalize(frames))
-        priors = self._priors_for(h, w)
-        scale = torch.tensor([w, h, w, h], dtype=torch.float32, device=self.device)
+        if len(self.replicas) == 1:
+            return self._forward_shard(self.model, frames)
+        shards = split_rows(frames, len(self.replicas), "the detect batch")
+        return torch.cat([self._forward_shard(model, shard.to(dev)).to(self.device)
+                          for (dev, model), shard in zip(self.replicas, shards)])
+
+    def _forward_shard(self, model: torch.nn.Module, frames: torch.Tensor) -> torch.Tensor:
+        h, w, dev = frames.shape[1], frames.shape[2], frames.device
+        loc, conf, landms = model(retinaface_normalize(frames))
+        priors = self._priors_for(h, w, dev)
+        scale = torch.tensor([w, h, w, h], dtype=torch.float32, device=dev)
         boxes = box_ops.decode_boxes(loc.float(), priors) * scale
-        lscale = torch.tensor([w, h] * 5, dtype=torch.float32, device=self.device)
+        lscale = torch.tensor([w, h] * 5, dtype=torch.float32, device=dev)
         landms = box_ops.decode_landmarks(landms.float(), priors) * lscale
         k = min(self.cfg.nms_candidates, 64)
         cand_boxes, cand_scores, valid, idx = nms_ops.topk_candidates(

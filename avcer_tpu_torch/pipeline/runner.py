@@ -73,7 +73,6 @@ def check_supported(cfg: PipelineConfig) -> None:
     """Raise for configuration the port does not run yet, naming the ROADMAP
     item that ports it. Nothing is quietly ignored."""
     unsupported = {
-        "mesh.data > 1 (data parallel; ROADMAP queue 1, item 11: parallelism)": cfg.mesh.data > 1,
         f"heatmaps={cfg.heatmaps!r} (only '', 'static' and 'dynamic' exist)":
             cfg.heatmaps not in ("", "static", "dynamic"),
         f"visual.quant={cfg.visual.quant!r} (only 'none' and 'int8' exist)":
@@ -89,9 +88,11 @@ class Pipeline:
     """Holds the three model stages; reusable across clips."""
 
     def __init__(self, cfg: PipelineConfig, detect: DetectStage, visual: VisualStage,
-                 audio: AudioStage, device: torch.device | str = "cuda"):
+                 audio: AudioStage, device: torch.device | str = "cuda", mesh=None):
         check_supported(cfg)
         self.cfg = cfg
+        #: the data-parallel mesh of the stages (``pipeline.builder``), or None
+        self.mesh = mesh
         self.detect = detect
         self.visual = visual
         self.audio = audio

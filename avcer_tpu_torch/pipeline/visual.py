@@ -23,10 +23,19 @@ int8 (``VisualConfig.quant == "int8"``): the static CNN's activation scales
 are seeded at build on two noise crops and refined once per process on the
 first real crops (running max); calibration forwards run the unfused int8
 modules (``layers.calibrating``). The LSTM stays exact.
+
+Data parallelism (``mesh``): one replica of the static CNN a device of the
+data axis (the model itself where a device is named again); each batch of
+``batch_size`` crops splits into N equal shards, one a replica, and the
+results come back to the first device. ``batch_size`` must divide by N. The
+LSTM and the Grad-CAM forward run on the first device; calibrated scales go
+to every replica. The builder turns ``fused`` off under a mesh, as the JAX
+package does.
 """
 
 from __future__ import annotations
 
+import copy
 import threading
 from dataclasses import dataclass
 from typing import Mapping
@@ -36,6 +45,7 @@ import torch
 
 from avcer_tpu_torch.models import layers
 from avcer_tpu_torch.ops.image import crop_and_resize, vggface_normalize
+from avcer_tpu_torch.parallel.mesh import split_rows
 from avcer_tpu_torch.utils.gradcam import gradcam_masks
 
 
@@ -92,12 +102,22 @@ def build_temporal_plan(present: np.ndarray, step: int, window: int = 10) -> Tem
 class VisualStage:
     def __init__(self, static_model: torch.nn.Module, lstm_model: torch.nn.Module,
                  num_classes: int = 7, batch_size: int = 256,
-                 device: torch.device | str = "cuda", quant: str = "none"):
+                 device: torch.device | str = "cuda", quant: str = "none", mesh=None):
         self.static_model = static_model
         self.lstm_model = lstm_model
         self.num_classes = num_classes
         self.batch_size = batch_size
         self.device = torch.device(device)
+        self.mesh = mesh
+        #: (device, static model) of each shard of the data axis
+        self.replicas = [(self.device, static_model)]
+        if mesh is not None:
+            if batch_size % mesh.local_data:
+                raise ValueError(f"CNN batch {batch_size} does not divide over the data axis "
+                                 f"of {mesh.local_data} devices")
+            self.replicas = [
+                (dev, static_model if dev == self.device else copy.deepcopy(static_model).to(dev))
+                for dev in (mesh.row(d)[0] for d in range(mesh.local_data))]
         if quant not in ("none", "int8") or (quant == "int8") != bool(
                 getattr(static_model, "quant", False)):
             raise ValueError(f"quant={quant!r} does not fit the static model it was given")
@@ -114,6 +134,23 @@ class VisualStage:
         with layers.calibrating(self.static_model):
             self.static_model(vggface_normalize(crops))
         self.calibration_forwards += 1
+        self._sync_replicas()
+
+    def _sync_replicas(self) -> None:
+        """The static model's activation scales into every other replica."""
+        scales = layers.act_scales(self.static_model)
+        for _, rep in self.replicas:
+            if rep is not self.static_model and scales:
+                layers.load_act_scales(rep, scales)
+
+    def _static(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The static CNN on a normalised batch: (logits, features), under a
+        mesh one shard a replica, gathered on the first device."""
+        if len(self.replicas) == 1:
+            return self.static_model(x)
+        outs = [model(shard.to(dev)) for (dev, model), shard in
+                zip(self.replicas, split_rows(x, len(self.replicas), "the CNN batch"))]
+        return tuple(torch.cat([o[i].to(self.device) for o in outs]) for i in range(2))
 
     def calibrate(self, crops: np.ndarray) -> None:
         """Take the running max-abs of every int8 conv's input over ``crops``
@@ -128,6 +165,7 @@ class VisualStage:
         if not cur:
             return
         layers.load_act_scales(self.static_model, layers.merge_act_scales_trees(cur, scales))
+        self._sync_replicas()
         self._real_calibrated = True
 
     def ensure_calibrated_crops(self, crops: np.ndarray) -> None:
@@ -185,7 +223,7 @@ class VisualStage:
         outs = []
         for s in range(0, p, bs):
             crops = crop_and_resize(frames_dev, idx_all[s:s + bs], boxes_all[s:s + bs], 224)
-            logits, feats = self.static_model(vggface_normalize(crops))
+            logits, feats = self._static(vggface_normalize(crops))
             outs.append(torch.cat([torch.softmax(logits.float(), dim=-1), feats.float()], -1))
         packed = torch.cat(outs)[:p].cpu().numpy()
         return packed[:, :self.num_classes], packed[:, self.num_classes:]
@@ -205,7 +243,7 @@ class VisualStage:
         outs = []
         for s in range(0, p, bs):
             x = torch.from_numpy(np.ascontiguousarray(filled[s:s + bs])).to(self.device)
-            logits, feats = self.static_model(vggface_normalize(x))
+            logits, feats = self._static(vggface_normalize(x))
             outs.append(torch.cat([torch.softmax(logits.float(), dim=-1), feats.float()], -1))
         packed = torch.cat(outs)[:p].cpu().numpy()
         return packed[:, :self.num_classes], packed[:, self.num_classes:]

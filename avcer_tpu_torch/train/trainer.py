@@ -31,12 +31,40 @@ public names.
   ``<log_root>/<family>.pth``, which ``core.checkpoint.load_torch_state_dict``
   and ``cli.extract_features --checkpoint`` load.
 
-Refused by name: a mesh above 1 (``MeshConfig.data``, ``model`` or ``pipe``),
-ROADMAP queue 1, parallelism (item 11).
+The mesh (``cfg.mesh`` or a ``parallel.mesh.Mesh`` handed in; its devices
+default to every CUDA device, ``devices=`` names others, ``["cpu"] * 2`` in the
+CPU tests): the model is the replica of the first local data row and holds
+the master parameters and the optimizer; each other row runs a deep copy on
+its first device, its parameters refreshed from the master's before a
+forward that follows an update, with its own dropout generator seeded from
+the step's seed and its global data index. Each replica takes its shard of
+the batch on its own thread (``parallel.mesh.parallel_apply``). So one step
+over a batch split on ``data`` is the step over the whole batch:
+
+- the logits come back to the first device (and from every process,
+  ``parallel.distributed.gather_rows``), and the loss is the global batch's;
+- after the backward pass the replicas' gradients are summed into the
+  master's, and across processes by an all-reduce;
+- a BatchNorm in training takes the global batch's statistics
+  (``parallel.mesh.ReplicaGroup``), as the JAX ``TorchBatchNorm`` does under
+  a sharded ``jit``.
+
+``model > 1``: the modules the rules of ``parallel.mesh`` split run on the
+row's model-axis devices (``layers.TensorParallel``: each shard a
+differentiable slice of the replica's weight); ``pipe > 1`` (exclusive with
+``model``): each replica's encoder layers live on the row's stage devices, L /
+S consecutive layers a stage, and run in the GPipe schedule of
+``parallel.pipeline``, ``pipe_microbatches`` microbatches a row. Each
+replica runs on parameters of its own, so that ``remat``'s recompute in the
+backward pass reads what its forward read. Frozen layers stay frozen as in
+the plain step (their parameters take no gradient). Mixup permutes each
+process's rows.
 """
 
 from __future__ import annotations
 
+import copy
+import functools
 import inspect
 import json
 import logging
@@ -51,13 +79,17 @@ import torch.nn as nn
 
 from avcer_tpu_torch.core.config import TrainConfig
 from avcer_tpu_torch.models import layers
+from avcer_tpu_torch.parallel import distributed
+from avcer_tpu_torch.parallel import mesh as mesh_lib
+from avcer_tpu_torch.parallel import pipeline as pp_lib
 from avcer_tpu_torch.train import losses as loss_lib
 from avcer_tpu_torch.train import metrics as metrics_lib
 from avcer_tpu_torch.train.schedules import ScheduledOptimizer, make_optimizer
 
 log = logging.getLogger("avcer_tpu_torch")
 
-PARALLELISM = "ROADMAP queue 1, parallelism (item 11)"
+#: the seed offset of data row r's dropout generator (row 0: the plain step's)
+ROW_SEED = 0x9E3779B1
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -81,11 +113,18 @@ def default_trainable(name: str, unfreeze_last_n: int, num_layers: int) -> bool:
                for i in range(num_layers - unfreeze_last_n, num_layers))
 
 
-def check_mesh(mesh) -> None:
-    """The port trains on one device: a mesh above 1 is refused by name."""
-    big = {k: getattr(mesh, k) for k in ("data", "model", "pipe") if getattr(mesh, k, 1) > 1}
-    if big:
-        raise NotImplementedError(f"mesh {big} is not ported ({PARALLELISM})")
+def make_train_mesh(cfg_mesh, devices) -> Optional[mesh_lib.Mesh]:
+    """The mesh of ``cfg.mesh`` over ``devices``: ``(data, pipe)`` where
+    ``pipe > 1``, else ``(data, model)``; None where every axis is 1 and the
+    run has one process."""
+    if cfg_mesh.pipe > 1 and cfg_mesh.model > 1:
+        raise ValueError("mesh.pipe and mesh.model are exclusive")
+    if max(cfg_mesh.data, cfg_mesh.model, cfg_mesh.pipe) == 1 and \
+            distributed.process_count() == 1:
+        return None
+    if cfg_mesh.pipe > 1:
+        return pp_lib.make_mesh_dp_pp(cfg_mesh.data, cfg_mesh.pipe, devices)
+    return mesh_lib.make_mesh(cfg_mesh.data, cfg_mesh.model, devices)
 
 
 class Trainer:
@@ -101,9 +140,17 @@ class Trainer:
         log_dir: Optional[str] = None,
         device: str | torch.device = "cuda",
         dtype: str = "float32",
+        mesh: Optional[mesh_lib.Mesh] = None,
+        devices: Optional[list] = None,
     ):
-        check_mesh(cfg.mesh)
         self.device = torch.device(device)
+        if mesh is None:
+            mesh = make_train_mesh(cfg.mesh, devices if devices is not None
+                                   else mesh_lib.default_devices(self.device.type))
+        self.mesh = mesh
+        self.pipe = mesh.shape.get("pipe", 1) if mesh is not None else 1
+        if mesh is not None:
+            self.device = mesh.first
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
         self.model = model
@@ -129,6 +176,14 @@ class Trainer:
         self.wav2vec2_layers = wav2vec2_layers
         self.log_dir = log_dir or os.path.join(cfg.log_root, "run")
         self.generator = torch.Generator(device=self.device)
+        #: one model a local data row (the first is ``model``), their dropout
+        #: generators, and a row's pipeline stages' generators
+        self.replicas: list[nn.Module] = [model]
+        self.generators = [self.generator]
+        self.stage_generators: list[list[torch.Generator]] = []
+        self._group: Optional[mesh_lib.ReplicaGroup] = None
+        #: the replicas' parameters lag the master's (after an update or a load)
+        self._stale = False
         self.history: list[dict] = []
         self.best: dict[str, Any] = {"metric": -np.inf, "epoch": -1, "state": None}
         self._tb: dict[str, Any] = {}
@@ -168,33 +223,148 @@ class Trainer:
         for name, p in model.named_parameters():
             p.requires_grad_(self.trainable(name))
         layers.set_dropout(model, generator=self.generator)
+        if self.mesh is not None:
+            self._place_on_mesh(model)
         o = self.cfg.optim
         opt = make_optimizer((p for p in model.parameters() if p.requires_grad), o.lr, o.t0,
                              self.iters_per_epoch, o.t_mult, o.eta_min, o.weight_decay)
         return TrainState(model, opt, 0)
 
+    def _place_on_mesh(self, model: nn.Module) -> None:
+        """The replicas of the local data rows, their generators, and the
+        BatchNorm, tensor-parallel and pipeline hooks of each."""
+        mesh = self.mesh
+        n = mesh.local_data
+        drops = [m for m in model.modules() if isinstance(m, layers.Dropout)]
+        for m in drops:
+            m.generator = None  # a generator does not deep-copy
+        self.replicas = [model] + [copy.deepcopy(model).to(mesh.row(d)[0]) for d in range(1, n)]
+        for m in drops:
+            m.generator = self.generator
+        if self.pipe > 1:
+            if not hasattr(model, "wav2vec2"):
+                raise ValueError("pipeline parallelism runs the wav2vec2 encoder's layers; "
+                                 f"{type(model).__name__} has none")
+            for d, rep in enumerate(self.replicas):
+                stack = rep.wav2vec2.encoder.layers
+                per = pp_lib.check_stages(len(stack), self.pipe)
+                for i, layer in enumerate(stack):
+                    layer.to(mesh.row(d)[i // per])
+        self.generators = [self.generator] + [torch.Generator(device=mesh.row(d)[0])
+                                              for d in range(1, n)]
+        multi = distributed.is_multiprocess()
+        group = mesh_lib.ReplicaGroup(n, processes=multi) if n > 1 or multi else None
+        specs = mesh_lib.param_specs(model.named_parameters(), mesh)
+        size = mesh.shape.get("model", 1)
+        self.stage_generators = []
+        for d, rep in enumerate(self.replicas):
+            layers.set_dropout(rep, generator=self.generators[d])
+            for m in rep.modules():
+                if isinstance(m, layers.BatchNorm):
+                    m.sync = None if group is None else (group, d)
+            if size > 1:
+                for _, m in mesh_lib.tensor_parallel_modules(rep, specs, size):
+                    m.tp = layers.TensorParallel(mesh.row(d))
+            if self.pipe > 1:
+                gens = [torch.Generator(device=dev) for dev in mesh.row(d)]
+                self.stage_generators.append(gens)
+                rep.wav2vec2.encoder.pipe = pp_lib.encoder_pipe(
+                    mesh.row(d), self.cfg.mesh.pipe_microbatches, gens)
+        self._group = group
+
+    def _seed(self, step: int) -> None:
+        """The step's generators: row r's from the step's seed and r's global
+        data index (row 0's is the plain step's)."""
+        base = int(self.cfg.seed) * 1_000_003 + step
+        first = distributed.process_index() * len(self.replicas)
+        for d, g in enumerate(self.generators):
+            g.manual_seed(base + ROW_SEED * (first + d))
+        for d, gens in enumerate(self.stage_generators):
+            for s, g in enumerate(gens):
+                g.manual_seed(base + ROW_SEED * (first + d) + 7919 * (s + 1))
+
+    @torch.no_grad()
+    def _refresh_replicas(self) -> None:
+        """The master's parameters and buffers into every other replica."""
+        if self._stale:
+            master = dict(self.model.named_parameters())
+            master.update(self.model.named_buffers())
+            for rep in self.replicas[1:]:
+                for name, t in list(rep.named_parameters()) + list(rep.named_buffers()):
+                    t.copy_(master[name])
+        self._stale = False
+
+    def _reduce_grads(self) -> None:
+        """The replicas' gradients summed into the master's (and dropped)."""
+        master = dict(self.model.named_parameters())
+        for rep in self.replicas[1:]:
+            for name, p in rep.named_parameters():
+                if p.grad is not None:
+                    m = master[name]
+                    g = p.grad.to(m.device)
+                    m.grad = g if m.grad is None else m.grad.add_(g)
+                    p.grad = None
+
+    def _forward(self, model: nn.Module, xt: torch.Tensor, **kw):
+        """The model on ``xt`` (this process's rows): alone, or under the mesh
+        one replica a data row on its shard, the results gathered on the
+        first device."""
+        if self.mesh is None:
+            return model(xt, **kw)
+        self._refresh_replicas()
+        shards = mesh_lib.split_rows(xt, len(self.replicas))
+
+        def run(d: int):
+            rep = self.replicas[d]
+            rep.train(model.training)
+            return rep(shards[d].to(self.mesh.row(d)[0]), **kw)
+
+        def abort() -> None:
+            if self._group is not None:
+                self._group.barrier.abort()
+
+        outs = mesh_lib.parallel_apply([functools.partial(run, d)
+                                        for d in range(len(shards))], abort)
+        if self._group is not None and self._group.barrier.broken:
+            self._group.barrier.reset()
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat([o[i].to(self.device) for o in outs])
+                         for i in range(len(outs[0])))
+        return torch.cat([o.to(self.device) for o in outs])
+
     # ------------------------------------------------------------------
     def train_step(self, state: TrainState, x, y) -> tuple[TrainState, float, np.ndarray]:
-        """One update on the batch ``x`` (inputs), ``y`` (labels); returns
-        (state, loss, logits as numpy)."""
+        """One update on the batch ``x`` (inputs), ``y`` (labels), this
+        process's rows; returns (state, loss, logits as numpy: the global
+        batch's)."""
         model = state.model
         model.train()
-        self.generator.manual_seed(int(self.cfg.seed) * 1_000_003 + state.step)
+        self._seed(state.step)
         xt = self._tensor(x, torch.float32 if np.asarray(x).dtype.kind == "f" else None)
         yt = self._tensor(y)
         mixup_alpha = self.cfg.mixup_alpha if self.cfg.augmentation else 0.0
         state.optimizer.zero_grad()
+        gather = distributed.gather_rows
         with self._autocast():
             if mixup_alpha > 0:
                 mixed, perm, lam = loss_lib.mixup_batch(self.generator, xt, mixup_alpha)
-                logits = model(mixed)
-                loss = lam * self.loss_fn(logits, yt) + (1 - lam) * self.loss_fn(logits, yt[perm])
+                logits = gather(self._forward(model, mixed))
+                yg, ypg = gather(yt), gather(yt[perm])
+                loss = lam * self.loss_fn(logits, yg) + (1 - lam) * self.loss_fn(logits, ypg)
             else:
-                logits = model(xt)
-                loss = self.loss_fn(logits, yt)
+                logits = gather(self._forward(model, xt))
+                loss = self.loss_fn(logits, gather(yt))
         loss.backward()
+        self._reduce_grads()
+        if distributed.is_multiprocess():
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            flat = distributed.all_reduce_sum(torch.cat([g.flatten() for g in grads]))
+            for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
         state.optimizer.step()
-        layers.drop_caches(model)
+        self._stale = len(self.replicas) > 1
+        for rep in self.replicas:
+            layers.drop_caches(rep)
         state.step += 1
         return state, float(loss.detach()), logits.detach().float().cpu().numpy()
 
@@ -203,14 +373,17 @@ class Trainer:
         model.eval()
         xt = self._tensor(x, torch.float32 if np.asarray(x).dtype.kind == "f" else None)
         with self._autocast():
-            return model(xt, **kw)
+            return self._forward(model, xt, **kw)
 
     def eval_step(self, state: TrainState, x, y=None):
-        """Eval forward: logits (numpy), and with labels also the loss."""
+        """Eval forward: logits (numpy, this process's rows), and with labels
+        also the loss (the global batch's)."""
         logits = self._logits(state.model, x)
         if y is None:
             return logits.float().cpu().numpy()
-        loss = float(self.loss_fn(logits, self._tensor(y)))
+        with torch.no_grad():
+            loss = float(self.loss_fn(distributed.gather_rows(logits),
+                                      distributed.gather_rows(self._tensor(y))))
         return logits.float().cpu().numpy(), loss
 
     # ------------------------------------------------------------------
@@ -360,6 +533,7 @@ class Trainer:
         payload = torch.load(path, map_location=self.device, weights_only=True)
         state.model.load_state_dict(payload["model"], strict=True)
         layers.drop_caches(state.model)
+        self._stale = len(self.replicas) > 1
         if state.optimizer is not None and payload["optimizer"] is not None:
             state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])

@@ -104,7 +104,25 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    one V3 train step at full width, batch 2, f32, dropout off, on the card
    against the same step on the CPU. The kernels line gives the K1 and K2
    launches of each training path (``launches_by_training_path``).
-   ``--phase training`` runs phases 1, 2 and 12 alone (no kernels line).
+   ``--phase training`` runs phases 1, 2 and 12 alone (no kernels line);
+13. the parallel paths and the rest of the port's modules, on meshes that
+   name the one card 2 or 4 times (one process: NCCL refuses two ranks on one
+   GPU, and gloo takes CUDA tensors only for all-reduce and broadcast):
+   ``parity`` at ``--data_parallel 2`` (K1 at a replica's ``[16, 64, 4]``,
+   every distinct K1 and K2 call held, outputs against N = 1); one V3 train
+   step at full width (batch 24, REMAT, dropout off) plain, at data 2 x model
+   2 and at pipe 2 with 2 microbatches, in f32 and in bf16, each against the
+   plain step (K2 8, 32 and 16 launches; K2 at the tensor-parallel shard
+   ``[12, 8, 199, 64]``), and once more on inputs nudged by one f32 ulp (the
+   gradient's own conditioning); ``cli.convert_verify --calib_video
+   --golden`` on the release written in phase 7, then ``int8 --fused`` built
+   from it with its sidecars adopted (K3 / K4 int8 held); ``launch_sim
+   --processes 2`` on the host (gloo); the Keras LSTM converter where h5py is
+   installed (else a line says why it did not run). The kernels line gives
+   ``launches_by_parallel_path``, and entries ``nms_mask_dp`` and
+   ``mha_tc_tp`` for the new shapes. ``--phase parallel`` runs phases 1, 2,
+   one ``parity`` run, the release files and phase 13 alone (no kernels
+   line).
 
 Prints a JSON line of kernel results, then, last, one JSON object with the
 device. Imports nothing of JAX and nothing of the JAX package.
@@ -140,7 +158,7 @@ from avcer_tpu_torch import _build  # noqa: E402
 from avcer_tpu_torch.cli import run as cli  # noqa: E402
 from avcer_tpu_torch.core import checkpoint  # noqa: E402
 from avcer_tpu_torch.core.config import (AudioConfig, DetectorConfig,  # noqa: E402
-                                         PipelineConfig, VisualConfig)
+                                         MeshConfig, PipelineConfig, VisualConfig)
 from avcer_tpu_torch.models import layers  # noqa: E402
 from avcer_tpu_torch.models import retinaface as retinaface_module  # noqa: E402
 from avcer_tpu_torch.models import wav2vec2 as wav2vec2_module  # noqa: E402
@@ -1272,10 +1290,11 @@ def make_clip() -> tuple[np.ndarray, np.ndarray]:
 
 
 def build(card: str, fused: bool, int8: bool = False, cfg: PipelineConfig | None = None,
-          label: str = ""):
+          label: str = "", mesh_devices: list | None = None):
     t0 = time.perf_counter()
     int8 = int8 if cfg is None else cfg.visual.quant == "int8"
-    pipe = build_pipeline(cfg or smoke_config("bfloat16", fused, int8), device=DEVICE, seed=0)
+    pipe = build_pipeline(cfg or smoke_config("bfloat16", fused, int8), device=DEVICE, seed=0,
+                          mesh_devices=mesh_devices)
     pipe.detect = ForceTopFace(pipe.detect, HEIGHT, WIDTH)
     run = pipe.run
 
@@ -2670,15 +2689,415 @@ def phase_training(card: str) -> dict:
             "nms_mask": {"evaluate_bucket_recall (2 buckets x 8 scenes)": detector["launches"]}}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the parallel paths, convert_verify and its sidecar, launch_sim,
+# the Keras converter
+# ---------------------------------------------------------------------------
+
+#: the parallel paths' kernel shapes: a replica's detect batch at data 2, and
+#: a frozen encoder layer's tensor-parallel shard of heads at data 2 x model 2
+#: (V3 batch 24: 12 rows a replica, 16 / 2 heads)
+NMS_DP_SHAPE = (DETECT_BATCH // 2, 64)
+ATTN_TP_SHAPE = (12, 8, 199, 64)
+TRAIN_BATCH = 24
+#: a parallel train step against the plain one on the card: the bf16 loss
+#: (relative), and the f32 gradient (relative L2; see parallel_train_steps)
+STEP_LOSS_RTOL, STEP_GRAD_F32 = 5e-3, 2e-2
+#: the data-parallel clip against the same pipeline at N = 1 (bf16): the CNN's
+#: 256 crops run as 2 x 128, which cuDNN may sum in another order
+DP_PROB_ATOL = 5e-2
+
+
+def parallel_kernel_entries(card: str) -> list[dict]:
+    """K1 at a replica's ``[16, 64, 4]`` and K2 (bf16, the tensor-core
+    kernel) at the tensor-parallel shard ``[12, 8, 199, 64]``, each against
+    its plain version, timed beside it and the library call, with the bound
+    of these inputs."""
+    dev = torch.device("cuda")
+    boxes, valid = nms_case(7, *NMS_DP_SHAPE)
+    bt, vt = torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev)
+    keep = nms_kernel.nms_mask(bt, vt, 0.4)
+    if not torch.equal(keep, nms_kernel.nms_mask_plain(bt, vt, 0.4)):
+        raise AssertionError(f"nms kernel: keep masks differ at {list(bt.shape)}")
+    nms = nms_numbers(bt, vt, keep)
+    log(f"kernel nms_mask (a replica's detect batch at data 2) {nms['shape']}: keep masks equal; "
+        f"{nms['ms']:.4f} ms a call (median of 50), device time {ms_text(nms['device_ms'])}, vs "
+        f"plain {nms['plain_ms']:.4f} ms, bound {nms['bound_ms']:.6f} ms ({nms['bound_by']}), no "
+        f"library call, on {card}")
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.normal(size=ATTN_TP_SHAPE).astype(np.float32)).to(dev)
+               .bfloat16() for _ in range(3))
+    mha, plain = attention_kernel.mha, attention_kernel.mha_plain
+    ran = mha_kernels_of(lambda: mha(q, k, v))
+    got = mha(q, k, v).float()
+    want = plain(q.float(), k.float(), v.float())
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=4e-3)
+    if ran != {"tc": 1}:
+        raise AssertionError(f"mha routed the bf16 shard to {ran}")
+    ms = median_ms(lambda: mha(q, k, v))
+    lib_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    plain_ms = median_ms(lambda: plain(q, k, v))
+    dev_ms = device_ms(lambda: mha(q, k, v))
+    b, h, t, d = ATTN_TP_SHAPE
+    bound, by = bound_ms(4 * tensor_bytes(q), 4.0 * b * h * t * t * d, "bf16")
+    log(f"kernel mha_tc (a tensor-parallel shard of heads) {list(ATTN_TP_SHAPE)} bf16: max abs "
+        f"err {err:.3g} vs f32 plain (atol 1e-5, rtol 4e-3); {ms:.4f} ms vs plain {plain_ms:.4f} "
+        f"ms, scaled_dot_product_attention {lib_ms:.4f} ms (a call, median of 50); device time "
+        f"{ms_text(dev_ms)}; bound {bound:.4f} ms ({by}) on {card}")
+    return [
+        entry("nms_mask_dp", "nms.cu", "avcer_tpu/ops/pallas/nms_kernel.py:62", max_abs_err=0.0,
+              library_ms=None, held_as=["nms_mask", nms["shape"]], **nms),
+        entry("mha_tc_tp", "attention.cu", "avcer_tpu/ops/pallas/attention_kernel.py:40",
+              max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+              library_ms=lib_ms, shape=list(ATTN_TP_SHAPE), dtype="bf16", device_ms=dev_ms,
+              held_as=["mha_tc", list(ATTN_TP_SHAPE)]),
+    ]
+
+
+def held_run(label: str, fn):
+    """``fn()`` with every distinct kernel call it makes held against the
+    kernel's plain version (a fresh record: calls the earlier phases held are
+    held again), its launches counted from 0; returns (result, launches,
+    wall s, the held calls)."""
+    seen: dict = {}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with holding_new_calls(seen):
+        out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    HELD.update(seen)
+    log(f"{label}: {wall:.2f} s, launches {launches}, {len(seen)} distinct kernel calls held: "
+        + ", ".join(sorted({name for name, _ in seen.values()})))
+    return out, launches, wall, seen
+
+
+def dp_serving(card: str, frames: np.ndarray, wav: np.ndarray, ref_clip) -> dict:
+    """``parity`` over a data-parallel mesh of 2 (the card named twice:
+    NCCL refuses two ranks on one GPU, and gloo takes CUDA tensors only for
+    all-reduce and broadcast, so the smoke runs one process over a mesh that
+    names the card twice): a warm-up run with every distinct K1 and K2 call
+    held, then a timed run with its launches counted, against the same
+    pipeline at N = 1 (``ref_clip``): compound decisions (95 % required), the
+    static probabilities and dynamic logits within ``DP_PROB_ATOL``, the
+    audio logits equal (the audio stage does not shard)."""
+    cfg = dataclasses.replace(smoke_config("bfloat16"), mesh=MeshConfig(data=2))
+    pipe = build(card, False, cfg=cfg, label="parity, data parallel 2 (the card twice)",
+                 mesh_devices=[DEVICE] * 2)
+    if len(pipe.detect.inner.replicas) != 2 or pipe.detect.inner.model.fused_ssh:
+        raise AssertionError("data-parallel build: expected 2 detect replicas, fused off")
+    held_run("parity data parallel 2, warm-up run",
+             lambda: pipe.run(ArrayReader(frames, FPS, "smoke.avi"), "", wav=wav))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clip = pipe.run(ArrayReader(frames, FPS, "smoke.avi"), "", wav=wav)
+    torch.cuda.synchronize()
+    wall, launches = time.perf_counter() - t0, counts()
+    agreement(clip, ref_clip, "parity data parallel 2 vs N = 1", 0.95)
+    diffs = {key: float(np.abs(getattr(clip, key) - getattr(ref_clip, key)).max())
+             for key in ("stat_probs", "dyn_logits", "audio_window_logits")}
+    batches = -(-frames.shape[0] // DETECT_BATCH)
+    check("parity data parallel 2", {
+        f"K1 launches 2 a detect batch ({2 * batches})": launches["nms_mask"] == 2 * batches,
+        "K2 launches > 0, all in the tensor-core kernel":
+            launches["mha"] > 0 and launches["mha_tc"] == launches["mha"],
+        f"static probabilities within {DP_PROB_ATOL}": diffs["stat_probs"] <= DP_PROB_ATOL,
+        f"dynamic logits within {DP_PROB_ATOL} x their largest magnitude":
+            diffs["dyn_logits"] <= DP_PROB_ATOL * max(1.0, float(np.abs(ref_clip.dyn_logits).max())),
+        "audio logits equal": diffs["audio_window_logits"] == 0.0,
+    })
+    log(f"parity data parallel 2 vs N = 1: largest differences {diffs}; wall {wall:.3f} s "
+        f"({CLIP_SECONDS / wall:.3f} video-sec/sec) on {card}")
+    del pipe
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall_s": wall, "diffs": diffs}
+
+
+def grad_rel_l2(got: dict, want: dict) -> float:
+    """|got - want| / |want| over every trainable gradient as one vector."""
+    num = sum(float(((got[n].double() - want[n].double()) ** 2).sum()) for n in want)
+    den = sum(float((want[n].double() ** 2).sum()) for n in want)
+    return (num / den) ** 0.5
+
+
+def parallel_train_steps(card: str) -> dict:
+    """One V3 train step at full width (wav2vec2-large, 12 layers, the last 4
+    trained, batch 24 of 4 s, REMAT, dropout off, no mixup) plain, at data 2
+    x model 2 and at pipe 2 (2 microbatches) over the card named 4 and 2
+    times, all from the same seeded weights, in f32 and in bf16 under
+    autocast. The seeded model's gradient is ill-conditioned: nudging every
+    input sample by one f32 ulp moves it by ``cond32`` (relative L2, measured
+    here with one more plain f32 step), and a sharded step changes the
+    card's kernels (batch sizes, split products), so its f32 gradient is held
+    within ``STEP_GRAD_F32`` of the plain step's (a shard's gradient lost or
+    counted twice moves it by tens of percent), its loss within rtol 1e-5.
+    bf16: the loss within rtol 5e-3, the gradient within 1.5 times the
+    distance ``noise16`` of the plain bf16 step from the plain f32 one. The
+    CPU tests hold the same steps to 5e-4 of the plain step and of the JAX
+    trainer's. K2's launches per path (a frozen layer's attention a data
+    row, model shard and microbatch: 8, 32, 16), in f32 on the exact kernel,
+    in bf16 on the tensor-core kernel; every distinct call held."""
+    from avcer_tpu_torch.core.config import TrainConfig
+    from avcer_tpu_torch.models.audio_heads import ExprModel
+    from avcer_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+    from avcer_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(5)
+    x = (rng.normal(size=(TRAIN_BATCH, 4 * TRAIN_SR)) * 0.5).astype(np.float32)
+    y = rng.integers(0, 8, TRAIN_BATCH)
+    up = rng.random(x.shape) < 0.5
+    nudged = np.where(up, np.nextafter(x, np.inf), np.nextafter(x, -np.inf)).astype(np.float32)
+    seeded = ExprModel("v3", 8, Wav2Vec2Config(remat=True))
+    layers.seeded_init_(seeded, torch.Generator().manual_seed(0))
+    start = seeded.state_dict()
+    del seeded
+    paths = {"plain": (MeshConfig(), None, 8),
+             "data 2 x model 2": (MeshConfig(data=2, model=2), [DEVICE] * 4, 8 * 2 * 2),
+             "pipe 2, 2 microbatches": (MeshConfig(pipe=2, pipe_microbatches=2), [DEVICE] * 2,
+                                        8 * 2)}
+    runs = [(dtype, kernel, name, spec, x) for dtype, kernel in
+            (("float32", "mha_exact"), ("bfloat16", "mha_tc")) for name, spec in paths.items()]
+    runs.append(("float32", "mha_exact", "plain, inputs nudged by one ulp", paths["plain"],
+                 nudged))
+    out: dict = {}
+    for dtype, kernel, name, (mesh, devices, want_k2), inputs in runs:
+        cfg = TrainConfig(batch_size=TRAIN_BATCH, augmentation=False, mesh=mesh,
+                          log_root=os.path.join(ROOT, "build", "smoke_parallel", "logs"))
+        trainer = Trainer(ExprModel("v3", 8, Wav2Vec2Config(remat=True)), cfg,
+                          iters_per_epoch=3, device=DEVICE, devices=devices, dtype=dtype)
+        state = trainer.init_state(params=start)
+        for rep in trainer.replicas:
+            layers.set_dropout(rep, p=0.0)
+        torch.cuda.reset_peak_memory_stats()
+        (state, loss, _), launches, wall, _ = held_run(
+            f"V3 train step, {name}, {dtype}", lambda: trainer.train_step(state, inputs, y))
+        out[dtype, name] = {"loss": loss, "s": wall, "launches": launches[kernel],
+                            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                            "grad": {n: p.grad.detach().float().cpu() for n, p in
+                                     state.model.named_parameters() if p.requires_grad}}
+        check(f"V3 train step, {name}, {dtype}", {
+            f"K2 launches {want_k2}, all in {kernel}":
+                launches["mha"] == want_k2 == launches[kernel]})
+        del trainer, state
+        torch.cuda.empty_cache()
+    cond32 = grad_rel_l2(out["float32", "plain, inputs nudged by one ulp"]["grad"],
+                         out["float32", "plain"]["grad"])
+    noise16 = grad_rel_l2(out["bfloat16", "plain"]["grad"], out["float32", "plain"]["grad"])
+    log(f"V3 train step, the plain gradient's own spread (relative L2): inputs nudged by one "
+        f"f32 ulp {cond32:.3g}; bf16 against f32 {noise16:.3g}")
+    summary = {"f32_one_ulp_input_grad_rel_l2": cond32, "bf16_vs_f32_grad_rel_l2": noise16}
+    for (dtype, name), side in out.items():
+        ref = out[dtype, "plain"]
+        grad_rel = grad_rel_l2(side["grad"], ref["grad"])
+        loss_rel = abs(side["loss"] - ref["loss"]) / abs(ref["loss"])
+        summary[f"{name}, {dtype}"] = {"loss": side["loss"], "loss_rel": loss_rel,
+                                       "grad_rel_l2": grad_rel, "step_s": side["s"],
+                                       "peak_gib": side["peak_gib"], "k2": side["launches"]}
+        log(f"V3 train step {name}, {dtype}: loss {side['loss']:.6f} (relative to plain "
+            f"{loss_rel:.3g}), trainable gradient relative L2 to plain {grad_rel:.3g}, step "
+            f"{side['s']:.2f} s (first step of its trainer), peak {side['peak_gib']:.2f} GiB, "
+            f"K2 launches {side['launches']} on {card}")
+        if name.startswith("plain"):
+            continue
+        if dtype == "float32":
+            checks = {"loss within rtol 1e-5": loss_rel <= 1e-5,
+                      f"gradient within {STEP_GRAD_F32} relative L2": grad_rel <= STEP_GRAD_F32}
+        else:
+            checks = {f"loss within rtol {STEP_LOSS_RTOL}": loss_rel <= STEP_LOSS_RTOL,
+                      f"gradient within 1.5 x {noise16:.3g} relative L2":
+                          grad_rel <= 1.5 * noise16}
+        check(f"V3 train step {name}, {dtype}, against plain", checks)
+    return summary
+
+
+def convert_verify_and_sidecar(card: str, frames: np.ndarray, wav: np.ndarray,
+                               release_dir: str) -> dict:
+    """``python -m avcer_tpu_torch.cli.convert_verify --weights_dir W
+    --calib_video clip --golden`` on the release written from the seeded
+    models (exit 0; every family present ``ok``, the sidecars written, the
+    golden artifacts), every distinct kernel call held; then ``int8
+    --fused`` built from W: the sidecars adopted at build (no calibration
+    forward left for the clip), and a run with every distinct K3 and K4 int8
+    call held."""
+    from avcer_tpu_torch.cli import convert_verify
+
+    clip_dir = os.path.join(ROOT, "build", "smoke_parallel")
+    os.makedirs(clip_dir, exist_ok=True)
+    video = os.path.join(clip_dir, "calib.avi")
+    write_video(video, frames[:4 * FPS])
+    write_wav(os.path.join(clip_dir, "calib.wav"), wav[:4 * 16000], 16000)
+    shutil.rmtree(os.path.join(release_dir, "torch"), ignore_errors=True)
+    (rc, stdout, wall), cv_launches, _, _ = held_run(
+        "cli.convert_verify --calib_video --golden",
+        lambda: run_cli(convert_verify.main, ["--weights_dir", release_dir, "--calib_video",
+                                              video, "--golden"]))
+    report = json.loads(stdout.strip().splitlines()[-1])
+    present = [f for f in convert_verify.FAMILIES if report[f]["status"] != "missing"]
+    check("cli.convert_verify", {
+        "exit code 0": rc == 0,
+        "four families present, each ok": len(present) == 4 and all(
+            report[f]["status"] == "ok" for f in present),
+        "three sidecars written": sorted(report["calibration"]["persisted"]) == sorted(
+            ["retinaface", "emotion_resnet50", "expr_model_8cl"]),
+        "golden run ok with the reference's artifacts": report["golden"]["status"] == "ok"
+            and any(a.startswith("static__") for a in report["golden"]["artifacts"]),
+        "K1 and K2 launched": cv_launches["nms_mask"] > 0 and cv_launches["mha"] > 0,
+    })
+    log(f"cli.convert_verify: {wall:.2f} s; report {json.dumps(report)[:2000]}")
+
+    cfg = dataclasses.replace(preset_config("int8", fused=True), weights_dir=release_dir)
+    pipe = build(card, True, cfg=cfg, label="int8 --fused from the release and its sidecars")
+    adopted = {"detect": pipe.detect.inner._real_calibrated,
+               "visual": pipe.visual._real_calibrated, "audio": pipe.audio._real_calibrated}
+    side = checkpoint.load_act_scales(release_dir, "emotion_resnet50")
+    now = layers.act_scales(pipe.visual.static_model)
+    grown = all(float(now[k]) >= float(side[k]) for k in side)
+    before = calibration_forwards(pipe)
+    clip, int8_launches, _, seen = held_run(
+        "int8 --fused from the sidecars, warm-up run",
+        lambda: pipe.run(ArrayReader(frames, FPS, "smoke.avi"), "", wav=wav))
+    held = {name for name, _ in seen.values()}
+    check("int8 --fused from the sidecars", {
+        "sidecars adopted at build by all three stages": all(adopted.values()),
+        "CNN scales at least the sidecar's": grown,
+        "no calibration forward in the run": calibration_forwards(pipe) == before,
+        "K3 and K4 int8 held": {"fused_chain_int8", "fused_ssh_heads_int8"} <= held,
+        "finite outputs": bool(np.isfinite(clip.stat_probs).all()),
+    })
+    del pipe
+    torch.cuda.empty_cache()
+    return {"convert_verify": cv_launches, "int8_launches": int8_launches}
+
+
+def launch_sim_run() -> dict:
+    """``python -m avcer_tpu_torch.parallel.launch_sim --processes 2`` on the
+    host's CPU over gloo, as the JAX module runs on virtual CPU devices."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "avcer_tpu_torch.parallel.launch_sim",
+                           "--processes", "2"], capture_output=True, text=True, timeout=300,
+                          cwd=ROOT)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"launch_sim exited {proc.returncode}: {proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"launch_sim --processes 2 (gloo, CPU): {summary} in {wall:.2f} s")
+    check("launch_sim", {"ok, the processes' losses agree": summary["ok"]})
+    return summary
+
+
+def keras_phase(card: str) -> None:
+    """The Keras LSTM converter on an ``.h5`` written from a seeded
+    ``TemporalLSTM`` in the Keras layout, the converted model on the card
+    against the original (atol 1e-4, rtol 1e-3). Runs only where h5py is
+    installed; it is a host-side reader, held on the CPU by the tests."""
+    import importlib.util
+
+    if importlib.util.find_spec("h5py") is None:
+        log("Keras phase not run: h5py is not installed on this machine (the converter is "
+            "host numpy, held against the JAX package's by tests/test_torch_convert_verify.py)")
+        return
+    import h5py
+
+    from avcer_tpu_torch.core.convert_keras import convert_keras_lstm
+    from avcer_tpu_torch.models.temporal_lstm import TemporalLSTM
+
+    src = TemporalLSTM(7)
+    layers.seeded_init_(src, torch.Generator().manual_seed(4))
+    path = os.path.join(ROOT, "build", "smoke_parallel", "lstm.h5")
+    with h5py.File(path, "w") as f:
+        names = []
+        for i, lname in enumerate(["lstm", "lstm_1"]):
+            m = getattr(src, f"lstm{i + 1}")
+            g = f.create_group(lname)
+            wn = [f"{lname}/lstm_cell/{w}:0" for w in ("kernel", "recurrent_kernel", "bias")]
+            g.attrs["weight_names"] = [n.encode() for n in wn]
+            g.create_dataset(wn[0], data=m.weight_ih_l0.detach().numpy().T)
+            g.create_dataset(wn[1], data=m.weight_hh_l0.detach().numpy().T)
+            g.create_dataset(wn[2], data=(m.bias_ih_l0 + m.bias_hh_l0).detach().numpy())
+            names.append(lname.encode())
+        g = f.create_group("dense")
+        g.attrs["weight_names"] = [b"dense/kernel:0", b"dense/bias:0"]
+        g.create_dataset("dense/kernel:0", data=src.fc.weight.detach().numpy().T)
+        g.create_dataset("dense/bias:0", data=src.fc.bias.detach().numpy())
+        f.attrs["layer_names"] = names + [b"dense"]
+    model = TemporalLSTM(7)
+    model.load_state_dict(convert_keras_lstm(path), strict=True)
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(8, 10, 512)).astype(np.float32))
+    with torch.no_grad():
+        got = model.to(DEVICE).eval()(x.to(DEVICE)).cpu()
+        want = src.eval()(x)
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+    log(f"Keras LSTM .h5 -> TemporalLSTM on {card}: max abs err {err:.3g} against the source "
+        "model on the CPU (atol 1e-4, rtol 1e-3)")
+
+
+def phase_parallel(card: str, frames: np.ndarray, wav: np.ndarray, ref_clip,
+                   release_dir: str) -> dict:
+    """Phase 13 (see the module docstring). Returns the launches of each
+    parallel path by kernel entry."""
+    t0 = time.perf_counter()
+    serving = dp_serving(card, frames, wav, ref_clip)
+    t1 = time.perf_counter()
+    steps = parallel_train_steps(card)
+    t2 = time.perf_counter()
+    cv = convert_verify_and_sidecar(card, frames, wav, release_dir)
+    t3 = time.perf_counter()
+    sim = launch_sim_run()
+    keras_phase(card)
+    t4 = time.perf_counter()
+    log(f"phase 13: data-parallel serving {t1 - t0:.2f} s, parallel train steps {t2 - t1:.2f} s, "
+        f"convert_verify and int8 from its sidecars {t3 - t2:.2f} s, launch_sim and Keras "
+        f"{t4 - t3:.2f} s")
+    log("parallel summary: " + json.dumps({"serving": {k: serving[k] for k in ("wall_s", "diffs")},
+                                           "train_steps": steps, "launch_sim": sim}))
+    by_path = {
+        "nms_mask": {"parity --data_parallel 2 (a run)": serving["launches"]["nms_mask"],
+                     "convert_verify --calib_video --golden": cv["convert_verify"]["nms_mask"]},
+        "mha_tc": {"parity --data_parallel 2 (a run)": serving["launches"]["mha_tc"],
+                   "convert_verify --calib_video --golden": cv["convert_verify"]["mha_tc"],
+                   **{f"V3 train step, {k}": v["k2"] for k, v in steps.items()
+                      if k.endswith("bfloat16")}},
+        "mha_exact": {f"V3 train step, {k}": v["k2"] for k, v in steps.items()
+                      if k.endswith("float32")},
+        "fused_chain_int8": {"int8 --fused from the sidecars (a run)":
+                             cv["int8_launches"]["fused_chain"]},
+        "fused_ssh_heads_int8": {"int8 --fused from the sidecars (a run)":
+                                 cv["int8_launches"]["fused_ssh_heads"]},
+    }
+    by_path["nms_mask_dp"] = {"parity --data_parallel 2 (a run)":
+                              serving["launches"]["nms_mask"]}
+    by_path["mha_tc_tp"] = {"V3 train step, data 2 x model 2, bf16":
+                            steps["data 2 x model 2, bfloat16"]["k2"]}
+    if min(v for d in by_path.values() for v in d.values()) <= 0:
+        raise AssertionError(f"parallel paths without their kernels: {by_path}")
+    return by_path
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
     if sys.argv[1:] == ["--phase", "training"]:
         phase_training(card)
         return 0
+    if sys.argv[1:] == ["--phase", "parallel"]:
+        frames, wav = make_clip()
+        pipe = build(card, False)
+        clip, _ = phase_main(card, pipe, False, frames, wav, timed_runs=1)
+        release = os.path.join(ROOT, "build", "smoke_release")
+        write_release(build_pipeline(smoke_config("float32"), device="cpu", seed=0), release)
+        del pipe
+        torch.cuda.empty_cache()
+        parallel_kernel_entries(card)
+        phase_parallel(card, frames, wav, clip, release)
+        return 0
     pipe, fused_pipe = build(card, False), build(card, True)
     int8_pipe, int8_fused_pipe = build(card, False, True), build(card, True, True)
-    kernels = phase_kernels(card, fused_pipe, int8_fused_pipe)
+    kernels = phase_kernels(card, fused_pipe, int8_fused_pipe) + parallel_kernel_entries(card)
     mobilenet_kernels = phase_kernels_mobilenet(card)
     int8_modules(card)
     frames, wav = make_clip()
@@ -2692,7 +3111,7 @@ def main() -> int:
     for k in kernels:
         if k["name"].endswith("_int8"):  # the same wrapper, counted in the int8 fused run
             k["launches"] = int8_launches[k["name"][:-len("_int8")]]
-        else:
+        elif k["name"] in launches:
             k["launches"] = launches[k["name"]]
     agreement(fused_clip, clip, "fused vs unfused", 0.95)
     agreement(int8_fused_clip, int8_clip, "int8 fused vs int8 unfused", 0.80)
@@ -2742,8 +3161,20 @@ def main() -> int:
             k["launches_by_training_path"] = training[k["name"]]
     if min(training["mha_tc"].values()) <= 0 or min(training["nms_mask"].values()) <= 0:
         raise AssertionError(f"training paths without their kernels: {training}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    parallel = phase_parallel(card, frames, wav, clip, os.path.join(ROOT, "build",
+                                                                     "smoke_release"))
+    log(f"parallel phase: {time.perf_counter() - t0:.2f} s")
+    for k in kernels:
+        if k["name"] in parallel:
+            k["launches_by_parallel_path"] = parallel[k["name"]]
+        if k["name"] in ("nms_mask_dp", "mha_tc_tp"):  # their only paths are the parallel ones
+            k["launches"] = sum(parallel[k["name"]].values())
     for k in kernels + mobilenet_kernels:
-        errs = [err for name, err in HELD.values() if name == k["name"]]
+        name, shape = k.get("held_as", (k["name"], None))
+        errs = [err for key, (held, err) in HELD.items() if held == name
+                and (shape is None or list(key[1][0][0]) == list(shape))]
         k["path_calls_held"] = len(errs)
         k["path_max_abs_err"] = max(errs, default=None)
         if k["launches"] and not errs:

@@ -763,3 +763,66 @@ def test_autocast_bf16_train_step_on_card(cuda_device):
     attn = state.model.wav2vec2.encoder.layers[1].attention
     for proj in (attn.q_proj, attn.k_proj, attn.v_proj):
         assert float(proj.weight.grad.norm()) > 0 and proj.weight.dtype == torch.float32
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_nms_kernel_data_parallel_replica_shape(cuda_device, seed):
+    """K1 at a replica's share of the r50 detect batch under
+    ``--data_parallel 2``: ``[16, 64, 4]``, keep masks equal to the plain
+    version's."""
+    boxes, valid = nms_case(seed, 16, 64)
+    bt = torch.from_numpy(boxes).to(cuda_device)
+    vt = torch.from_numpy(valid).to(cuda_device)
+    before = nms_kernel.nms_mask.launches
+    got = nms_kernel.nms_mask(bt, vt, 0.4)
+    torch.cuda.synchronize()
+    assert nms_kernel.nms_mask.launches == before + 1
+    assert torch.equal(got, nms_kernel.nms_mask_plain(bt, vt, 0.4))
+
+
+def test_attention_kernel_tensor_parallel_shard(cuda_device):
+    """K2 in bf16 at a frozen encoder layer's shard of heads under data 2 x
+    model 2 (V3, batch 24: 12 rows, 16 / 2 heads): ``[12, 8, 199, 64]`` on
+    the tensor-core kernel, within the bf16 bound of
+    ``test_attention_kernel_bf16``."""
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.normal(size=(12, 8, 199, 64)).astype(np.float32))
+               .to(cuda_device, torch.bfloat16) for _ in range(3))
+    before = dict(attention_kernel.mha.launches_by_kernel)
+    got = attention_kernel.mha(q, k, v)
+    torch.cuda.synchronize()
+    assert attention_kernel.mha.launches_by_kernel["tc"] == before["tc"] + 1
+    want = attention_kernel.mha_plain(q.float(), k.float(), v.float())
+    torch.testing.assert_close(got.float(), want, atol=1e-5, rtol=4e-3)
+
+
+def test_detect_stage_data_parallel_on_the_card(cuda_device):
+    """The detect stage over a mesh that names the card twice against the
+    same stage unsharded: K1 launched once a replica, keep masks equal,
+    scores within 1e-4, boxes within 5e-2 and 1e-5 relative (f32 weights;
+    the seeded detector decodes boxes far outside the frame, and the two
+    batch sizes may take different cuDNN algorithms)."""
+    from avcer_tpu_torch.core.config import DetectorConfig
+    from avcer_tpu_torch.models import layers
+    from avcer_tpu_torch.models.retinaface import RetinaFace
+    from avcer_tpu_torch.parallel.mesh import make_mesh
+    from avcer_tpu_torch.pipeline.detect import DetectStage
+
+    model = RetinaFace()
+    layers.seeded_init_(model, torch.Generator().manual_seed(0))
+    model = model.eval().to(cuda_device)
+    cfg = DetectorConfig(long_side=64, batch_size=8, transfer_format="bgr", dtype="float32")
+    frames = np.random.default_rng(0).integers(0, 255, (8, 48, 64, 3), dtype=np.uint8)
+    mesh = make_mesh(2, 1, [cuda_device] * 2)
+    sharded, plain = (DetectStage(cfg, model, device=cuda_device, mesh=mesh),
+                      DetectStage(cfg, model, device=cuda_device))
+    before = nms_kernel.nms_mask.launches
+    packed, scale, _ = sharded.dispatch(frames)
+    torch.cuda.synchronize()
+    assert nms_kernel.nms_mask.launches == before + 2
+    got = sharded.unpack(packed.cpu().numpy(), scale)
+    packed, scale, _ = plain.dispatch(frames)
+    want = plain.unpack(packed.cpu().numpy(), scale)
+    np.testing.assert_array_equal(got.keep, want.keep)
+    np.testing.assert_allclose(got.scores, want.scores, atol=1e-4)
+    np.testing.assert_allclose(got.boxes, want.boxes, atol=5e-2, rtol=1e-5)

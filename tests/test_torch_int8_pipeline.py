@@ -386,8 +386,11 @@ def test_builder_int8_models_and_refusals(tmp_path):
         assert built._new_tracker().gap_frames == c.detector.stride
     # the heatmaps and the host-crop path are served (tests/test_torch_cli_surface.py)
     check_supported(dataclasses.replace(cfg, heatmaps="static", save_face_crops=True))
+    # a mesh of 2 is served since the parallelism slice: on the one CPU it
+    # raises the mesh error
     for bad in (dict(heatmaps="bogus"), dict(mesh=dataclasses.replace(cfg.mesh, data=2)),
                 dict(calibrate=True), dict(detector=dataclasses.replace(cfg.detector, stride=3))):
-        with pytest.raises(ValueError, match="not ported|must divide batch_size"):
+        with pytest.raises(ValueError,
+                           match="not ported|must divide batch_size|mesh 2x1 exceeds 1 devices"):
             build_pipeline(dataclasses.replace(cfg, **bad), Wav2Vec2Config(**TINY_W2V2),
                            device="cpu")

@@ -289,7 +289,7 @@ print("IMPORT_GUARD_OK")
 
 
 @pytest.mark.parametrize("argv,names", [
-    pytest.param(["--data_parallel", "2"], "queue 1, parallelism",
+    pytest.param(["--data_parallel", "2"], "mesh 2x1 exceeds 1 devices",
                  id="argv0-queue 1, parallelism"),
     pytest.param(["--serving_profile", "fastest"], "invalid choice", id="argv2-invalid choice"),
     pytest.param(["--calibrate"], '"Not ported"', id='argv7-"Not ported"'),
@@ -297,27 +297,35 @@ print("IMPORT_GUARD_OK")
 ])
 def test_cli_rejects_unported_flags(argv, names, capsys):
     """What the port does not run is refused while the arguments are
-    parsed, before any model is built, by naming the ROADMAP item that ports
-    it (or its "Not ported" list)."""
+    parsed, before any model is built, by naming ROADMAP's "Not ported" list.
+    ``--data_parallel 2`` (ROADMAP queue 1's parallelism, now ported) parses
+    and builds a mesh of two devices: on the one CPU the build raises the
+    JAX package's mesh error, before any model is built."""
     import avcer_tpu_torch.cli.run as cli
 
+    if argv[0] == "--data_parallel":
+        a = cli.parse_args(argv + ["--device", "cpu"])
+        with pytest.raises(ValueError, match=names):
+            build_pipeline(cli.config_from_args(a), device=a.device)
+        return
     with pytest.raises(SystemExit):
         cli.parse_args(argv)
     assert names in capsys.readouterr().err
 
 
 def test_cli_refuses_only_the_unported_by_name(capsys):
-    """All three refusals at once: each flag is named with its place in the
-    ROADMAP in one error."""
+    """Both refusals at once: each flag is named with its place in the
+    ROADMAP in one error; the ported flags (``--data_parallel`` among them)
+    are not named."""
     import avcer_tpu_torch.cli.run as cli
 
     with pytest.raises(SystemExit):
         cli.parse_args(["--data_parallel", "2", "--calibrate", "--compile_cache_dir", "X",
                         "--heatmaps", "dynamic", "--save_face_crops", "--audio_head", "v1"])
     err = capsys.readouterr().err
-    for flag in ("--data_parallel", "--calibrate", "--compile_cache_dir"):
+    for flag in ("--calibrate", "--compile_cache_dir"):
         assert f"{flag} is not ported" in err
-    for flag in ("--heatmaps", "--save_face_crops", "--audio_head"):
+    for flag in ("--data_parallel", "--heatmaps", "--save_face_crops", "--audio_head"):
         assert flag not in err.splitlines()[-1]
 
 

@@ -101,9 +101,11 @@ def test_cli_refusals_that_remain():
     falls back to the CPU."""
     with pytest.raises(ValueError, match="cnn_stride"):
         cli.config_from_args(cli.parse_args(["--cnn_stride", "-5"]))
-    for argv in (["--data_parallel", "2"], ["--calibrate"], ["--serving_profile", "x"]):
+    for argv in (["--calibrate"], ["--serving_profile", "x"]):
         with pytest.raises(SystemExit):
             cli.parse_args(argv)
+    # ported: the mesh of --data_parallel; too few devices raise at build
+    assert cli.config_from_args(cli.parse_args(["--data_parallel", "2"])).mesh.data == 2
     assert cli.config_from_args(cli.parse_args(["--heatmaps", "static"])).heatmaps == "static"
     assert cli.parse_args([]).device == "cuda"
 

@@ -160,9 +160,10 @@ def test_release_state_dict_drops_encoder_layers_past_num_layers(release, caplog
 
 def test_jax_cache_without_file_raises(tmp_path):
     """Only the JAX package's orbax cache of a family: the port cannot read
-    it and refuses by name, instead of serving seeded weights beside it."""
+    it and refuses by name (ROADMAP's "Not ported": the orbax format),
+    instead of serving seeded weights beside it."""
     os.makedirs(tmp_path / "jax" / "temporal_lstm")
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
+    with pytest.raises(NotImplementedError, match='"Not ported": the orbax format'):
         build_pipeline(port_cfg(str(tmp_path)), Wav2Vec2Config(num_layers=W2V2_LAYERS),
                        device="cpu")
 

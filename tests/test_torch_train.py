@@ -658,12 +658,31 @@ def test_fit_writes_exports_stats_checkpoint_and_provenance(tmp_path, rng):
         assert torch.equal(value, ps2.model.state_dict()[name]), name
 
 
-def test_trainer_refuses_a_mesh_and_the_cpu_is_asked_for():
+def test_trainer_refuses_a_mesh_and_the_cpu_is_asked_for(tmp_path):
+    """``MeshConfig(data=2)``: on the one CPU the mesh error (no fallback to
+    fewer devices); over ``["cpu"] * 2`` one train step, finite, whose loss
+    is the plain step's (rtol 1e-6, dropout off); without CUDA the default
+    device raises."""
     from avcer_tpu_torch.core.config import MeshConfig
 
-    with pytest.raises(NotImplementedError, match="queue 1, parallelism"):
+    with pytest.raises(ValueError, match="mesh 2x1 exceeds 1 devices"):
         Trainer(ExprModel("v3", 8, Wav2Vec2Config(**TINY)),
                 TrainConfig(mesh=MeshConfig(data=2)), device="cpu")
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(4, SAMPLES)).astype(np.float32)
+    y = rng.integers(0, 8, 4)
+    losses = []
+    for mesh, devices in ((MeshConfig(), None), (MeshConfig(data=2), ["cpu"] * 2)):
+        tr = Trainer(ExprModel("v3", 8, Wav2Vec2Config(**TINY)),
+                     TrainConfig(mesh=mesh, log_root=str(tmp_path), augmentation=True),
+                     unfreeze_last_n=1, wav2vec2_layers=2, device="cpu", devices=devices)
+        st = tr.init_state()
+        for rep in tr.replicas:
+            layers.set_dropout(rep, p=0.0)
+        st, loss, logits = tr.train_step(st, x, y)
+        assert np.isfinite(logits).all() and logits.shape == (4, 8)
+        losses.append(loss)
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-6)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             Trainer(ExprModel("v3", 8, Wav2Vec2Config(**TINY)), TrainConfig())

@@ -269,9 +269,11 @@ def test_multibox_loss_matches_jax(rng):
 
 
 def test_train_audio_cli_surface(tmp_path, capsys):
-    """The JAX CLI's flags and config template; ``--compile_cache_dir`` and
-    DATA_PARALLEL / MODEL_PARALLEL above 1 refused by name; the card by
-    default, which raises without CUDA rather than train on the CPU."""
+    """The JAX CLI's flags and config template; ``--compile_cache_dir``
+    refused by name; DATA_PARALLEL / MODEL_PARALLEL above 1 taken as the
+    trainer's mesh, which on the one CPU raises the mesh error before any
+    data is read; the card by default, which raises without CUDA rather than
+    train on the CPU."""
     from avcer_tpu.cli import train_audio as jax_cli
     from avcer_tpu_torch.cli import train_audio as cli
 
@@ -285,12 +287,12 @@ def test_train_audio_cli_surface(tmp_path, capsys):
         cli.parse_args(["--config", "c.json", "--compile_cache_dir", "X"])
     assert e.value.code == 2
     assert "Not ported" in capsys.readouterr().err
-    for key in ("DATA_PARALLEL", "MODEL_PARALLEL"):
+    for key, mesh in (("DATA_PARALLEL", "2x1"), ("MODEL_PARALLEL", "1x2")):
         cfg = dict(cli.example_config(), **{key: 2})
         path = tmp_path / f"{key}.json"
         path.write_text(json.dumps(cfg))
-        with pytest.raises(SystemExit, match="queue 1, parallelism"):
-            cli.main(["--config", str(path)])
+        with pytest.raises(ValueError, match=f"mesh {mesh} exceeds 1 devices"):
+            cli.main(["--config", str(path), "--device", "cpu"])
     if not torch.cuda.is_available():
         c = write_corpus(str(tmp_path / "corpus"), np.random.default_rng(0), videos=1,
                          utterances=1)
@@ -309,9 +311,10 @@ def test_train_audio_cli_surface(tmp_path, capsys):
 
 
 def test_train_visual_cli_surface(tmp_path, capsys):
-    """The JAX CLI's flags and defaults; ``--data_parallel`` above 1 refused
-    naming ROADMAP queue 1, parallelism; the folder listing, windowing and
-    crop batches equal the JAX CLI's."""
+    """The JAX CLI's flags and defaults; ``--data_parallel 2`` parsed and
+    taken as the trainer's mesh, which on the one CPU raises the mesh error
+    before any data is read; the folder listing, windowing and crop batches
+    equal the JAX CLI's."""
     import cv2
 
     from avcer_tpu.cli import train_visual as jax_cli
@@ -320,9 +323,9 @@ def test_train_visual_cli_surface(tmp_path, capsys):
     a = cli.parse_args(["--data_root", "d"])
     assert (a.model, a.epochs, a.batch_size, a.lr, a.log_root, a.data_parallel, a.device) == \
         ("static", 10, 64, 1e-4, "logs/visual", 1, "cuda")
-    with pytest.raises(SystemExit) as e:
-        cli.parse_args(["--data_root", "d", "--data_parallel", "2"])
-    assert e.value.code == 2 and "queue 1, parallelism" in capsys.readouterr().err
+    assert cli.parse_args(["--data_root", "d", "--data_parallel", "2"]).data_parallel == 2
+    with pytest.raises(ValueError, match="mesh 2x1 exceeds 1 devices"):
+        cli.main(["--data_root", "d", "--data_parallel", "2", "--device", "cpu"])
     rng = np.random.default_rng(2)
     for cls in (0, 3):
         os.makedirs(tmp_path / "crops" / str(cls))
@@ -343,7 +346,8 @@ def test_train_visual_cli_surface(tmp_path, capsys):
 
 def test_extract_features_cli_surface(tmp_path, capsys):
     """``--checkpoint`` a directory (a JAX orbax checkpoint) is refused by
-    name; ``regroup_by_filename`` equals the JAX CLI's."""
+    name (ROADMAP's "Not ported": the orbax format); ``regroup_by_filename``
+    equals the JAX CLI's."""
     from avcer_tpu.cli import extract_features as jax_cli
     from avcer_tpu.train.data.windowing import Window
     from avcer_tpu_torch.cli import extract_features as cli
@@ -352,7 +356,7 @@ def test_extract_features_cli_surface(tmp_path, capsys):
     assert (a.variant, a.num_classes, a.device) == ("v3", 8, "cuda")
     with pytest.raises(SystemExit) as e:
         cli.parse_args(["--config", "c", "--checkpoint", str(tmp_path), "--out", "o"])
-    assert e.value.code == 2 and "item 10" in capsys.readouterr().err
+    assert e.value.code == 2 and '"Not ported": the orbax format' in capsys.readouterr().err
     rng = np.random.default_rng(5)
     windows = [Window(f"f{i % 2}.txt", i * 2.0, i * 2.0 + 4, i * 50, i * 50 + 100, i % 8)
                for i in range(5)]
