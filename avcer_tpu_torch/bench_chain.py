@@ -18,9 +18,12 @@ time of a call does not depend on their values. Each time is the median of
 written to ``--out``): the card's name and power limit, and per call its
 shape, the plan's work items, cluster size and grid, and what the card
 reports it holds of that launch (clusters at once, blocks an SM), where the
-version has them, and ms. K4's, K5's and K1's calls also carry the SHA-256
-of their outputs from the seeded inputs: two versions that compute alike give
-equal hashes (K5's must equal K3's, ``same_as_chain``). K1's calls also carry
+version has them, and ms. Every call also carries the SHA-256 of its
+outputs from the seeded inputs: two versions that compute alike give equal
+hashes (K5's must equal K3's, ``same_as_chain``; K3's int8 sums are exact, so
+its int8 hashes do not depend on the product that took them). K3's int8
+calls hand the kernel its packed weights (``pack_chain_q``, made before the
+timing, as the models make them once per fold) where the version has them. K1's calls also carry
 ``device_ms``, the kernel's own time in a ``torch.profiler`` trace of 50
 calls, beside ``ms`` a call (host work of the wrapper included). ``--sweep``
 also times every call at each cluster size C = 1 to 4, forced through the
@@ -206,15 +209,19 @@ def bench_chain(torch, args, sms: int, gen) -> list[dict]:
         x = torch.randn(shape, generator=gen, device="cuda").relu().bfloat16()
         for quant in (False, True):
             folded, act_s = weights(torch, gen, shape[-1], cout, planes, kinds, quant)
+            # a version with the packed int8 layout takes the copy a model keeps
+            packed = ({"packed": frk.pack_chain_q(folded)}
+                      if quant and hasattr(frk, "pack_chain_q") else {})
 
             def call():
-                return frk.fused_chain(x, folded, kinds, act_s=act_s)
+                return frk.fused_chain(x, folded, kinds, act_s=act_s, **packed)
 
             out = call()
             if not bool(torch.isfinite(out.float()).all()):
                 raise AssertionError(f"bench_chain: {label} gave non-finite values")
             row = {"call": label, "shape": list(shape), "kinds": list(kinds),
-                   "mode": "int8" if quant else "bf16", "ms": median_ms(torch, call)}
+                   "mode": "int8" if quant else "bf16", "ms": median_ms(torch, call),
+                   "sha256": digest(torch, [out])}
             b, h, w, cin = shape
             plan = frk.chain_plan(b, h, w, cout, planes, kinds, 2, sms,
                                   q_cin=cin if quant else 0)
@@ -231,7 +238,7 @@ def bench_chain(torch, args, sms: int, gen) -> list[dict]:
                                             q_cin=cin if quant else 0, cluster=c)
                     occ = frk.chain_occupancy(x.device, x.dtype, quant, c)
                     ms = median_ms(torch, lambda: frk._fused_chain_cuda(x, folded, kinds, act_s,
-                                                                        cluster=c))
+                                                                        cluster=c, **packed))
                     row["sweep"][c] = {"ms": ms, "grid": forced["grid"],
                                        "max_active_clusters": occ["clusters"]}
                     print(f"  C = {c}: {ms:.3f} ms (grid {forced['grid']}, the card holds "

@@ -34,10 +34,15 @@
 // quantises that conv's input rows once, with the conv's static scale (true
 // f32 division, round half to even, clip to +-127), into an int8 plane of its
 // scratch; the product then reads int8 rows exactly as the other modes read
-// theirs. The eight warps multiply int8 x int8 -> int32 on the tensor cores
-// (wmma m16n16k16, signed char), the sums are exact, and the epilogue is one
-// f32 multiply by `mult` and one f32 add of `shift` (no FMA across them),
-// rounded once to T.
+// theirs. K3's int8 convs multiply through block_gemm_tc_q: 128 x 128 tiles
+// on mma.sync m16n8k32 (s8 x s8 -> s32), both operands by ldmatrix from
+// k-contiguous rows (the weights packed [taps, N, K] once, when folded), a
+// three-stage cp.async ring of 128-channel slabs with swizzled rows. K4's
+// int8 convs still go through block_gemm<signed char> (wmma m16n16k16 on
+// 128 x 64 tiles, weights [taps, K, N]). Either way the sums are exact, so
+// the two products give the same bits, and the epilogue is one f32 multiply
+// by `mult` and one f32 add of `shift` (no FMA across them), rounded once to
+// T.
 
 #pragma once
 
@@ -594,6 +599,161 @@ __device__ void block_gemm_tc(const __nv_bfloat16* a, int lda, int K,
   }
 }
 
+// The int8 product of K3 (fused_resnet.cu) on mma.sync: the function of
+// block_gemm<signed char> (int8 x int8 -> exact int32 sums, the same rowfn /
+// infofn / epi contract, `acc` the bits of the sums) with the weights `w`
+// stored [taps, N, K], k contiguous. Tiles of 128 pixels x BN output channels
+// (BN 128 where N >= 128, else 64); eight warps in 2 x 4 each own 64 x BN/4 of
+// the tile as 4 x BN/32 fragments of mma.sync m16n8k32 (s8 x s8 -> s32). Both
+// operands are k-contiguous rows, so both reach their fragments through
+// ldmatrix without .trans (sm_90 has no 8-bit transposing ldmatrix: that is
+// why the weights are packed n-major once, when they are folded). Slabs of
+// 128 input channels (128 bytes a row) go through a ring of three cp.async
+// stages with one block barrier a slab; a slab of a conv with fewer channels
+// left copies and multiplies only its 32-deep steps that hold some. Rows are
+// not padded: the 16-byte chunk c of slab row r sits at chunk c ^ (r % 8)
+// (swz), so the eight rows of an ldmatrix phase fall in eight bank groups,
+// and a stage is 128 x (128 + BN) bytes: 96 KiB of ring at BN = 128, 103,424
+// bytes with the row tables, which leaves two blocks an SM (rows padded by 16
+// bytes would take 115,712, the last byte two blocks may have). Integer sums
+// are exact in any order (at most 9 * 2048 * 127^2 < 2^31 at the models'
+// widths), so every output equals block_gemm's bit for bit. The int32 sums
+// are staged for the 16-byte epilogue in the ring, which is idle by then.
+template <int BN>
+struct TcQTile {
+  static constexpr int kBK = 128;                  // input channels (bytes) a slab
+  static constexpr int kStages = 3;
+  static constexpr int kStage = (kBM + BN) * kBK;  // bytes of one stage: A rows, then B rows
+  static constexpr int kCS = BN + 8;               // staged int32 sums a row
+  static constexpr size_t kRingBytes = static_cast<size_t>(kStages) * kStage;
+  static constexpr size_t kCBytes = sizeof(int) * kBM * kCS;
+  static constexpr size_t kMainBytes = kRingBytes > kCBytes ? kRingBytes : kCBytes;
+  static constexpr size_t kBytes = kMainBytes + Tile<signed char>::kRowBytes;
+};
+
+// Byte offset of 16-byte chunk c of row r in a slab of 128-byte rows.
+__device__ __forceinline__ int swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+template <int BN, int EV, typename RowFn, typename InfoFn, typename EpiFn>
+__device__ void block_gemm_tc_q(const signed char* a, int lda, int K,
+                                const signed char* __restrict__ w, int N, int taps, int M,
+                                unsigned char* smem, RowFn rowfn, InfoFn infofn, EpiFn epi,
+                                int part, int parts) {
+  using L = TcQTile<BN>;
+  constexpr int kBK = L::kBK;
+  constexpr int kChunks = kBK / 16;  // 16-byte chunks a slab row
+  constexpr int WN = BN / 4;         // columns a warp
+  constexpr int NT = WN / 8;         // n8 fragments a warp
+  unsigned char* ring = smem;
+  int* cs = reinterpret_cast<int*>(smem);
+  int* rows = reinterpret_cast<int*>(smem + L::kMainBytes);
+  int* infos = rows + kMaxTaps * kBM;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp % 2, wn = warp / 2;
+  const int ntiles = (N + BN - 1) / BN;
+
+  for (int m0 = 0, mt = 0; m0 < M; m0 += kBM, ++mt) {
+    const int nt0 = ((part - mt * ntiles) % parts + parts) % parts;
+    if (nt0 >= ntiles) continue;
+    for (int idx = tid; idx < taps * kBM; idx += kThreads) {
+      const int tap = idx / kBM, i = idx % kBM;
+      rows[idx] = m0 + i < M ? rowfn(m0 + i, tap) : -1;
+    }
+    for (int i = tid; i < kBM; i += kThreads) infos[i] = m0 + i < M ? infofn(m0 + i) : 0;
+    __syncthreads();
+    for (int nt = nt0; nt < ntiles; nt += parts) {
+      const int n0 = nt * BN;
+      int acc[4][NT][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+      const int ksteps = (K + kBK - 1) / kBK;
+      const int steps = taps * ksteps;
+      // slab `step` into stage step % 3; a group is committed even when there
+      // is no slab left, so that wait_group counts slabs. Only the chunks of
+      // the slab's 32-deep steps that hold channels are copied (zeros past K)
+      auto fetch = [&](int step) {
+        if (step < steps) {
+          const int tap = step / ksteps, k0 = (step % ksteps) * kBK;
+          const int kw = min(kBK, (K - k0 + 31) / 32 * 32);
+          unsigned char* ad = ring + (step % L::kStages) * L::kStage;
+          unsigned char* bd = ad + kBM * kBK;
+          for (int c = tid; c < kBM * kChunks; c += kThreads) {
+            const int i = c / kChunks, kc = (c % kChunks) * 16;
+            if (kc < kw) {
+              const int row = rows[tap * kBM + i];
+              const bool ok = row >= 0 && k0 + kc < K;
+              copy16(ad + swz(i, kc / 16), ok ? a + static_cast<size_t>(row) * lda + k0 + kc : a,
+                     ok);
+            }
+          }
+          for (int c = tid; c < BN * kChunks; c += kThreads) {
+            const int n = c / kChunks, kc = (c % kChunks) * 16;
+            if (kc < kw) {
+              const bool ok = n0 + n < N && k0 + kc < K;
+              copy16(bd + swz(n, kc / 16),
+                     ok ? w + (static_cast<size_t>(tap) * N + n0 + n) * K + k0 + kc : w, ok);
+            }
+          }
+        }
+        copy_commit();
+      };
+      fetch(0);
+      fetch(1);
+      for (int step = 0; step < steps; ++step) {
+        copy_wait<1>();  // slab `step` has landed (this thread's copies)
+        __syncthreads();  // everyone's; and stage (step + 2) % 3 is no longer read
+        fetch(step + 2);
+        const unsigned char* as = ring + (step % L::kStages) * L::kStage;
+        const unsigned char* bs = as + kBM * kBK;
+        const int left = K - (step % ksteps) * kBK;  // channels from the slab's first on
+#pragma unroll
+        for (int ks = 0; ks < kBK; ks += 32) {
+          if (ks < left) {
+            uint32_t b[NT / 2][4];
+#pragma unroll
+            for (int j = 0; j < NT / 2; ++j)
+              ldmatrix_x4(b[j], smem_addr(bs + swz(wn * WN + j * 16 + (lane / 16) * 8 + lane % 8,
+                                                   ks / 16 + (lane / 8) % 2)));
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              uint32_t af[4];
+              ldmatrix_x4(af,
+                          smem_addr(as + swz(wm * 64 + i * 16 + lane % 16, ks / 16 + lane / 16)));
+#pragma unroll
+              for (int j = 0; j < NT / 2; ++j) {
+                mma_s8(acc[i][2 * j], af, b[j][0], b[j][1]);
+                mma_s8(acc[i][2 * j + 1], af, b[j][2], b[j][3]);
+              }
+            }
+          }
+        }
+      }
+      copy_wait<0>();
+      __syncthreads();  // the ring is idle: the sums may take its place
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int r = wm * 64 + i * 16 + lane / 4, c = wn * WN + j * 8 + (lane % 4) * 2;
+          *reinterpret_cast<int2*>(cs + r * L::kCS + c) = make_int2(acc[i][j][0], acc[i][j][1]);
+          *reinterpret_cast<int2*>(cs + (r + 8) * L::kCS + c) =
+              make_int2(acc[i][j][2], acc[i][j][3]);
+        }
+      __syncthreads();
+      for (int idx = tid; idx < kBM * (BN / EV); idx += kThreads) {
+        const int i = idx / (BN / EV), j = (idx % (BN / EV)) * EV;
+        if (m0 + i < M && n0 + j < N)
+          epi(m0 + i, n0 + j, reinterpret_cast<const float*>(cs + i * L::kCS + j), infos[i]);
+      }
+      __syncthreads();
+    }
+  }
+}
+
 // Launches `kernel` (kThreads a block, `smem` bytes of dynamic shared memory)
 // on `grid` blocks in clusters of `cluster` (a cluster of one is an ordinary
 // launch); with `clusters` and `blocks` non-null it launches nothing and
@@ -629,9 +789,10 @@ int launch_clusters(void (*kernel)(P), const P& p, int grid, int cluster, size_t
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory of a kernel whose convs go through conv_gemm<T, Q, TC>.
-template <typename T, bool Q, bool TC>
+// Shared memory of a kernel whose convs go through conv_gemm<T, Q, TC, TCQ>.
+template <typename T, bool Q, bool TC, bool TCQ = false>
 constexpr size_t conv_smem_bytes() {
+  if constexpr (Q && TCQ) return TcQTile<128>::kBytes;
   if constexpr (TC && !Q && std::is_same_v<T, __nv_bfloat16>)
     return TcTile<128>::kBytes > Tile<T>::kBytes ? TcTile<128>::kBytes : Tile<T>::kBytes;
   return Tile<OpOf<T, Q>>::kBytes;
@@ -649,9 +810,12 @@ constexpr size_t conv_smem_bytes() {
 // part it ends with a cluster barrier, so that every part's output is visible
 // to the whole cluster on return. TC: the exact bf16 mode multiplies through
 // block_gemm_tc (the kernel then has conv_smem_bytes<T, Q, true>() of shared
-// memory); every other mode, and TC false, through block_gemm.
-template <typename T, bool Q, bool TC = false, typename GatherFn, typename RowFn,
-          typename InfoFn, typename EpiFn>
+// memory); every other mode, and TC false, through block_gemm. TCQ: the
+// int8 mode multiplies through block_gemm_tc_q, `w` then [taps, N, K] (the
+// kernel has conv_smem_bytes<T, Q, TC, true>() of shared memory); without
+// it, through block_gemm<signed char> on [taps, K, N].
+template <typename T, bool Q, bool TC = false, bool TCQ = false, typename GatherFn,
+          typename RowFn, typename InfoFn, typename EpiFn>
 __device__ void conv_gemm(const T* a, int lda, int K, int R, GatherFn gather, signed char* qbuf,
                           float sx, const void* w, int N, int taps, int M, unsigned char* smem,
                           RowFn rowfn, InfoFn infofn, EpiFn epi, int part = 0, int parts = 1) {
@@ -679,8 +843,18 @@ __device__ void conv_gemm(const T* a, int lda, int K, int R, GatherFn gather, si
       *reinterpret_cast<int4*>(qbuf + static_cast<size_t>(r) * K + c) = u.bits;
     }
     sync_parts(parts);
-    block_gemm<signed char, EV>(qbuf, K, K, static_cast<const signed char*>(w), N, taps, M, smem,
-                                rowfn, infofn, epi, part, parts);
+    const signed char* wq = static_cast<const signed char*>(w);
+    if constexpr (TCQ) {
+      if (N >= 128)
+        block_gemm_tc_q<128, EV>(qbuf, K, K, wq, N, taps, M, smem, rowfn, infofn, epi, part,
+                                 parts);
+      else
+        block_gemm_tc_q<64, EV>(qbuf, K, K, wq, N, taps, M, smem, rowfn, infofn, epi, part,
+                                parts);
+    } else {
+      block_gemm<signed char, EV>(qbuf, K, K, wq, N, taps, M, smem, rowfn, infofn, epi, part,
+                                  parts);
+    }
   } else {
     auto rows = [=](int m, int tap) {
       const int r = rowfn(m, tap);

@@ -29,7 +29,8 @@
 // shapes, recomputed by neighbouring tiles). Every conv of the chain is
 // computed over the whole haloed region by conv_tile.cuh's product: in
 // bf16 block_gemm_tc (mma.sync on 128 x 128 tiles where the conv has 128
-// output channels or more, a three-stage cp.async ring), in f32 and int8
+// output channels or more, a three-stage cp.async ring), in int8
+// block_gemm_tc_q (the same tiles and ring on mma.sync m16n8k32 s8), in f32
 // block_gemm; each 3x3 makes one more ring of the region meaningless and the
 // tile proper is exact at the end. Weights are read from device memory
 // through L2 (layer3's are 2.2 MB, the emotion CNN's layer4 8.7 MB: neither
@@ -63,8 +64,9 @@
 // call's slabs add up to 108 to 455 MB (int8: 144 to 862 MB), against a
 // 50 MB L2: the intermediates go to device memory and come back through L2
 // as the next conv gathers them. The operand ring (bf16: three stages of
-// 128 pixels x 64 channels and 64 x 128 weights; f32 and int8: two slabs)
-// and the staged f32 sums live in shared memory; accumulators in registers.
+// 128 pixels x 64 channels and 64 x 128 weights; int8: three stages of 128
+// pixels and 128 output channels x 128 input channels; f32: two slabs) and
+// the staged sums live in shared memory; accumulators in registers.
 // No intermediate is a tensor that PyTorch sees, and one call is one launch.
 // Small frames (32 x 32 and under) are one tile; G frames share a work item
 // so that its pixels fill the 128-row product tiles.
@@ -72,6 +74,14 @@
 // The int8 mode (avcer_fused_chain_q; the TPU kernel's act_s): every conv
 // multiplies int8 weights with activations quantised by that conv's static
 // scale, sums in int32 and applies one f32 multiply and add (conv_tile.cuh).
+// The product is block_gemm_tc_q: mma.sync m16n8k32 s8 on tiles of 128
+// pixels x 128 output channels (64 where the conv has fewer), eight warps
+// each 64 x 32, both operands by ldmatrix from k-contiguous rows, so the
+// weights arrive packed [taps, co, ci] (the wrapper's pack_chain_q, made
+// once when the model folds them), a three-stage ring of 128-channel slabs
+// with one barrier a slab. Bound by operations at twice bf16's peak (1979
+// TOP/s); the int32 sums are exact in any order, so the outputs are
+// block_gemm<signed char>'s bit for bit.
 // Activations stay in the compute type between convs: the out-of-frame zeros,
 // the residual and both readers of a block's input (conv1 and the projection,
 // each with its own scale) need them so; each conv's input is quantised once
@@ -213,7 +223,7 @@ __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
 
       if (kind != kId) {
         // projection residual bn(conv1x1(x)) -> cur
-        conv_gemm<T, Q, true>(
+        conv_gemm<T, Q, true, true>(
             x, cin, cin, M, [=](int r) { return xrow(r, s); }, qbuf, sx(3), cd.w, cout, 1, M, smem,
             same_tap, [](int) { return 0; },
             [=](int m, int n, const float* acc, int) {
@@ -231,13 +241,14 @@ __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
           if (yi < 0 || yi >= H || xi < 0 || xi >= W) return -1;
           return ((b0 + m / PR1) * H + yi) * W + xi;
         };
-        conv_gemm<T, Q, true>(x, cin, cin, gc * PR1, row1, qbuf, sx(0), c1.w, pl, 1, gc * PR1, smem,
-                              same_tap, [=](int m) { return static_cast<int>(row1(m) >= 0); },
-                              [=](int m, int n, const float* acc, int ok) {
-                                store_vec(t1 + static_cast<size_t>(m) * pl + n,
-                                          fold_vec<T, Q>(acc, c1, n, kRelu, zero, ok));
-                              },
-                              rank, C);
+        conv_gemm<T, Q, true, true>(
+            x, cin, cin, gc * PR1, row1, qbuf, sx(0), c1.w, pl, 1, gc * PR1, smem, same_tap,
+            [=](int m) { return static_cast<int>(row1(m) >= 0); },
+            [=](int m, int n, const float* acc, int ok) {
+              store_vec(t1 + static_cast<size_t>(m) * pl + n,
+                        fold_vec<T, Q>(acc, c1, n, kRelu, zero, ok));
+            },
+            rank, C);
       } else {
         auto ok1 = [=](int m) { return static_cast<int>(inframe(m)); };
         auto epi1 = [=](int m, int n, const float* acc, int ok) {
@@ -245,11 +256,11 @@ __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
                     fold_vec<T, Q>(acc, c1, n, kRelu, zero, ok));
         };
         if (kind == kId)
-          conv_gemm<T, Q, true>(cur, cout, cin, M, same, qbuf, sx(0), c1.w, pl, 1, M, smem,
-                                same_tap, ok1, epi1, rank, C);
+          conv_gemm<T, Q, true, true>(cur, cout, cin, M, same, qbuf, sx(0), c1.w, pl, 1, M,
+                                      smem, same_tap, ok1, epi1, rank, C);
         else
-          conv_gemm<T, Q, true>(x, cin, cin, M, [=](int r) { return xrow(r, s); }, qbuf, sx(0),
-                                c1.w, pl, 1, M, smem, same_tap, ok1, epi1, rank, C);
+          conv_gemm<T, Q, true, true>(x, cin, cin, M, [=](int r) { return xrow(r, s); }, qbuf,
+                                      sx(0), c1.w, pl, 1, M, smem, same_tap, ok1, epi1, rank, C);
       }
 
       // conv2 (3x3) -> t2
@@ -258,22 +269,23 @@ __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
         store_vec(t2 + static_cast<size_t>(m) * pl + n, fold_vec<T, Q>(acc, c2, n, kRelu, zero));
       };
       if (kind == kS2ds) {
-        conv_gemm<T, Q, true>(t1, pl, pl, gc * PR1, same, qbuf, sx(1), c2.w, pl, 9, M, smem,
-                              [=](int m, int tap) {
-                                const int q = m % PR;
-                                return (m / PR) * PR1 + (2 * (q / RW) + tap / 3) * RW1 +
-                                       2 * (q % RW) + tap % 3;
-                              },
-                              none, epi2, rank, C);
+        conv_gemm<T, Q, true, true>(t1, pl, pl, gc * PR1, same, qbuf, sx(1), c2.w, pl, 9, M,
+                                    smem,
+                                    [=](int m, int tap) {
+                                      const int q = m % PR;
+                                      return (m / PR) * PR1 + (2 * (q / RW) + tap / 3) * RW1 +
+                                             2 * (q % RW) + tap % 3;
+                                    },
+                                    none, epi2, rank, C);
       } else {
-        conv_gemm<T, Q, true>(t1, pl, pl, M, same, qbuf, sx(1), c2.w, pl, 9, M, smem,
-                              [=](int m, int tap) {
-                                const int q = m % PR;
-                                const int r = q / RW + tap / 3 - 1, c = q % RW + tap % 3 - 1;
-                                if (r < 0 || r >= RH || c < 0 || c >= RW) return -1;
-                                return m + (tap / 3 - 1) * RW + tap % 3 - 1;
-                              },
-                              none, epi2, rank, C);
+        conv_gemm<T, Q, true, true>(t1, pl, pl, M, same, qbuf, sx(1), c2.w, pl, 9, M, smem,
+                                    [=](int m, int tap) {
+                                      const int q = m % PR;
+                                      const int r = q / RW + tap / 3 - 1, c = q % RW + tap % 3 - 1;
+                                      if (r < 0 || r >= RH || c < 0 || c >= RW) return -1;
+                                      return m + (tap / 3 - 1) * RW + tap % 3 - 1;
+                                    },
+                                    none, epi2, rank, C);
       }
 
       // conv3 (1x1) + residual -> cur, or the tile proper -> out
@@ -298,8 +310,8 @@ __global__ void __launch_bounds__(kThreads, 2) chain_kernel(const ChainP p) {
           v.v[j] = activate<T>(Num<T>::add(v.v[j], r.v[j]), kRelu, zero);
         store_vec(last ? out + static_cast<size_t>(orow) * cout + n : res, v);
       };
-      conv_gemm<T, Q, true>(t2, pl, pl, M, same, qbuf, sx(2), c3.w, cout, 1, M, smem, same_tap,
-                            outrow, epi3, rank, C);
+      conv_gemm<T, Q, true, true>(t2, pl, pl, M, same, qbuf, sx(2), c3.w, cout, 1, M, smem,
+                                  same_tap, outrow, epi3, rank, C);
     }
   }
 }
@@ -425,7 +437,7 @@ __global__ void __launch_bounds__(kThreads, 2) chain_flat_kernel(const FlatP p) 
 template <typename T, bool Q>
 int launch(const ChainP& p, int grid, int cluster, cudaStream_t stream, int* clusters = nullptr,
            int* blocks = nullptr) {
-  constexpr size_t smem = conv_smem_bytes<T, Q, true>();
+  constexpr size_t smem = conv_smem_bytes<T, Q, true, true>();
   return cluster > 1 ? launch_clusters(chain_kernel<T, Q, true>, p, grid, cluster, smem, stream,
                                        clusters, blocks)
                      : launch_clusters(chain_kernel<T, Q, false>, p, grid, cluster, smem, stream,
@@ -544,9 +556,10 @@ extern "C" int avcer_fused_chain(const void* x, void* out, void* scratch, long l
                TH, TW, G, grid, cluster, dtype, nullptr, stream);
 }
 
-// The int8 mode: as above with w int8, inv (the merged multiply) and shift
-// float32 whatever `dtype`, and act_s [3 or 4 per block] float32 on the
-// device. Channel counts are multiples of 16.
+// The int8 mode: as above with w int8 packed [taps, co, ci] (k contiguous:
+// [co, ci] for a 1x1, [9, co, ci] for the 3x3; the wrapper's pack_chain_q),
+// inv (the merged multiply) and shift float32 whatever `dtype`, and act_s [3
+// or 4 per block] float32 on the device. Channel counts are multiples of 16.
 extern "C" int avcer_fused_chain_q(const void* x, void* out, void* scratch,
                                    long long scratch_bytes, const void* const* wptrs,
                                    const int* kinds, const int* cins, const int* planes,

@@ -48,7 +48,7 @@ import torch.nn.functional as F
 
 from avcer_tpu_torch.models.layers import (BatchNorm, FoldCache, QConv, compute_dtype, fold_bn,
                                            fold_bn_q)
-from avcer_tpu_torch.ops.cuda.fused_resnet_kernel import fused_chain
+from avcer_tpu_torch.ops.cuda.fused_resnet_kernel import fused_chain, pack_chain_q
 from avcer_tpu_torch.ops.cuda.fused_ssh_kernel import activate, fused_ssh_heads
 
 
@@ -131,14 +131,19 @@ class TVBottleneck(nn.Module):
 def fused_section(cache: FoldCache, h: torch.Tensor, layer: nn.Sequential, li: int,
                   chunk: list[int], kinds: tuple[str, ...]) -> torch.Tensor:
     """Blocks ``chunk`` of ``layer`` as one ``fused_chain`` call on NCHW-shaped
-    ``h``; the folded weights (and, in int8, the activation scales) are made
-    once per (chunk, dtype, device)."""
+    ``h``; the folded weights (and, in int8, the activation scales and the
+    kernel's packed copy of the int8 weights) are made once per (chunk,
+    dtype, device)."""
     conv1 = layer[chunk[0]].conv1
     dtype = compute_dtype(conv1)
-    folded, act_s = cache.folded(
-        (li, tuple(chunk), dtype, conv1.weight.device),
-        lambda: fold_pairs([p for bi in chunk for p in layer[bi].fold_pairs()], dtype))
-    return fused_chain(nhwc(h.to(dtype)), folded, kinds, act_s=act_s).permute(0, 3, 1, 2)
+
+    def fold():
+        folded, act_s = fold_pairs([p for bi in chunk for p in layer[bi].fold_pairs()], dtype)
+        return folded, act_s, None if act_s is None else pack_chain_q(folded)
+
+    folded, act_s, packed = cache.folded((li, tuple(chunk), dtype, conv1.weight.device), fold)
+    return fused_chain(nhwc(h.to(dtype)), folded, kinds, act_s=act_s,
+                       packed=packed).permute(0, 3, 1, 2)
 
 
 class ResNet50Body(FoldCache):

@@ -14,7 +14,10 @@ The int8 mode (``act_s``), as the JAX function's: ``folded`` then holds
 merged dequantisation and BatchNorm multiply, and ``act_s`` the static
 activation scale ``sx`` of every conv in the order conv1, conv2, conv3, then
 the projection, per block. ``x`` and the result stay in the compute dtype;
-the sums are exact integers.
+the sums are exact integers. The kernel's int8 product reads each ``wq``
+packed ``[taps, co, ci]`` (``pack_chain_q``): a caller that folds once packs
+once and hands the copy in as ``packed``; without it a CUDA call packs its
+own.
 
 ``fused_chain_flat`` is the counterpart of the JAX package's
 ``fused_chain_flat``: stride-1 chains over flat bands, its own kernel.
@@ -94,6 +97,23 @@ def conv_bn_plain_q(x: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor, mult: t
     return (y + shift.float().reshape(1, -1, 1, 1)).to(x.dtype)
 
 
+def pack_chain_q(folded: Sequence[torch.Tensor]) -> tuple[torch.Tensor, ...]:
+    """The int8 weights of a chain's folds (flat ``(wq, mult, shift)`` per
+    conv) as the kernel's int8 product reads them: one ``[taps, co, ci]`` int8
+    tensor per conv (``wq`` ``[ci, co]`` -> ``[1, co, ci]``, ``[3, 3, ci, co]``
+    -> ``[9, co, ci]``, tap ``3 ky + kx``), in the order of ``folded``. Input
+    channels are contiguous, so the product loads both operands with
+    ``ldmatrix`` (sm_90 has no 8-bit transposing ``ldmatrix``). Meant to run
+    once per fold: ``pack_chain_q.calls`` counts its calls."""
+    if len(folded) % 3:
+        raise ValueError(f"pack_chain_q: {len(folded)} tensors are not (wq, mult, shift) triples")
+    pack_chain_q.calls += 1
+    return tuple(w.reshape(-1, *w.shape[-2:]).transpose(1, 2).contiguous() for w in folded[0::3])
+
+
+pack_chain_q.calls = 0
+
+
 def _check_blocks(blocks: Sequence[str], act_s, n_folded: int) -> None:
     if not blocks or any(b not in KINDS for b in blocks):
         raise ValueError(f"fused_chain: unknown block kinds in {blocks}")
@@ -107,10 +127,13 @@ def _check_blocks(blocks: Sequence[str], act_s, n_folded: int) -> None:
 
 
 def fused_chain_plain(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequence[str],
-                      band: int = 32, act_s: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      band: int = 32, act_s: Optional[torch.Tensor] = None,
+                      packed: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
     """The chain in plain PyTorch (``F.conv2d`` on NCHW views, f32
     accumulation or, with ``act_s``, exact integer sums; the kernel's rounding
-    points). NHWC in, NHWC out."""
+    points). NHWC in, NHWC out. It reads ``folded`` in the JAX layout;
+    ``packed`` (the kernel's copy of the int8 weights) is taken for the
+    wrapper's signature and not read."""
     _check_blocks(blocks, act_s, len(folded))
     scales = iter(act_s) if act_s is not None else None
 
@@ -179,16 +202,20 @@ def check_cuda_tensor(name: str, t: torch.Tensor, x: torch.Tensor,
             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def _check_chain_weights(name: str, x: torch.Tensor, per_block, blocks, quant: bool
+def _check_chain_weights(name: str, x: torch.Tensor, per_block, blocks, quant: bool,
+                         packed: Optional[Sequence[torch.Tensor]] = None
                          ) -> tuple[list, list[int], list[int], int]:
     """Types and shapes of a chain's folded weights against ``x``; returns
     (pointers, input channels per block, planes per block, output channels).
-    int8 weights are copied 16 channels at a time."""
+    int8 weights are copied 16 channels at a time. With ``packed``
+    (``pack_chain_q`` of the same folds) the pointers of the int8 weights are
+    the packed copies'."""
     vec = 16 if quant else 16 // x.element_size()
     cin = x.shape[-1]
     cout = per_block[0][6].shape[-1]
     ptrs: list[int | None] = []
     cins, planes = [], []
+    packs = iter(packed) if packed is not None else None
     for kind, t in zip(blocks, per_block):
         for j, wt in enumerate(t):
             want = None if not quant else (torch.int8 if j % 3 == 0 else torch.float32)
@@ -206,18 +233,33 @@ def _check_chain_weights(name: str, x: torch.Tensor, per_block, blocks, quant: b
                 f"{name}: block {kind!r} with weights {[tuple(v.shape) for v in t]} does "
                 f"not fit input channels {cin}, output channels {cout} (channel counts must "
                 f"be multiples of {vec})")
-        ptrs += [v.data_ptr() for v in t] + [None] * (12 - len(t))
+        kernel_t = list(t)
+        if packs is not None:
+            for j in range(0, len(t), 3):
+                p, w = next(packs, None), t[j]
+                if p is None or p.shape != (w.numel() // w.shape[-2:].numel(), w.shape[-1],
+                                            w.shape[-2]):
+                    raise ValueError(f"{name}: the packed weights are not pack_chain_q of the "
+                                     f"folds (conv {tuple(w.shape)})")
+                check_cuda_tensor(name, p, x, torch.int8)
+                kernel_t[j] = p
+        ptrs += [v.data_ptr() for v in kernel_t] + [None] * (12 - len(t))
         cins.append(cin)
         planes.append(pl)
         cin = cout
+    if packs is not None and next(packs, None) is not None:
+        raise ValueError(f"{name}: more packed weights than convs")
     return ptrs, cins, planes, cout
 
 
 def fused_chain(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequence[str],
-                band: int = 32, act_s: Optional[torch.Tensor] = None) -> torch.Tensor:
+                band: int = 32, act_s: Optional[torch.Tensor] = None,
+                packed: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
     """A chain of bottlenecks ``[B, H, W, Cin] -> [B, Ho, Wo, Cout]``; with
     ``act_s`` in the int8 mode. ``band`` is the TPU kernel's VMEM tiling and
-    does not change the result: the CUDA kernel ignores it.
+    does not change the result: the CUDA kernel ignores it. ``packed``:
+    ``pack_chain_q(folded)``, made once by a caller that keeps its
+    folds (else the int8 mode packs on every CUDA call).
     ``fused_chain.launches`` counts kernel launches; ``fused_chain.occupancy``
     holds what the card reported for each launch configuration (see
     ``chain_occupancy``)."""
@@ -226,7 +268,7 @@ def fused_chain(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequenc
         return fused_chain_plain(x, folded, blocks, band=band, act_s=act_s)
     if x.device.type != "cuda":
         raise ValueError(f"fused_chain: unsupported device {x.device}")
-    return _fused_chain_cuda(x, folded, blocks, act_s)
+    return _fused_chain_cuda(x, folded, blocks, act_s, packed=packed)
 
 
 def card_occupancy(lib: str, name: str, cache: dict, device: torch.device, dtype: torch.dtype,
@@ -264,12 +306,13 @@ def chain_occupancy(device: torch.device, dtype: torch.dtype, quant: bool,
 
 
 def _fused_chain_cuda(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: tuple,
-                      act_s: Optional[torch.Tensor], cluster: Optional[int] = None
-                      ) -> torch.Tensor:
+                      act_s: Optional[torch.Tensor], cluster: Optional[int] = None,
+                      packed: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
     """The launch behind ``fused_chain`` for a CUDA tensor; ``cluster``
     forces the cluster size instead of the plan's (the card tests compare
     sizes with it). A cluster the card refuses raises: nothing retries with
-    another size."""
+    another size. The int8 mode launches on ``packed`` (``pack_chain_q`` of
+    ``folded``, packed here when not given)."""
     _check_blocks(blocks, act_s, len(folded))
     if x.dim() != 4 or x.dtype not in DTYPE_CODE or not x.is_contiguous():
         raise ValueError(
@@ -282,8 +325,11 @@ def _fused_chain_cuda(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: t
             "fused_chain: the CUDA kernel takes a projection block only as the first of a "
             f"chain, got {blocks}")
     quant = act_s is not None
+    if quant and packed is None:
+        packed = pack_chain_q(folded)
     ptrs, cins, planes, cout = _check_chain_weights(
-        "fused_chain", x, split_folded(folded, blocks), blocks, quant)
+        "fused_chain", x, split_folded(folded, blocks), blocks, quant,
+        packed if quant else None)
     if quant:
         act_s = act_s.to(device=x.device, dtype=torch.float32).contiguous()
     b, h, w, _ = x.shape

@@ -28,7 +28,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    bound computed from the inputs; fused_chain at every call shape of the r50
    main paths, each with its plan (work items, cluster size C, grid) and the
    clusters the card holds at once, and where C > 1 held bit for bit against
-   the same call at C = 1 (and timed there); fused_ssh_heads likewise at each
+   the same call at C = 1 (and timed there); its int8 mode on the packed
+   weights the models keep, with the blocks an SM the card reports for it at
+   every C (the plan's 2, or the phase fails); fused_ssh_heads likewise at each
    of its calls (the r50 detector's scales 2 and 3 in clusters of at least
    128 blocks in all); nms_mask also at the mobilenet presets' detect batch
    of 128 and at [2, 1000] (no path's K), with its device time from a
@@ -48,9 +50,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    the scales, which then stay frozen), then three timed runs, each with its
    outputs and the launch counts of the kernels checked (every attention
    launch in the tensor-core kernel); the fused runs' compound decisions
-   against the unfused runs'; one more run of the unfused exact path under
-   the CLI's ``--profile_dir`` helper, for the device's busy and idle share
-   of the wall (every NMS kernel in its trace must be nms_bitmask_kernel). In every warm-up run, of
+   against the unfused runs'; one more run of the unfused exact path and of
+   the int8 fused path under the CLI's ``--profile_dir`` helper, for the
+   device's busy and idle share of the wall (every NMS kernel in its trace
+   must be nms_bitmask_kernel; in int8 fused, K3's kernel as often as in a
+   timed run, with its device time and share); no timed or profiled run
+   packs int8 weights (the models pack them once, when they fold). In every warm-up run, of
    these paths and of the presets', each kernel call with shapes, types or
    modes that no path has shown yet is held against the kernel's plain
    version on the call's own inputs;
@@ -684,20 +689,24 @@ def kernels_fused_chain(card: str, detector, emotion, quant: bool = False) -> di
         pairs = [p for bi in chunk for p in layer[bi].fold_pairs()]
         # the int8 fold does not depend on the compute dtype: f32 mult and shift
         folded = {dt: fold_pairs(pairs, dt) for dt in (torch.float32, torch.bfloat16)}
+        # the kernel's copy of the int8 weights, made once as the models make it
+        packed = (fused_resnet_kernel.pack_chain_q(folded[torch.bfloat16][0]) if quant
+                  else None)
         section = torch.nn.Sequential(*[layer[bi] for bi in chunk])
         x_cl = x.permute(0, 3, 1, 2)  # NCHW-shaped, channels-last in memory
         case = f"{label} {blocks} {list(shape)}"
 
         def run(a, dt, fn=fused_resnet_kernel.fused_chain):
             w, act_s = folded[dt]
-            return (fn(a, w, blocks, act_s=act_s),)
+            return (fn(a, w, blocks, act_s=act_s, packed=packed),)
 
         def run_plain(a, dt):
             return run(a, dt, fused_resnet_kernel.fused_chain_plain)
 
         def launch(a, dt, cluster):
             w, act_s = folded[dt]
-            return (fused_resnet_kernel._fused_chain_cuda(a, w, blocks, act_s, cluster=cluster),)
+            return (fused_resnet_kernel._fused_chain_cuda(a, w, blocks, act_s, cluster=cluster,
+                                                          packed=packed),)
 
         plan = chain_plan_of(x, folded[torch.bfloat16][0], blocks, quant)
         log(f"  {case} {kind}: {plan['nwork']} work items, C = {plan['cluster']}, grid "
@@ -729,11 +738,25 @@ def kernels_fused_chain(card: str, detector, emotion, quant: bool = False) -> di
                      "plain_ms": plain, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
                      **plan})
     first = rows[0]
+    extra = {}
+    if quant:
+        # the int8 product's shared memory leaves two blocks an SM at every C
+        occ = {f"{dt} C = {c}": fused_resnet_kernel.chain_occupancy(
+                   torch.device(DEVICE), dt, True, c)["blocks_per_sm"]
+               for dt in (torch.float32, torch.bfloat16)
+               for c in range(1, fused_resnet_kernel.MAX_CLUSTER + 1)}
+        log(f"  {name}: product mma.sync m16n8k32 s8 (block_gemm_tc_q); blocks an SM by "
+            f"compute dtype and cluster size {occ}")
+        if set(occ.values()) != {fused_resnet_kernel.BLOCKS_PER_SM}:
+            raise AssertionError(f"{name}: blocks an SM {occ}, the plan assumes "
+                                 f"{fused_resnet_kernel.BLOCKS_PER_SM}")
+        extra = {"product": "mma.sync m16n8k32 s8",
+                 "blocks_per_sm": fused_resnet_kernel.BLOCKS_PER_SM}
     return entry("fused_chain_int8" if quant else "fused_chain", "fused_resnet.cu",
                  "avcer_tpu/ops/pallas/fused_resnet_kernel.py:" + ("219" if quant else "299"),
                  max_abs_err=worst, ms=first["ms"], plain_ms=first["plain_ms"],
                  bound_ms=first["bound_ms"], bound_by=first["bound_by"],
-                 library_ms=first["library_ms"], shape=first["shape"], cases=rows)
+                 library_ms=first["library_ms"], shape=first["shape"], **extra, cases=rows)
 
 
 def kernels_fused_ssh(card: str, detector, quant: bool = False) -> dict:
@@ -1352,6 +1375,7 @@ def phase_main(card: str, pipe, fused: bool, frames: np.ndarray, wav: np.ndarray
             raise AssertionError(f"{label}: expected 2 calibration forwards a stage, got {calib}")
 
     walls = []
+    packs = fused_resnet_kernel.pack_chain_q.calls  # int8 weights packed at fold time only
     for run in range(1, timed_runs + 1):
         reset_counts()
         cnn_calls[0] = crops_asked[0] = 0
@@ -1366,6 +1390,9 @@ def phase_main(card: str, pipe, fused: bool, frames: np.ndarray, wav: np.ndarray
         if int8 and calibration_forwards(pipe) != calib:
             raise AssertionError(f"{label}: the scales moved in a timed run: "
                                  f"{calibration_forwards(pipe)}")
+        if fused_resnet_kernel.pack_chain_q.calls != packs:
+            raise AssertionError(f"{label}: a timed run packed int8 weights again "
+                                 f"({fused_resnet_kernel.pack_chain_q.calls - packs} calls)")
         stages = ", ".join(f"{k} {v:.3f} s" for k, v in clip.timings.items())
         log(f"{label} timed run {run}: {stages} on {card}")
     hook.remove()
@@ -1374,7 +1401,8 @@ def phase_main(card: str, pipe, fused: bool, frames: np.ndarray, wav: np.ndarray
         "per detected frame before the top one was forced to be the only face")
     wall = float(np.median(walls))
     if profile:
-        profiled_run(card, pipe, frames, wav, label, wall, launches["nms_mask"])
+        profiled_run(card, pipe, frames, wav, label, wall, launches["nms_mask"],
+                     launches["fused_chain"])
     log(f"{label}: {frames.shape[0]} frames ({CLIP_SECONDS} s of video), wall per run "
         f"{', '.join(f'{w:.3f}' for w in walls)} s, median {wall:.3f} s = "
         f"{CLIP_SECONDS / wall:.3f} video-sec/sec on {card}; launches per run {launches}, "
@@ -1400,20 +1428,26 @@ def counts() -> dict[str, int]:
 
 
 def profiled_run(card: str, pipe, frames: np.ndarray, wav: np.ndarray, label: str,
-                 wall: float, nms_launches: int) -> None:
+                 wall: float, nms_launches: int, chain_launches: int = 0) -> None:
     """One run under ``cli.profiled`` (what ``cli.run --profile_dir`` does):
     the union of the device's kernel, copy and set intervals in the Chrome
     trace over the run's wall (which the profiler lengthens on the host) and
     over the timed runs' median wall, and the kernels that took the most
     device time. Every NMS kernel in the trace must be the bitmask kernel,
-    as many as a timed run's ``nms_launches``."""
+    as many as a timed run's ``nms_launches``; K3's kernel (``chain_kernel``)
+    must appear ``chain_launches`` times, as in a timed run, and its device
+    time and share of the busy time are reported; the run must pack no int8
+    weights."""
     path = os.path.join(ROOT, "build", "smoke_traces", label.replace(" ", "_").strip("-_"))
     torch.cuda.synchronize()
+    packs = fused_resnet_kernel.pack_chain_q.calls
     t0 = time.perf_counter()
     with cli.profiled(path, DEVICE):
         pipe.run(ArrayReader(frames, FPS, "smoke.avi"), "", wav=wav)
         torch.cuda.synchronize()
     run_wall = time.perf_counter() - t0
+    if fused_resnet_kernel.pack_chain_q.calls != packs:
+        raise AssertionError(f"{label}: the profiled run packed int8 weights again")
     with open(os.path.join(path, cli.TRACE_FILE)) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
@@ -1444,6 +1478,14 @@ def profiled_run(card: str, pipe, frames: np.ndarray, wav: np.ndarray, label: st
         f"{1 - busy / wall:.1%} idle; {len(events)} device events on {card}")
     log(f"{label} device time by kernel (ms, launches): "
         + "; ".join(f"{name} {ms:.3f}, {n}" for name, (ms, n) in top))
+    chain = [float(e["dur"]) * 1e-3 for e in events if e["cat"] == "kernel"
+             and "chain_kernel" in e["name"] and "chain_flat_kernel" not in e["name"]]
+    log(f"{label} under the profiler: K3 (chain_kernel) {len(chain)} launches "
+        f"({chain_launches} a timed run), {sum(chain):.3f} ms of device time = "
+        f"{sum(chain) * 1e-3 / busy:.1%} of the busy time; no int8 weights packed in the run")
+    if len(chain) != chain_launches:
+        raise AssertionError(f"{label}: {len(chain)} chain_kernel launches in the trace, "
+                             f"{chain_launches} in a timed run")
 
 
 def check_main_path(clip, n: int, launches: dict[str, int], cfg: PipelineConfig, cnn_calls: int,
@@ -3107,7 +3149,7 @@ def main() -> int:
     fused_clip, launches = phase_main(card, fused_pipe, True, frames, wav)
     int8_clip, _ = phase_main(card, int8_pipe, False, frames, wav, int8=True)
     int8_fused_clip, int8_launches = phase_main(card, int8_fused_pipe, True, frames, wav,
-                                                int8=True)
+                                                int8=True, profile=True)
     for k in kernels:
         if k["name"].endswith("_int8"):  # the same wrapper, counted in the int8 fused run
             k["launches"] = int8_launches[k["name"][:-len("_int8")]]

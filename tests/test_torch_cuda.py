@@ -260,12 +260,21 @@ def test_fused_chain_kernel_bf16_wide(cuda_device, shape, planes, blocks):
 # The int8 mode copies its weights 16 channels at a time: channel counts are
 # multiples of 16. Otherwise the geometry of CHAIN_CASES: every frame edge,
 # sizes that are no multiple of the tile, odd stride-2 sizes, the four kinds.
+# Then the edges of the int8 product's tiles (128 pixels x 64 or 128 output
+# channels, slabs of 128 input channels): convs of 16 and 48 output channels
+# (N below the tile's 64 and no multiple of it; planes given as (planes,
+# cout)), 16 and 48 input channels (slabs mostly zero-filled), a region of M
+# = 189 pixels (no multiple of 128), and cout 2048 (tiles of 128 channels, 16
+# of them across N).
 QCHAIN_CASES = [
     ((2, 24, 16, 16), 16, ("ds", "id", "id")), ((2, 23, 17, 64), 16, ("id", "id")),
     ((2, 23, 17, 32), 16, ("s2ds", "id")), ((2, 24, 16, 32), 16, ("s2pre", "id", "id")),
     ((5, 7, 7, 64), 16, ("id",)), ((2, 45, 40, 32), 16, ("s2ds", "id", "id", "id")),
     ((2, 55, 55, 32), 16, ("s2pre", "id", "id")), ((1, 90, 37, 16), 16, ("ds", "id", "id")),
     ((2, 49, 67, 16), 16, ("s2ds",)), ((2, 30, 41, 48), 48, ("ds", "id")),
+    ((2, 23, 17, 16), (16, 16), ("ds", "id")), ((2, 23, 17, 48), (16, 48), ("id", "id")),
+    ((2, 19, 13, 32), (48, 48), ("s2ds", "id")), ((3, 5, 7, 64), 16, ("id",)),
+    ((2, 7, 7, 2048), 512, ("id",)),
 ]
 
 
@@ -281,7 +290,8 @@ def test_fused_chain_kernel_int8(cuda_device, shape, planes, blocks, dtype):
     rng = np.random.default_rng(4)
     x = torch.from_numpy(np.maximum(rng.normal(size=shape), 0).astype(np.float32))
     x = x.to(cuda_device, dtype)
-    folded, act_s = quantize_folded(rng, chain_weights(rng, shape[-1], planes, blocks))
+    planes, cout = planes if isinstance(planes, tuple) else (planes, None)
+    folded, act_s = quantize_folded(rng, chain_weights(rng, shape[-1], planes, blocks, cout))
     folded = quant_tensors(folded, cuda_device)
     act_s = torch.from_numpy(act_s).to(cuda_device)
     want = fused_resnet_kernel.fused_chain_plain(x, folded, blocks, act_s=act_s)
@@ -293,12 +303,29 @@ def test_fused_chain_kernel_int8(cuda_device, shape, planes, blocks, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=2 ** -5, rtol=2 ** -5)
     # and almost everywhere exactly
     assert float((got != want).float().mean()) < 1e-3
+    # the kernel's packed copy of the int8 weights, made once, gives the same bits
+    packed = fused_resnet_kernel.pack_chain_q(folded)
+    assert torch.equal(fused_resnet_kernel.fused_chain(x, folded, blocks, act_s=act_s,
+                                                       packed=packed), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_chain_int8_occupancy(cuda_device, dtype):
+    """The int8 product's shared memory (a three-stage ring of 128 x 256
+    bytes and the row tables) leaves the card room for the BLOCKS_PER_SM
+    blocks an SM that the plan sizes its grid for, at every cluster size."""
+    for c in range(1, fused_resnet_kernel.MAX_CLUSTER + 1):
+        occ = fused_resnet_kernel.chain_occupancy(cuda_device, dtype, True, c)
+        assert occ["blocks_per_sm"] == fused_resnet_kernel.BLOCKS_PER_SM, (c, occ)
+        assert occ["clusters"] >= 1
 
 
 # Deep, narrow shapes as the detector's layer3 gives them (few work items,
-# wide channels), where the plan spreads a work item over a cluster
+# wide channels), where the plan spreads a work item over a cluster; and the
+# emotion CNN's layer4 width, whose convs' many n-tiles (16 of 128 channels
+# at cout 2048) the cluster's blocks share round robin
 CLUSTER_CASES = [((4, 12, 20, 256), ("id", "id", "id")), ((4, 12, 20, 256), ("s2ds", "id")),
-                 ((3, 7, 7, 256), ("id",))]
+                 ((3, 7, 7, 256), ("id",)), ((2, 7, 7, 2048), ("id",))]
 
 
 @pytest.mark.parametrize("mode", ["f32", "bf16", "int8 f32", "int8 bf16"])
@@ -617,6 +644,15 @@ def test_fused_kernels_raise_on_bad_input(cuda_device):
             tensors(chain_weights(rng, 10, 8, ("ds",)), device=cuda_device), ("ds",))
     with pytest.raises(ValueError):  # the int8 mode takes int8 weights
         fused_resnet_kernel.fused_chain(x, folded, ("ds",), act_s=torch.ones(4))
+    qfolded, act_s = quantize_folded(rng, chain_weights(rng, 16, 16, ("ds",)))
+    qfolded = quant_tensors(qfolded, cuda_device)
+    act_s = torch.from_numpy(act_s).to(cuda_device)
+    packed = fused_resnet_kernel.pack_chain_q(qfolded)
+    with pytest.raises(ValueError):  # packed weights of another chain's shapes
+        fused_resnet_kernel.fused_chain(x, qfolded, ("ds",), act_s=act_s,
+                                        packed=[p[:, :, :8].contiguous() for p in packed])
+    with pytest.raises(ValueError):  # one packed weight short
+        fused_resnet_kernel.fused_chain(x, qfolded, ("ds",), act_s=act_s, packed=packed[:3])
     convs, heads = (tensors(t, device=cuda_device)
                     for t in ssh_weights(rng, 16, 16, False, False)[:2])
     with pytest.raises(ValueError):  # x has 8 channels, the convs read 16

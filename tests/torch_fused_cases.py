@@ -15,10 +15,10 @@ def conv_triple(rng, shape):
             (rng.normal(size=(1, c)) * 0.1).astype(np.float32)]
 
 
-def chain_weights(rng, cin, planes, blocks):
-    """The flat ``folded`` list of a bottleneck chain with 4 * planes output
-    channels."""
-    out, cout = [], planes * 4
+def chain_weights(rng, cin, planes, blocks, cout=None):
+    """The flat ``folded`` list of a bottleneck chain with ``cout`` (default 4
+    * planes) output channels."""
+    out, cout = [], cout or planes * 4
     for kind in blocks:
         out += conv_triple(rng, (cin, planes)) + conv_triple(rng, (3, 3, planes, planes))
         out += conv_triple(rng, (planes, cout))
