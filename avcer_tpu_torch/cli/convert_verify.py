@@ -281,7 +281,7 @@ def run_calibration(weights_dir: str, calib_videos: list[str], progress=print, b
     cfg = base_cfg if base_cfg is not None else PipelineConfig()
     cfg = dataclasses.replace(
         cfg, weights_dir=weights_dir,
-        detector=dataclasses.replace(cfg.detector, quant="int8", transfer_format="bgr"),
+        detector=dataclasses.replace(cfg.detector, quant="int8"),
         visual=dataclasses.replace(cfg.visual, quant="int8"),
         audio=dataclasses.replace(cfg.audio, quant="int8"))
     pipe = build_pipeline(cfg, wav2vec2_config=wav2vec2_config, device=device)
@@ -369,9 +369,8 @@ def _golden_e2e(weights_dir: str, device: str = "cuda", base_cfg=None,
     with tempfile.TemporaryDirectory() as td:
         video = os.path.join(td, "golden.avi")
         make_clip(video, os.path.join(td, "golden.wav"), seconds=2)
-        cfg = dataclasses.replace(base_cfg if base_cfg is not None else PipelineConfig(
-            detector=dataclasses.replace(PipelineConfig().detector, transfer_format="bgr")),
-            weights_dir=weights_dir)
+        cfg = dataclasses.replace(base_cfg if base_cfg is not None else PipelineConfig(),
+                                  weights_dir=weights_dir)
         pipe = build_pipeline(cfg, wav2vec2_config=wav2vec2_config, device=device)
         clip = pipe.run(video)
         out = os.path.join(td, "out")

@@ -35,8 +35,7 @@ def build_stage(method: str, backbone: str, threshold: float, long_side: int,
 
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
-    cfg = DetectorConfig(backbone=backbone, threshold=threshold, long_side=long_side,
-                         transfer_format="bgr")
+    cfg = DetectorConfig(backbone=backbone, threshold=threshold, long_side=long_side)
     if method == "s3fd":
         from avcer_tpu_torch.models.s3fd import S3FDNet
         from avcer_tpu_torch.pipeline.detect_s3fd import S3FDStage

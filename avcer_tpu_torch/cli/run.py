@@ -36,9 +36,15 @@ checkpoints in ``--weights_dir`` are loaded (``core.checkpoint``), and the
 port's int8 calibration sidecars beside them adopted. ``--data_parallel N``
 serves over a data-parallel mesh of N devices (``MeshConfig(data=N)``, see
 ``pipeline.builder``); with fewer devices the build raises the mesh error.
-Refused, each by name, while the arguments are parsed: ``--calibrate`` and
-``--compile_cache_dir``, TPU-only and in ROADMAP's "Not ported" list.
-``--device`` defaults to cuda and never falls back to the CPU on its own.
+Frames cross to the card in the JAX package's default wire format, I420
+(``pipeline.detect``). ``--calibrate`` measures the emotion CNN's and the
+audio stage's batch sizes on the card and caches the winners per card and
+configuration (``pipeline.calibrate``). ``--compile_cache_dir DIR`` (else
+``AVCER_COMPILE_CACHE``, else ``build/avcer_tpu_torch/``) is where the CUDA
+kernels' libraries are built and loaded from (``_build``), so that a restart
+loads them warm; "" (or 0, off, none, disabled) builds them anew into a
+temporary directory. ``--device`` defaults to cuda and never falls back to
+the CPU on its own.
 """
 
 from __future__ import annotations
@@ -54,10 +60,6 @@ import time
 from avcer_tpu_torch.core.config import (AudioConfig, DetectorConfig, FusionConfig,
                                          MeshConfig, PipelineConfig, VisualConfig)
 
-NOT_PORTED = {
-    "calibrate": "ROADMAP, \"Not ported\": TPU batch-size calibration",
-    "compile_cache_dir": "ROADMAP, \"Not ported\": the XLA compile cache",
-}
 TRACE_FILE = "trace.json"
 PROFILES = ("parity", "balanced", "int8", "int8_s2", "int8_448", "int8_448_s2", "fast", "turbo",
             "max")
@@ -105,15 +107,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="default: v3 for 8 classes, v2 for 7 (the reference's pairing)")
     p.add_argument("--profile_dir", type=str, default="",
                    help="write a torch.profiler Chrome trace of the run here")
-    p.add_argument("--calibrate", action="store_true")
-    p.add_argument("--compile_cache_dir", type=str, default=None)
+    p.add_argument("--calibrate", action="store_true",
+                   help="measure the CNN and audio batch sizes on this card once and cache "
+                        "them (pipeline.calibrate)")
+    p.add_argument("--compile_cache_dir", type=str, default=None,
+                   help="the CUDA kernels' library cache (default $AVCER_COMPILE_CACHE, else "
+                        "build/avcer_tpu_torch/); '' builds into a temporary directory")
     a = p.parse_args(argv)
     a.audio_head = a.audio_head or ("v3" if a.audio_classes == 8 else "v2")
-    asked = {"calibrate": a.calibrate, "compile_cache_dir": bool(a.compile_cache_dir)}
-    refused = [f"--{flag} is not ported ({NOT_PORTED[flag]})"
-               for flag, hit in asked.items() if hit]
-    if refused:
-        p.error("; ".join(refused))
     return a
 
 
@@ -136,7 +137,7 @@ def profiled(path: str, device="cuda"):
 
 def config_from_args(a: argparse.Namespace) -> PipelineConfig:
     """The JAX package's ``pipeline_config_from_args`` mapping, field for
-    field, except ``transfer_format`` (the I420 wire format is not ported)."""
+    field."""
     profile = a.serving_profile
     quant = "none" if profile in ("parity", "balanced") else "int8"
     mobilenet = profile in ("fast", "turbo", "max")
@@ -149,7 +150,7 @@ def config_from_args(a: argparse.Namespace) -> PipelineConfig:
     cnn_stride = a.cnn_stride if a.cnn_stride is not None else (0 if profile == "max" else 1)
     return PipelineConfig(
         detector=DetectorConfig(
-            long_side=long_side, stride=stride, quant=quant, transfer_format="bgr",
+            long_side=long_side, stride=stride, quant=quant,
             backbone="mobilenet0.25" if mobilenet else "resnet50",
             # the mobilenet presets serve detect batches of 128, as in the JAX package
             batch_size=128 if mobilenet else 32,
@@ -166,7 +167,6 @@ def config_from_args(a: argparse.Namespace) -> PipelineConfig:
                             ce_weights_type=a.ce_weights_type, ce_mask=not a.no_ce_mask),
         mesh=MeshConfig(data=a.data_parallel),
         save_face_crops=a.save_face_crops, heatmaps=a.heatmaps,
-        # refused by parse_args; check_supported is the second guard
         calibrate=a.calibrate,
         weights_dir=a.weights_dir,
     )
@@ -175,6 +175,10 @@ def config_from_args(a: argparse.Namespace) -> PipelineConfig:
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
     a = parse_args(argv)
+    if a.compile_cache_dir is not None:  # before any kernel is loaded
+        from avcer_tpu_torch import _build
+
+        _build.set_cache_dir(a.compile_cache_dir)
     from avcer_tpu_torch.pipeline.builder import build_pipeline
 
     pipe = build_pipeline(config_from_args(a), device=a.device)  # raises without CUDA

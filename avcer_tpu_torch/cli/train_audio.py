@@ -18,8 +18,9 @@ the resumable checkpoint, ``stats.csv``, TensorBoard scalars and
 ``DATA_PARALLEL`` and ``MODEL_PARALLEL`` set the trainer's mesh
 (``MeshConfig(data, model)``, ``train.trainer``) over the devices of
 ``--device``'s kind; with fewer devices the mesh error is raised before any
-data is read. Refused by name: ``--compile_cache_dir`` (the XLA compile
-cache, ROADMAP "Not ported").
+data is read. ``--compile_cache_dir DIR`` (default ``AVCER_COMPILE_CACHE``,
+else ``build/avcer_tpu_torch/``) is where the CUDA kernels' libraries are
+built and loaded from (``_build``), so that a resumed run loads them warm.
 """
 
 from __future__ import annotations
@@ -30,8 +31,6 @@ import logging
 from typing import Any
 
 log = logging.getLogger("avcer_tpu_torch")
-
-COMPILE_CACHE = "ROADMAP, \"Not ported\": the XLA compile cache"
 
 
 def example_config() -> dict[str, Any]:
@@ -65,17 +64,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--resume", action="store_true",
                    help="continue from the latest checkpoint in the log dir")
     p.add_argument("--compile_cache_dir", type=str, default="",
-                   help="not ported (the JAX package's XLA compile cache)")
+                   help="the CUDA kernels' library cache (default $AVCER_COMPILE_CACHE, else "
+                        "build/avcer_tpu_torch/)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    a = p.parse_args(argv)
-    if a.compile_cache_dir:
-        p.error(f"--compile_cache_dir is not ported ({COMPILE_CACHE})")
-    return a
+    return p.parse_args(argv)
 
 
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     a = parse_args(argv)
+    if a.compile_cache_dir:  # as in the JAX CLI, "" keeps the default
+        from avcer_tpu_torch import _build
+
+        _build.set_cache_dir(a.compile_cache_dir)
     if a.print_example_config or not a.config:
         print(json.dumps(example_config(), indent=2))
         return 0

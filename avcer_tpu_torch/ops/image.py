@@ -100,3 +100,45 @@ def resize_bilinear_uint8(frames: torch.Tensor, nh: int, nw: int) -> torch.Tenso
     x = frames.permute(0, 3, 1, 2).float()
     y = F.interpolate(x, size=(nh, nw), mode="bilinear", align_corners=False)
     return y.round_().clamp_(0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+
+
+# The I420 wire format (avcer_tpu/ops/image.py:193-236): the host letterboxes
+# and converts each frame to I420 with cv2 (BT.601 studio swing, top-left
+# chroma subsample), the upload carries 1.5 bytes a pixel instead of 3, and
+# the device rebuilds BGR (within 1 of cv2.COLOR_YUV2BGR_I420). On the card
+# the rebuild is the CUDA kernel ``ops.cuda.image_kernel.i420_to_bgr``.
+
+
+def bgr_batch_to_i420(frames: np.ndarray) -> np.ndarray:
+    """[B, H, W, 3] uint8 BGR -> [B, H*3//2, W] uint8 I420 (host, cv2)."""
+    import cv2
+
+    b, h, w = frames.shape[:3]
+    out = np.empty((b, h * 3 // 2, w), np.uint8)
+    for i in range(b):
+        out[i] = cv2.cvtColor(frames[i], cv2.COLOR_BGR2YUV_I420)
+    return out
+
+
+def i420_to_bgr_plain(wire: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[B, H*3//2, W] uint8 I420 -> [B, H, W, 3] uint8 BGR, the JAX formula in
+    its order: ``1.164 (y - 16)``, each chroma value repeated over its 2 x 2
+    quad minus 128, the three sums, round half to even, clamp, cast. The
+    chroma planes are packed flat after the Y plane, and the U plane ends
+    mid-row where (H/2)(W/2) is not a multiple of W, so they are read flat."""
+    xf = wire.float()
+    b = wire.shape[0]
+    y = xf[:, :h, :]
+    qh, qw = h // 2, w // 2
+    chroma = xf[:, h:, :].reshape(b, -1)
+    qsize = qh * qw
+    u = chroma[:, :qsize].reshape(b, qh, qw)
+    v = chroma[:, qsize:2 * qsize].reshape(b, qh, qw)
+    uf = u.repeat_interleave(2, 1).repeat_interleave(2, 2) - 128.0
+    vf = v.repeat_interleave(2, 1).repeat_interleave(2, 2) - 128.0
+    yb = 1.164 * (y - 16.0)
+    bl = yb + 2.018 * uf
+    g = yb - 0.391 * uf - 0.813 * vf
+    r = yb + 1.596 * vf
+    bgr = torch.stack([bl, g, r], dim=-1)
+    return torch.round(bgr).clamp(0.0, 255.0).to(torch.uint8)

@@ -122,6 +122,18 @@ class AudioStage:
         f_idx = f_idx.clamp(0, feats.shape[0] - 1)
         return self.model(feats[f_idx], w2v_mode="from_features")
 
+    def forward_windows(self, wav_dev: torch.Tensor, wav_len: int, starts: torch.Tensor,
+                        feats: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits [N, C] f32 of one batch of windows starting at ``starts``:
+        from the clip's shared feature stream ``feats``, or cut from
+        ``wav_dev`` (zero-padded by a window past ``wav_len``) with the
+        configured padding and normalised one by one."""
+        if feats is not None:
+            return self.from_features(feats, starts).float()
+        windows = audio_ops.extract_windows(wav_dev, wav_len, starts, self.window,
+                                            self.cfg.padding)
+        return self.model(audio_ops.feature_extractor_normalize(windows)).float()
+
     @torch.inference_mode()
     def run_from_wav(self, wav: np.ndarray, fps: float) -> tuple[np.ndarray, AudioWindows]:
         """Returns (logits [W, C] f32, AudioWindows for the frame mapping)."""
@@ -146,15 +158,8 @@ class AudioStage:
                     self._real_calibrated = True
 
         def run_chunks(st: torch.Tensor, feats: Optional[torch.Tensor]) -> torch.Tensor:
-            outs = []
-            for i in range(0, len(st), bs):
-                chunk = st[i:i + bs]
-                if feats is not None:
-                    outs.append(self.from_features(feats, chunk).float())
-                else:
-                    outs.append(self.model(
-                        audio_ops.feature_extractor_normalize(windows_of(chunk))).float())
-            return torch.cat(outs)
+            return torch.cat([self.forward_windows(wav_dev, len(wav), st[i:i + bs], feats)
+                              for i in range(0, len(st), bs)])
 
         if not self.cfg.shared_extractor:
             return run_chunks(starts, None).cpu().numpy(), meta

@@ -27,6 +27,11 @@ CUDA device, or the CPU where ``device`` is the CPU; too few raise the mesh
 error). The detector and the static CNN keep a replica a device and shard
 their batches, the fused switches are off (as in the JAX package), and the
 stages live on the mesh's first device.
+
+``cfg.calibrate`` (``cli.run --calibrate``): once the stages are built and
+their sidecars adopted, ``pipeline.calibrate`` sets the CNN and audio batch
+sizes from the cache in ``calibrate.DEFAULT_CACHE``, or measures them on the
+device and caches them there.
 """
 
 from __future__ import annotations
@@ -162,4 +167,9 @@ def build_pipeline(
                      checkpoint.act_scales_path(cfg.weights_dir, family))
         except Exception as e:  # noqa: BLE001 - the model changed since the sidecar was written
             log.warning("act_scales sidecar for %s incompatible (%s) — ignored", family, e)
-    return Pipeline(cfg, detect, visual, audio, device=device, mesh=mesh)
+    pipe = Pipeline(cfg, detect, visual, audio, device=device, mesh=mesh)
+    if cfg.calibrate:
+        from avcer_tpu_torch.pipeline import calibrate
+
+        calibrate.calibrate(pipe, calibrate.DEFAULT_CACHE)
+    return pipe

@@ -2,14 +2,25 @@
 normalise -> RetinaFace -> decode -> top-64 candidates -> greedy NMS, on the
 device and batched over frames. Only the tracker stays on the host.
 
-The letterbox runs on the device (bilinear, half-pixel centres, rounded to
-uint8), the stand-in for the JAX package's host ``cv2.resize(INTER_LINEAR)``
-on a card with no OpenCV; it is within 1 LSB of cv2. Greedy NMS on the card
-is the CUDA kernel (``ops.cuda.nms_kernel``). The detector's fused switches
-(``DetectorConfig.fused_*``) are the model's: ``pipeline.builder`` hands them
-to ``RetinaFace``, and the stage runs whichever model it is given: the r50 or
-the mobilenet0.25 detector. ``DetectorConfig.stride`` runs the network on
-every stride-th frame of a batch; the runner interpolates the boxes between.
+Frames cross to the device in ``DetectorConfig.transfer_format``, as in the
+JAX package (``prepare_wire`` on the host, in the runner's prefetch thread,
+then ``dispatch_wire``):
+
+- ``"i420"``, the default: the host letterboxes each frame with
+  ``cv2.resize(INTER_LINEAR)`` (or pads it to a multiple of 32 where
+  ``long_side`` is 0) and converts it to I420 with cv2; the upload carries 1.5
+  bytes a pixel and the device rebuilds BGR (``ops.cuda.image_kernel``, the
+  CUDA kernel on the card). Detector, calibration and crop stage all read the
+  rebuilt frames.
+- ``"bgr"``: the native frames are uploaded and letterboxed on the device
+  (bilinear, half-pixel centres, rounded to uint8, within 1 LSB of cv2).
+
+Greedy NMS on the card is the CUDA kernel (``ops.cuda.nms_kernel``). The
+detector's fused switches (``DetectorConfig.fused_*``) are the model's:
+``pipeline.builder`` hands them to ``RetinaFace``, and the stage runs
+whichever model it is given: the r50 or the mobilenet0.25 detector.
+``DetectorConfig.stride`` runs the network on every stride-th frame of a
+batch; the runner interpolates the boxes between.
 
 int8 (``DetectorConfig.quant == "int8"``): the model's static activation
 scales are seeded at build on two noise frames, refined once per process on
@@ -20,12 +31,13 @@ when the stage serves through the fused kernels.
 
 Data parallelism (``mesh``, ``--data_parallel N``): the stage keeps one
 replica of the model a device of the mesh's data axis (the model itself where
-a device is named again), splits each network batch into N equal shards
-(raising where N does not divide it, as the JAX package's ``device_put`` onto
-the sharded batch does), runs each shard through the whole forward (network,
-decode, top-K, NMS: K1 at ``[B / N, 64, 4]``) on its device, and gathers the
-results onto the first device. The builder turns the fused switches off under
-a mesh, as the JAX package does. Calibrated scales go to every replica.
+a device is named again), splits each network batch of frames (the rebuilt
+ones under I420) into N equal shards (raising where N does not divide it, as
+the JAX package's ``device_put`` onto the sharded batch does), runs each shard
+through the whole forward (network, decode, top-K, NMS: K1 at
+``[B / N, 64, 4]``) on its device, and gathers the results onto the first
+device. The builder turns the fused switches off under a mesh, as the JAX
+package does. Calibrated scales go to every replica.
 """
 
 from __future__ import annotations
@@ -44,9 +56,10 @@ from avcer_tpu_torch.core.config import DetectorConfig
 from avcer_tpu_torch.models import layers
 from avcer_tpu_torch.ops import boxes as box_ops
 from avcer_tpu_torch.ops import nms as nms_ops
+from avcer_tpu_torch.ops.cuda.image_kernel import i420_to_bgr
 from avcer_tpu_torch.ops.cuda.nms_kernel import nms_mask
-from avcer_tpu_torch.ops.image import (letterbox_params, resize_bilinear_uint8,
-                                       retinaface_normalize)
+from avcer_tpu_torch.ops.image import (bgr_batch_to_i420, letterbox_params,
+                                       resize_bilinear_uint8, retinaface_normalize)
 from avcer_tpu_torch.parallel.mesh import split_rows
 
 
@@ -71,11 +84,9 @@ class DetectStage:
 
     def __init__(self, cfg: DetectorConfig, model: torch.nn.Module,
                  device: torch.device | str = "cuda", mesh=None):
-        if cfg.transfer_format != "bgr":
-            raise ValueError(
-                f"transfer_format={cfg.transfer_format!r}: the I420 wire format "
-                "is not ported (ROADMAP queue 1, 'Not ported': I420 wire "
-                "format); use transfer_format='bgr'")
+        if cfg.transfer_format not in ("i420", "bgr"):
+            raise ValueError(f"transfer_format={cfg.transfer_format!r}: only 'i420' and 'bgr' "
+                             "exist")
         if cfg.stride > 1 and cfg.batch_size % cfg.stride:
             raise ValueError(
                 f"detector stride {cfg.stride} must divide batch_size {cfg.batch_size} "
@@ -167,10 +178,32 @@ class DetectStage:
                 "quantized with too-small scales; scales updated from here on. Consider "
                 "calibrate() on representative frames up front.", (growth - 1) * 100)
 
-    def prepare_batch(self, frames: np.ndarray) -> tuple[torch.Tensor, float]:
-        """Upload [B, H, W, 3] uint8 BGR and letterbox it on the device to the
-        configured bucket (or pad to a multiple of 32 when long_side is 0).
-        Returns (frames on the device, scale bucket -> native)."""
+    def letterbox_host(self, frames: np.ndarray) -> tuple[np.ndarray, float]:
+        """The JAX package's host prep: [B, H, W, 3] uint8 BGR letterboxed to
+        the configured bucket with ``cv2.resize(INTER_LINEAR)``, or padded to
+        a multiple of 32 when long_side is 0. Returns (frames, scale bucket ->
+        native)."""
+        import cv2
+
+        b, h, w = frames.shape[:3]
+        if self.cfg.long_side > 0:
+            nh, nw, scale = letterbox_params(h, w, self.cfg.long_side)
+            if (nh, nw) != (h, w):
+                out = np.empty((b, nh, nw, 3), dtype=frames.dtype)
+                for i in range(b):
+                    out[i] = cv2.resize(frames[i], (nw, nh), interpolation=cv2.INTER_LINEAR)
+                frames = out
+            return frames, scale
+        pad_h, pad_w = (-h) % 32, (-w) % 32
+        if pad_h or pad_w:
+            frames = np.pad(frames, ((0, 0), (0, pad_h), (0, pad_w), (0, 0)))
+        return frames, 1.0
+
+    def letterbox_device(self, frames: np.ndarray) -> tuple[torch.Tensor, float]:
+        """The ``"bgr"`` route's prep: upload [B, H, W, 3] uint8 BGR and
+        letterbox it on the device to the configured bucket (or pad to a
+        multiple of 32 when long_side is 0). Returns (frames on the device,
+        scale bucket -> native)."""
         x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
         b, h, w = frames.shape[:3]
         if self.cfg.long_side > 0:
@@ -182,6 +215,37 @@ class DetectStage:
         if pad_h or pad_w:
             x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
         return x, 1.0
+
+    def prepare_batch(self, frames: np.ndarray) -> tuple[torch.Tensor, float]:
+        """[B, H, W, 3] uint8 BGR letterboxed as the wire format letterboxes
+        it (on the host with cv2 for ``"i420"``, on the device for
+        ``"bgr"``), as BGR on the device, without the I420 round trip.
+        Returns (frames on the device, scale bucket -> native)."""
+        if self.cfg.transfer_format == "i420":
+            prepped, scale = self.letterbox_host(frames)
+            return torch.from_numpy(np.ascontiguousarray(prepped)).to(self.device), scale
+        return self.letterbox_device(frames)
+
+    def prepare_wire(self, frames: np.ndarray) -> tuple[np.ndarray, float]:
+        """The host half of ``dispatch``, safe in a prefetch thread (cv2 and
+        numpy release the GIL): with ``"i420"`` the letterboxed frames in
+        I420, [B, H*3//2, W] uint8; with ``"bgr"`` the native frames as they
+        are (the device letterboxes them). Returns (wire, scale)."""
+        if self.cfg.transfer_format == "i420":
+            prepped, scale = self.letterbox_host(frames)
+            return bgr_batch_to_i420(prepped), scale
+        h, w = frames.shape[1:3]
+        scale = letterbox_params(h, w, self.cfg.long_side)[2] if self.cfg.long_side > 0 else 1.0
+        return frames, scale
+
+    def upload_wire(self, wire: np.ndarray) -> torch.Tensor:
+        """The wire on the device as letterboxed BGR frames [B, H, W, 3]
+        uint8: the I420 upload rebuilt by ``i420_to_bgr``, or the native
+        frames uploaded and letterboxed."""
+        if self.cfg.transfer_format == "i420":
+            x = torch.from_numpy(np.ascontiguousarray(wire)).to(self.device)
+            return i420_to_bgr(x, wire.shape[1] * 2 // 3, wire.shape[2])
+        return self.letterbox_device(wire)[0]
 
     def _priors_for(self, h: int, w: int, device: torch.device | None = None) -> torch.Tensor:
         device = self.device if device is None else device
@@ -222,13 +286,21 @@ class DetectStage:
         return torch.cat([cand_boxes, cand_scores[..., None],
                           keep.float()[..., None], cand_landms], dim=-1)
 
-    def dispatch(self, frames: np.ndarray) -> tuple[torch.Tensor, float, torch.Tensor]:
-        """Enqueue detection for a batch: (packed on the device, scale,
-        letterboxed frames on the device for the crop stage)."""
-        frames_dev, scale = self.prepare_batch(frames)
+    def dispatch_wire(self, wire: np.ndarray, scale: float
+                      ) -> tuple[torch.Tensor, float, torch.Tensor]:
+        """The device half of ``dispatch`` for a wire from ``prepare_wire``:
+        upload, rebuild or letterbox, the int8 calibration watch on those
+        frames, and the forward. Returns (packed on the device, scale,
+        letterboxed BGR frames on the device for the crop stage)."""
+        frames_dev = self.upload_wire(wire)
         if self.quant:
             self._watch_calibration(frames_dev)
         return self.forward(frames_dev), scale, frames_dev
+
+    def dispatch(self, frames: np.ndarray) -> tuple[torch.Tensor, float, torch.Tensor]:
+        """Enqueue detection for a batch of native [B, H, W, 3] uint8 BGR
+        frames: ``prepare_wire`` then ``dispatch_wire``."""
+        return self.dispatch_wire(*self.prepare_wire(frames))
 
     @staticmethod
     def unpack(packed_np: np.ndarray, scale: float) -> Detections:

@@ -8,7 +8,8 @@ alternative to ``DetectStage`` (the reference's s3fd_predictor.py):
   ``plus_one=False`` mode;
 - the same packed [B, K, 16] rows as ``DetectStage``, landmark slots zero
   (S3FD has no landmark head), so the runner's unpacking and the tracker are
-  reused, as is ``DetectStage``'s device letterbox.
+  reused, as are ``DetectStage``'s wire formats (the I420 default rebuilt on
+  the device, as JAX ``detect_s3fd.py`` does) and its letterbox.
 
 Refused, as in the JAX package: a detect stride above 1 (the forward has no
 stride slicing) and int8 serving.
@@ -32,8 +33,8 @@ S3FD_NMS_THRESH = 0.3
 
 
 class S3FDStage(DetectStage):
-    """``DetectStage``'s host prep, device letterbox, dispatch and unpack
-    with the S3FD network, its anchors and its post-processing."""
+    """``DetectStage``'s wire, letterbox, dispatch and unpack with the S3FD
+    network, its anchors and its post-processing."""
 
     prior_boxes = staticmethod(s3fd_priors)
 

@@ -70,14 +70,13 @@ class ClipResult:
 
 
 def check_supported(cfg: PipelineConfig) -> None:
-    """Raise for configuration the port does not run yet, naming the ROADMAP
-    item that ports it. Nothing is quietly ignored."""
+    """Raise for configuration that does not exist. Nothing is quietly
+    ignored."""
     unsupported = {
         f"heatmaps={cfg.heatmaps!r} (only '', 'static' and 'dynamic' exist)":
             cfg.heatmaps not in ("", "static", "dynamic"),
         f"visual.quant={cfg.visual.quant!r} (only 'none' and 'int8' exist)":
             cfg.visual.quant not in ("none", "int8"),
-        "calibrate (not ported: batch sizes are measured with bench.py)": cfg.calibrate,
     }
     bad = [name for name, hit in unsupported.items() if hit]
     if bad:
@@ -300,11 +299,26 @@ class Pipeline:
                 feats_list.append(feats)
             pending, det_boxes_nat, drained = [], [], 0
 
+        # letterbox + wire conversion in the prefetch thread, overlapping the
+        # device work of the batches before (cv2 releases the GIL); a detect
+        # stage without a host half (a stub) is dispatched whole
+        can_prepare_ahead = hasattr(self.detect, "prepare_wire")
+
+        def prepared():
+            for frames_np, n_valid in reader.batches(cfg.batch_size):
+                if can_prepare_ahead:
+                    yield (*self.detect.prepare_wire(frames_np), n_valid, frames_np.shape[0])
+                else:
+                    yield frames_np, None, n_valid, frames_np.shape[0]
+
         frames_in_pending = 0
-        for frames_np, n_valid in media.prefetch_iter(reader.batches(cfg.batch_size)):
-            packed, scale, frames_dev = self.detect.dispatch(frames_np)
+        for wire, scale, n_valid, nbatch in media.prefetch_iter(prepared()):
+            if can_prepare_ahead:
+                packed, scale, frames_dev = self.detect.dispatch_wire(wire, scale)
+            else:
+                packed, scale, frames_dev = self.detect.dispatch(wire)
             pending.append((packed, n_valid, frames_dev, scale))
-            frames_in_pending += frames_np.shape[0]
+            frames_in_pending += nbatch
             while len(pending) - drained > 2:  # keep 2 batches in flight
                 drain_one()
             if frames_in_pending >= chunk_cap:

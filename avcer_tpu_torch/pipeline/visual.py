@@ -220,13 +220,18 @@ class VisualStage:
         idx_all = torch.from_numpy(np.pad(present_idx.astype(np.int64), (0, fill), "edge"))
         boxes_all = torch.from_numpy(np.pad(boxes.astype(np.int64), ((0, fill), (0, 0)), "edge"))
         idx_all, boxes_all = idx_all.to(self.device), boxes_all.to(self.device)
-        outs = []
-        for s in range(0, p, bs):
-            crops = crop_and_resize(frames_dev, idx_all[s:s + bs], boxes_all[s:s + bs], 224)
-            logits, feats = self._static(vggface_normalize(crops))
-            outs.append(torch.cat([torch.softmax(logits.float(), dim=-1), feats.float()], -1))
-        packed = torch.cat(outs)[:p].cpu().numpy()
+        packed = torch.cat([self.static_batch(frames_dev, idx_all[s:s + bs], boxes_all[s:s + bs])
+                            for s in range(0, p, bs)])[:p].cpu().numpy()
         return packed[:, :self.num_classes], packed[:, self.num_classes:]
+
+    def static_batch(self, frames_dev: torch.Tensor, idx: torch.Tensor,
+                     boxes: torch.Tensor) -> torch.Tensor:
+        """One CNN batch on the device: the crops of frames ``idx`` at
+        ``boxes`` (both on the device) -> [N, C + 512] f32, softmaxed
+        probabilities then features."""
+        logits, feats = self._static(vggface_normalize(crop_and_resize(frames_dev, idx, boxes,
+                                                                       224)))
+        return torch.cat([torch.softmax(logits.float(), dim=-1), feats.float()], -1)
 
     @torch.inference_mode()
     def run_static(self, crops: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -6,7 +6,7 @@
 Phases, each of which raises on failure (the exit code is then non-zero):
 
 1. device: requires CUDA, prints the card's name and power limit;
-2. build: compiles the four CUDA sources from csrc/ with nvcc (sm_90a), all
+2. build: compiles the five CUDA sources from csrc/ with nvcc (sm_90a), all
    at once, and prints each one's build time, registers and spills;
 3. pipelines: the full-width audio-visual pipeline (RetinaFace-r50 @640,
    EmotionResNet50, LSTM, wav2vec2-large 12 layers + ExprModel V3, bf16,
@@ -38,16 +38,20 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    fused_chain_flat at the seven stride-1 chains of those calls, each
    with its plan (band height, C, grid), equal to fused_chain bit for bit
    and, where C > 1, to C = 1, timed beside fused_chain (its plain version
-   over 3 runs);
+   over 3 runs); the I420 rebuild (``i420_to_bgr``) at the r50 paths'
+   ``[32, 360, 640]`` and the mobilenet presets' ``[128, 252, 448]``, on the
+   clip's wire and on random bytes, equal bit for bit to its plain version;
 5. reference: each model's output on the card (bf16, kernels), unfused and
    fused, exact and int8, against the same seeded weights (and the same
    activation scales) in f32 on the CPU (plain versions), on a small input;
    the mobilenet detector likewise; the body's depthwise convolutions (library
    calls) timed beside their bytes bound;
 6. main path, four times: unfused, fused (``cli.run --fused``), int8 unfused
-   and int8 fused (``--serving_profile int8 [--fused]``): an 8 s synthetic
+   and int8 fused (``--serving_profile int8 [--fused]``), on the I420 wire
+   (the JAX package's default, as ``cli.run`` serves it): an 8 s synthetic
    640x360 clip and a 16 kHz wav: one warm-up run (in int8 it also refines
-   the scales, which then stay frozen), then three timed runs, each with its
+   the scales, which then stay frozen), then three timed runs (int8
+   unfused: one), each with its
    outputs and the launch counts of the kernels checked (every attention
    launch in the tensor-core kernel); the fused runs' compound decisions
    against the unfused runs'; one more run of the unfused exact path and of
@@ -58,7 +62,18 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    packs int8 weights (the models pack them once, when they fold). In every warm-up run, of
    these paths and of the presets', each kernel call with shapes, types or
    modes that no path has shown yet is held against the kernel's plain
-   version on the call's own inputs;
+   version on the call's own inputs. The I420 rebuild launches once a detect
+   batch, as often in the profiled runs' traces. ``parity`` and ``int8
+   --fused`` once more with the rebuild on its plain version: every output
+   equal to the kernel's run. ``parity`` on the ``bgr`` wire (a second
+   pipeline: warm-up and a checked run), then three runs of each wire in
+   turns, both medians with their ranges. ``--calibrate``: ``parity`` built
+   with it and a temporary cache (every candidate timed, the choice applied),
+   a second call that hits the cache and times nothing, and the calibrated
+   batches' run against the default one. ``--compile_cache_dir``: the built
+   libraries copied to a temporary directory, and a fresh process serving
+   ``cli.run --fused --compile_cache_dir DIR`` on a 2 s clip loads all five
+   with no nvcc build, with its time to its first kernel launch;
 7. release files and the rest of the CLI: the seeded f32 weights written as
    the reference's release files (the detector's ``module.`` prefix, the
    trainer's wrapper, the positional conv's weight-norm factors),
@@ -69,8 +84,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    distinct kernel call of its warm-up run held against the plain version
    (K1's and K3's too), and in a second run its launches, its jpgs,
    heatmaps and audio CSV checked; V1's audio stage timed against V3's;
-8. the presets: ``max --fused`` and ``turbo`` unfused the same way (three
-   timed runs, launch counts: ``fused_ssh_heads`` three times a detect batch
+8. the presets: ``max --fused`` (three timed runs) and ``turbo`` unfused
+   (one) the same way (launch counts: ``fused_ssh_heads`` three times a detect batch
    and every launch with leaky 0.1; ``max --fused`` also one profiled run),
    ``max``'s dynamic stream held bit for
    bit against ``turbo --fused``'s, and one timed run each of ``balanced``,
@@ -170,7 +185,7 @@ from avcer_tpu_torch.models import wav2vec2 as wav2vec2_module  # noqa: E402
 from avcer_tpu_torch.models.retinaface import (RetinaFace, fold_pairs, nhwc,  # noqa: E402
                                                upsample_nearest_to)
 from avcer_tpu_torch.ops.cuda import (attention_kernel, fused_resnet_kernel,  # noqa: E402
-                                      fused_ssh_kernel, nms_kernel)
+                                      fused_ssh_kernel, image_kernel, nms_kernel)
 from avcer_tpu_torch.ops.image import resize_bilinear_uint8, retinaface_normalize  # noqa: E402
 from avcer_tpu_torch.pipeline import detect as detect_module  # noqa: E402
 from avcer_tpu_torch.pipeline import detect_s3fd as detect_s3fd_module  # noqa: E402
@@ -193,13 +208,27 @@ PEAK_BYTES = 3.35e12
 WRAPPERS = {"nms_mask": nms_kernel.nms_mask, "mha": attention_kernel.mha,
             "fused_chain": fused_resnet_kernel.fused_chain,
             "fused_ssh_heads": fused_ssh_kernel.fused_ssh_heads,
-            "fused_chain_flat": fused_resnet_kernel.fused_chain_flat}
+            "fused_chain_flat": fused_resnet_kernel.fused_chain_flat,
+            "i420_to_bgr": image_kernel.i420_to_bgr}
 #: the modules through which a model or stage reaches each wrapper, and the
 #: wrapper's plain version (no model calls fused_chain_flat)
 PATH_SITES = {"nms_mask": ((detect_module, detect_s3fd_module), nms_kernel.nms_mask_plain),
+              "i420_to_bgr": ((detect_module,), image_kernel.i420_to_bgr_plain),
               "mha": ((wav2vec2_module,), attention_kernel.mha_plain),
               "fused_chain": ((retinaface_module,), fused_resnet_kernel.fused_chain_plain),
               "fused_ssh_heads": ((retinaface_module,), fused_ssh_kernel.fused_ssh_heads_plain)}
+#: each main path's launches in its last timed run, by the path's label
+PATH_LAUNCHES: dict[str, dict[str, int]] = {}
+#: the I420 rebuild's device time a launch in each profiled run, by label
+I420_TRACED: dict[str, float] = {}
+#: the wires the main paths send the I420 rebuild: the r50 detect batch at the
+#: 640 bucket (the clip's 640 x 360 unresized) and the mobilenet presets' at 448
+I420_BUCKETS = ((DETECT_BATCH, 640), (MNET_BATCH, 448))
+#: calibrated against default batch sizes: the largest difference of a static
+#: or audio probability (bf16: another batch may take another library
+#: algorithm, a rounding apart in each of some 60 layers), and the share of
+#: frames whose compound decision must agree (random weights give near-ties)
+CALIB_PROB_TOL, CALIB_AGREE = 0.05, 0.95
 #: every distinct kernel call the main paths have made so far, (wrapper, shapes,
 #: types and modes of its arguments) -> (the entry of the kernels line it
 #: belongs to, the kernel's largest error against its plain version)
@@ -518,10 +547,15 @@ def has_tensor(value) -> bool:
                                       and any(has_tensor(v) for v in value))
 
 
+#: the wrappers whose results must equal their plain versions', and what the
+#: hold says when they do
+EXACT = {"nms_mask": "keep masks equal", "i420_to_bgr": "equal bit for bit"}
+
+
 def hold_on_path(name: str, args: tuple, kw: dict):
     """One kernel call of a main path against the kernel's plain version on
-    the call's own inputs; returns the kernel's result. NMS keep masks must be
-    equal. The others take the tolerances of the kernels phase (attention:
+    the call's own inputs; returns the kernel's result. NMS keep masks and
+    the I420 rebuild must be equal. The others take the tolerances of the kernels phase (attention:
     the plain version in f32 from the same bf16 inputs), with ``atol`` times
     the plain result's largest magnitude where that is above 1: a path's
     activations are not of order 1 as the kernels phase's are, and a bf16 ulp
@@ -533,7 +567,7 @@ def hold_on_path(name: str, args: tuple, kw: dict):
     if name == "mha":
         entry_name += "_" + attention_kernel.kernel_for(args[0].dtype, *args[0].shape[2:])
     got = wrapper(*args, **kw)
-    if name == "nms_mask":
+    if name in EXACT:
         err, tol = float((got != plain(*args, **kw)).sum()), None
         ok = err == 0
     else:
@@ -553,7 +587,7 @@ def hold_on_path(name: str, args: tuple, kw: dict):
         f"{k}={v}" for k, v in kw.items() if v is not None and not has_tensor(v)]
     log(f"  held on the path: {entry_name} {[list(a.shape) for a in args if torch.is_tensor(a)]} "
         f"{modes}{' + up' if kw.get('up') is not None else ''}: "
-        + ("keep masks equal" if tol is None and ok else f"max abs err {err:.3g}")
+        + (EXACT[name] if tol is None and ok else f"max abs err {err:.3g}")
         + ("" if tol is None else f", largest |plain| {largest:.3g} (atol {tol['atol']:.3g} x "
                                   f"max(1, largest |plain|) of each output, rtol {tol['rtol']:.3g})"))
     if not ok:
@@ -1072,13 +1106,15 @@ def phase_kernels_mobilenet(card: str) -> list[dict]:
     return out
 
 
-def smoke_config(dtype: str, fused: bool = False, int8: bool = False) -> PipelineConfig:
-    """``cli.run``'s configuration: ``--fused`` sets the seven fused switches,
-    ``--serving_profile int8`` quantises all three stages and shares the audio
-    extractor."""
+def smoke_config(dtype: str, fused: bool = False, int8: bool = False,
+                 wire: str = "i420") -> PipelineConfig:
+    """``cli.run``'s configuration: the I420 wire format, ``--fused`` sets the
+    seven fused switches, ``--serving_profile int8`` quantises all three
+    stages and shares the audio extractor. ``wire="bgr"``: native frames
+    uploaded and letterboxed on the card."""
     quant = "int8" if int8 else "none"
     return PipelineConfig(
-        detector=DetectorConfig(batch_size=DETECT_BATCH, long_side=640, transfer_format="bgr",
+        detector=DetectorConfig(batch_size=DETECT_BATCH, long_side=640, transfer_format=wire,
                                 dtype=dtype, quant=quant, fused_layer1=fused, fused_tails=fused,
                                 fused_entries=fused, fused_ssh=fused, fused_fpn=fused),
         visual=VisualConfig(batch_size=CNN_BATCH, dtype=dtype, quant=quant, fused=fused,
@@ -1270,6 +1306,12 @@ class ForceTopFace:
     def dispatch(self, frames):
         return self.inner.dispatch(frames)
 
+    def prepare_wire(self, frames):
+        return self.inner.prepare_wire(frames)
+
+    def dispatch_wire(self, wire, scale):
+        return self.inner.dispatch_wire(wire, scale)
+
     def unpack(self, packed_np, scale):
         det = self.inner.unpack(packed_np, scale)
         self.raw_kept += int(det.keep.sum())
@@ -1395,14 +1437,14 @@ def phase_main(card: str, pipe, fused: bool, frames: np.ndarray, wav: np.ndarray
                                  f"({fused_resnet_kernel.pack_chain_q.calls - packs} calls)")
         stages = ", ".join(f"{k} {v:.3f} s" for k, v in clip.timings.items())
         log(f"{label} timed run {run}: {stages} on {card}")
+    PATH_LAUNCHES[label] = launches
     hook.remove()
     pipe.visual.run_static_from_frames = run_static
     log(f"detector kept {pipe.detect.raw_kept / max(pipe.detect.frames, 1):.1f} candidates "
         "per detected frame before the top one was forced to be the only face")
     wall = float(np.median(walls))
     if profile:
-        profiled_run(card, pipe, frames, wav, label, wall, launches["nms_mask"],
-                     launches["fused_chain"])
+        profiled_run(card, pipe, frames, wav, label, wall, launches)
     log(f"{label}: {frames.shape[0]} frames ({CLIP_SECONDS} s of video), wall per run "
         f"{', '.join(f'{w:.3f}' for w in walls)} s, median {wall:.3f} s = "
         f"{CLIP_SECONDS / wall:.3f} video-sec/sec on {card}; launches per run {launches}, "
@@ -1410,6 +1452,283 @@ def phase_main(card: str, pipe, fused: bool, frames: np.ndarray, wav: np.ndarray
         f"{fused_ssh_kernel.fused_ssh_heads.launches_by_leaky}, emotion CNN forward calls "
         f"{cnn_calls[0]} for {crops_asked[0]} crops")
     return clip, launches
+
+
+def kernels_i420(card: str, frames: np.ndarray) -> dict:
+    """The I420 rebuild (``i420_to_bgr``, no TPU kernel: XLA in the JAX
+    package) against its plain version at the main paths' wires
+    (``I420_BUCKETS``, letterboxed with cv2 and converted as ``prepare_wire``
+    does), on the clip's frames and on uniformly random bytes of the same
+    shape (every clamp and rounding): equal bit for bit. Its time a call
+    (CUDA events, median of 50) and device time (profiler, 20 calls) beside
+    the plain version's and the bytes bound (1.5 bytes a pixel read, 3
+    written, once; some 10 f32 operations a pixel)."""
+    import cv2
+    from avcer_tpu_torch.ops.image import bgr_batch_to_i420, letterbox_params
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(0)
+    cases = []
+    for b, long_side in I420_BUCKETS:
+        batch = frames[np.arange(b) % len(frames)]
+        h, w, _ = letterbox_params(HEIGHT, WIDTH, long_side)
+        if (h, w) != (HEIGHT, WIDTH):
+            batch = np.stack([cv2.resize(f, (w, h), interpolation=cv2.INTER_LINEAR)
+                              for f in batch])
+        wire = torch.from_numpy(bgr_batch_to_i420(batch)).to(dev)
+        noise = torch.from_numpy(rng.integers(0, 256, tuple(wire.shape), np.uint8)).to(dev)
+        mismatches = 0
+        for x in (wire, noise):
+            got = image_kernel.i420_to_bgr(x, h, w)
+            want = image_kernel.i420_to_bgr_plain(x, h, w)
+            torch.cuda.synchronize()
+            mismatches += int((got != want).sum())
+        if mismatches:
+            raise AssertionError(f"i420_to_bgr: {mismatches} values differ from the plain "
+                                 f"version at [{b}, {h}, {w}]")
+        ms = median_ms(lambda: image_kernel.i420_to_bgr(wire, h, w))
+        plain_ms = median_ms(lambda: image_kernel.i420_to_bgr_plain(wire, h, w))
+        dev_ms = device_ms(lambda: image_kernel.i420_to_bgr(wire, h, w))
+        nbytes = tensor_bytes(wire, got)
+        bound, by = bound_ms(nbytes, 10.0 * b * h * w, "f32")
+        cases.append(dict(shape=[b, h, w], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                          device_ms=dev_ms, bound_ms=bound, bound_by=by, mbytes=nbytes / 1e6))
+        log(f"kernel i420_to_bgr (i420_to_bgr_kernel) [{b}, {h * 3 // 2}, {w}] -> [{b}, {h}, {w}, "
+            f"3]: equal bit for bit to the plain version on the clip's wire and on random bytes; "
+            f"{ms:.4f} ms a call (median of 50), device time {ms_text(dev_ms)} (profiler, 20 "
+            f"calls), vs plain {plain_ms:.4f} ms; {nbytes / 1e6:.1f} MB, bound {bound:.4f} ms "
+            f"({by}), no library call, on {card}")
+    return entry("i420_to_bgr", "image.cu", "avcer_tpu/ops/image.py:217", library_ms=None,
+                 **cases[0], cases=cases[1:],
+                 replaces_what="i420_to_bgr_device: XLA in the JAX detect program, not Pallas")
+
+
+def phase_wire_formats(card: str, pipe, frames: np.ndarray, wav: np.ndarray, clip) -> None:
+    """``parity`` on both wire formats in this one call: ``pipe`` on I420 (the
+    default) and a second pipeline of the same seeded weights on ``bgr`` (a
+    warm-up run with its new kernel calls held and one checked run), then
+    three runs of each in turns, I420 first. Prints both medians with their
+    ranges, the share of the clip's BGR values the I420 round trip changes,
+    and the two runs' decisions side by side (other pixels: reported)."""
+    from avcer_tpu_torch.ops.image import bgr_batch_to_i420
+
+    bgr = build(card, False, cfg=smoke_config("bfloat16", wire="bgr"), label="parity, bgr wire")
+    bgr_clip, _ = phase_main(card, bgr, False, frames, wav, label="bgr main path", timed_runs=1)
+    walls: dict[str, list] = {"i420": [], "bgr": []}
+    for _ in range(TIMED_RUNS):
+        for name, p in (("i420", pipe), ("bgr", bgr)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p.run(ArrayReader(frames, FPS, "smoke.avi"), "", wav=wav)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    for name, w in walls.items():
+        log(f"parity on the {name} wire, {TIMED_RUNS} runs in turns with the other format: "
+            f"{', '.join(f'{x:.4f}' for x in w)} s, median {float(np.median(w)):.4f} s (range "
+            f"{min(w):.4f}-{max(w):.4f}) on {card}")
+    first = frames[:DETECT_BATCH]
+    rebuilt = image_kernel.i420_to_bgr(
+        torch.from_numpy(bgr_batch_to_i420(first)).to(DEVICE), HEIGHT, WIDTH).cpu().numpy()
+    moved = np.abs(rebuilt.astype(np.int32) - first.astype(np.int32))
+    log(f"the I420 round trip changes {(moved > 0).mean():.1%} of the first batch's BGR values "
+        f"(largest change {moved.max()}, mean {moved.mean():.2f})")
+    agreement(clip, bgr_clip, "parity on the i420 wire vs the bgr wire", 0.0)
+    del bgr
+    torch.cuda.empty_cache()
+
+
+def phase_plain_route(pipe, frames: np.ndarray, wav: np.ndarray, want, label: str) -> None:
+    """One run of ``pipe`` with the I420 rebuild on its plain PyTorch version
+    on the card (every other module as served) against the same pipeline's
+    last timed run on the kernel: detections, probabilities and compound
+    decisions equal (the kernel equals its plain version bit for bit, and the
+    int8 scales are frozen after the warm-up run)."""
+    before = image_kernel.i420_to_bgr.launches
+    detect_module.i420_to_bgr = image_kernel.i420_to_bgr_plain
+    try:
+        got = pipe.run(ArrayReader(frames, FPS, "smoke.avi"), "", wav=wav)
+    finally:
+        detect_module.i420_to_bgr = image_kernel.i420_to_bgr
+    if image_kernel.i420_to_bgr.launches != before:
+        raise AssertionError(f"{label}: the plain route launched the kernel")
+    same_results(got, want, f"{label} with the I420 rebuild on its plain version vs the kernel")
+
+
+def phase_calibrate(card: str, frames: np.ndarray, wav: np.ndarray, default_clip) -> dict:
+    """``cli.run --calibrate``: ``parity`` built with ``calibrate=True``, its
+    cache file a temporary one (``calibrate.DEFAULT_CACHE`` pointed at it):
+    every CNN (64-512) and audio (8-32) candidate timed on the card and the
+    fastest applied; a second calibration of the same pipeline, with
+    disjoint candidates, hits the cache and times nothing; then the
+    calibrated batches' run (after a warm-up run with its new kernel calls
+    held) against ``default_clip``, the default batches' (256 crops, 16
+    windows): the same boxes, the probabilities within ``CALIB_PROB_TOL``
+    and the compound decisions on ``CALIB_AGREE`` of the frames (equal where
+    the calibration kept the defaults). Returns the record."""
+    import tempfile
+
+    from avcer_tpu_torch.pipeline import calibrate as calibrate_module
+
+    cache_dir = tempfile.mkdtemp(prefix="smoke_calibration_")
+    cache = os.path.join(cache_dir, "calibration.json")
+    timed: list = []
+    inner, default_cache = calibrate_module._time_slope, calibrate_module.DEFAULT_CACHE
+
+    def counted(*args, **kw):
+        timed.append(1)
+        return inner(*args, **kw)
+
+    calibrate_module._time_slope, calibrate_module.DEFAULT_CACHE = counted, cache
+    try:
+        t0 = time.perf_counter()
+        cpipe = build(card, False, cfg=dataclasses.replace(smoke_config("bfloat16"),
+                                                           calibrate=True),
+                      label="parity --calibrate")
+        build_s = time.perf_counter() - t0
+        measured = len(timed)
+        with open(cache) as f:
+            record = json.load(f)[calibrate_module._cache_key(cpipe)]
+        t0 = time.perf_counter()
+        again = calibrate_module.calibrate(cpipe, cache, cnn_batches=(999,), audio_batches=(999,))
+        hit_s = time.perf_counter() - t0
+        hit_timed = len(timed) - measured
+    finally:
+        calibrate_module._time_slope, calibrate_module.DEFAULT_CACHE = inner, default_cache
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    log(f"--calibrate on {card}: key {calibrate_module._cache_key(cpipe)!r}; crop-CNN ms a frame "
+        f"{record['cnn_ms_per_frame']}, audio ms a window {record['audio_ms_per_window']}; "
+        f"chosen: CNN batch {record['visual_batch']}, audio batch {record['audio_batch']}; the "
+        f"build with the calibration {build_s:.2f} s")
+    log(f"--calibrate again on the same pipeline: {hit_timed} candidates timed, {hit_s * 1e3:.2f} "
+        f"ms, the cached record {'returned' if again == record else 'NOT returned'}")
+    with holding_new_calls():
+        cpipe.run(ArrayReader(frames, FPS, "smoke.avi"), "", wav=wav)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = cpipe.run(ArrayReader(frames, FPS, "smoke.avi"), "", wav=wav)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    defaults = (record["visual_batch"], record["audio_batch"]) == (CNN_BATCH, AUDIO_BATCH)
+
+    def softmax(x):
+        e = np.exp(x - x.max(axis=1, keepdims=True))
+        return e / e.sum(axis=1, keepdims=True)
+
+    stat_diff = float(np.abs(got.stat_probs - default_clip.stat_probs).max())
+    audio_diff = float(np.abs(softmax(got.audio_window_logits)
+                              - softmax(default_clip.audio_window_logits)).max())
+    agree = float((got.compound.av == default_clip.compound.av).mean())
+    n = len(got.compound.av)
+    log(f"parity at the calibrated batches ({record['visual_batch']} crops, "
+        f"{record['audio_batch']} windows) vs the defaults ({CNN_BATCH}, {AUDIO_BATCH}): wall "
+        f"{wall:.4f} s; compound decisions equal on {int(round(agree * n))} of {n} frames; "
+        f"largest probability difference static {stat_diff:.3g}, audio {audio_diff:.3g} "
+        f"(tolerance {'0: the defaults were kept' if defaults else CALIB_PROB_TOL}, decisions "
+        f"{'all' if defaults else f'{CALIB_AGREE:.0%}'}) on {card}")
+    checks = {
+        "7 candidates timed (4 CNN, 3 audio)": measured == 7,
+        "the second call timed nothing and returned the cached record":
+            hit_timed == 0 and again == record,
+        "the record applied": (cpipe.visual.batch_size, cpipe.audio.cfg.batch_size)
+            == (record["visual_batch"], record["audio_batch"]),
+        "the same face boxes": np.array_equal(got.face_boxes, default_clip.face_boxes),
+        "probabilities and decisions within the tolerance":
+            (stat_diff == audio_diff == 0.0 and agree == 1.0) if defaults else
+            (max(stat_diff, audio_diff) <= CALIB_PROB_TOL and agree >= CALIB_AGREE),
+    }
+    for name, ok in checks.items():
+        log(f"  check --calibrate: {name}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError(f"--calibrate: checks failed; record {record}")
+    del cpipe
+    torch.cuda.empty_cache()
+    return record
+
+
+BUILD_CACHE_CHILD = """
+import time
+T0 = time.perf_counter()
+import json
+import sys
+sys.path.insert(0, {root!r})
+import torch
+from avcer_tpu_torch import _build
+from avcer_tpu_torch.ops.cuda import image_kernel
+from avcer_tpu_torch.pipeline import detect
+first = {{}}
+library = _build.library
+def loading(name):
+    first.setdefault("library", time.perf_counter() - T0)
+    return library(name)
+_build.library = loading
+def rebuilt(*args, **kw):
+    out = image_kernel.i420_to_bgr(*args, **kw)
+    if "launch" not in first:
+        torch.cuda.synchronize()
+        first["launch"] = time.perf_counter() - T0
+    return out
+detect.i420_to_bgr = rebuilt
+from avcer_tpu_torch.cli import run as cli
+rc = cli.main({argv!r})
+print(json.dumps({{"rc": rc, "compiles": _build.compiles, "loaded": sorted(_build._libs),
+                  "dir": str(_build.build_dir()), "first_library_s": first.get("library"),
+                  "first_launch_s": first.get("launch"), "wall_s": time.perf_counter() - T0}}))
+"""
+
+
+def phase_build_cache(card: str, frames: np.ndarray, wav: np.ndarray) -> dict:
+    """``--compile_cache_dir``: the libraries this process built, copied into
+    a temporary directory; a fresh process serves ``cli.run --fused
+    --compile_cache_dir DIR`` on a 2 s clip (``parity``, seeded weights): it
+    loads every kernel from DIR with no nvcc build (``_build.compiles`` 0;
+    only ``nvcc --version`` runs, the toolkit's part of the hash), and
+    prints its time from its start to its first library load and to the end
+    of its first kernel launch (the I420 rebuild of the first detect
+    batch)."""
+    import tempfile
+
+    cache = tempfile.mkdtemp(prefix="smoke_kernel_cache_")
+    root = os.path.join(ROOT, "build", "smoke_build_cache")
+    if os.path.isdir(root):
+        shutil.rmtree(root)
+    os.makedirs(root)
+    try:
+        for name in _build.KERNELS:
+            shutil.copy2(_build.library_path(name), cache)
+        clip = os.path.join(root, "clip.avi")
+        write_video(clip, frames[:2 * FPS])
+        write_wav(os.path.join(root, "clip.wav"), wav[:2 * 16000], 16000)
+        argv = ["--path_video", clip, "--path_save", os.path.join(root, "out"), "--fused",
+                "--weights_dir", os.path.join(ROOT, "build", "smoke_no_weights"),
+                "--compile_cache_dir", cache]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", BUILD_CACHE_CHILD.format(root=ROOT,
+                                                                             argv=argv)],
+                              capture_output=True, text=True, timeout=600, cwd=ROOT)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        got = json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    checks = {
+        "the fresh process exited 0": proc.returncode == 0 and got.get("rc") == 0,
+        "no nvcc build": got.get("compiles") == 0,
+        f"every kernel loaded ({', '.join(_build.KERNELS)})":
+            got.get("loaded") == sorted(_build.KERNELS),
+        "from the copied directory": got.get("dir") == cache,
+        "a kernel launched": got.get("first_launch_s") is not None,
+    }
+    for name, ok in checks.items():
+        log(f"  check --compile_cache_dir: {name}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError(f"--compile_cache_dir: checks failed: {got}; stderr "
+                             f"{proc.stderr[-3000:]}")
+    log(f"--compile_cache_dir (warm, a fresh process): first library loaded "
+        f"{got['first_library_s']:.2f} s after its start, first kernel launch done "
+        f"{got['first_launch_s']:.2f} s, the whole cli.run {got['wall_s']:.2f} s ({wall:.2f} s "
+        f"with the interpreter's start), 0 nvcc builds, on {card}")
+    return got
+
 
 
 def reset_counts() -> None:
@@ -1428,7 +1747,7 @@ def counts() -> dict[str, int]:
 
 
 def profiled_run(card: str, pipe, frames: np.ndarray, wav: np.ndarray, label: str,
-                 wall: float, nms_launches: int, chain_launches: int = 0) -> None:
+                 wall: float, launches: dict[str, int]) -> None:
     """One run under ``cli.profiled`` (what ``cli.run --profile_dir`` does):
     the union of the device's kernel, copy and set intervals in the Chrome
     trace over the run's wall (which the profiler lengthens on the host) and
@@ -1436,8 +1755,11 @@ def profiled_run(card: str, pipe, frames: np.ndarray, wav: np.ndarray, label: st
     device time. Every NMS kernel in the trace must be the bitmask kernel,
     as many as a timed run's ``nms_launches``; K3's kernel (``chain_kernel``)
     must appear ``chain_launches`` times, as in a timed run, and its device
-    time and share of the busy time are reported; the run must pack no int8
-    weights."""
+    time and share of the busy time are reported; the I420 rebuild's kernel
+    (``i420_to_bgr_kernel``) as often as a timed run launched it, with its
+    device time; the run must pack no int8 weights. ``launches``: a timed
+    run's."""
+    nms_launches, chain_launches = launches["nms_mask"], launches["fused_chain"]
     path = os.path.join(ROOT, "build", "smoke_traces", label.replace(" ", "_").strip("-_"))
     torch.cuda.synchronize()
     packs = fused_resnet_kernel.pack_chain_q.calls
@@ -1486,6 +1808,17 @@ def profiled_run(card: str, pipe, frames: np.ndarray, wav: np.ndarray, label: st
     if len(chain) != chain_launches:
         raise AssertionError(f"{label}: {len(chain)} chain_kernel launches in the trace, "
                              f"{chain_launches} in a timed run")
+    i420 = [float(e["dur"]) * 1e-3 for e in events if e["cat"] == "kernel"
+            and "i420_to_bgr_kernel" in e["name"]]
+    log(f"{label} under the profiler: i420_to_bgr_kernel {len(i420)} launches "
+        f"({launches['i420_to_bgr']} a timed run), {sum(i420):.4f} ms of device time "
+        f"({sum(i420) / max(len(i420), 1):.4f} ms each) = {sum(i420) * 1e-3 / busy:.2%} of the "
+        "busy time")
+    if i420:
+        I420_TRACED[label] = sum(i420) / len(i420)
+    if len(i420) != launches["i420_to_bgr"]:
+        raise AssertionError(f"{label}: {len(i420)} i420_to_bgr_kernel launches in the trace, "
+                             f"{launches['i420_to_bgr']} in a timed run")
 
 
 def check_main_path(clip, n: int, launches: dict[str, int], cfg: PipelineConfig, cnn_calls: int,
@@ -1501,7 +1834,9 @@ def check_main_path(clip, n: int, launches: dict[str, int], cfg: PipelineConfig,
     profiles' shared extractor the full 4 s windows and the tail windows are
     batched apart, so the audio batches are counted for each group. The CNN is
     asked for every frame's crop, or with ``cnn_stride`` 0 for the step
-    frames' only, and runs in batches of exactly its batch size."""
+    frames' only, and runs in batches of exactly its batch size. On the I420
+    wire each detect batch is rebuilt once (``i420_to_bgr``), on ``bgr``
+    never."""
     det, fused_cnn = cfg.detector, cfg.visual.fused
     detect_batches = -(-n // det.batch_size)
     windows = len(clip.audio_window_logits)
@@ -1511,6 +1846,7 @@ def check_main_path(clip, n: int, launches: dict[str, int], cfg: PipelineConfig,
         audio_batches = -(-full // AUDIO_BATCH) + -(-(windows - full) // AUDIO_BATCH)
     else:
         audio_batches = -(-windows // AUDIO_BATCH)
+    want_i420 = detect_batches if det.transfer_format == "i420" else 0
     body_chains = 5 * detect_batches if det.fused_layer1 and det.backbone == "resnet50" else 0
     want_chain = body_chains + (7 * cnn_calls if fused_cnn else 0)
     want_ssh = 3 * detect_batches if det.fused_ssh else 0
@@ -1534,6 +1870,8 @@ def check_main_path(clip, n: int, launches: dict[str, int], cfg: PipelineConfig,
             cnn_calls == -(-want_crops // CNN_BATCH),
         f"nms launches == {detect_batches} detect batches of {det.batch_size}":
             launches["nms_mask"] == detect_batches,
+        f"i420_to_bgr launches == {want_i420} (the {det.transfer_format} wire)":
+            launches["i420_to_bgr"] == want_i420,
         f"attention launches == 12 x {audio_batches} audio batches":
             launches["mha"] == 12 * audio_batches,
         "every attention launch went to the tensor-core kernel":
@@ -1604,8 +1942,8 @@ def phase_run_many(card: str, pipe, frames: np.ndarray, wav: np.ndarray) -> None
 def phase_presets(card: str, frames: np.ndarray, wav: np.ndarray, int8_clip) -> dict[str, int]:
     """The serving presets at full width, each pipeline built from what
     ``cli.run`` maps its profile to, one at a time (a pipeline is dropped
-    before the next is built): ``turbo`` and ``max --fused`` with three timed
-    runs, the others with one. Returns the ``fused_ssh_heads`` launches of the
+    before the next is built): ``max --fused`` with three timed runs, the
+    others with one. Returns the ``fused_ssh_heads`` launches of the
     two paths that drive the kernel's int8 mode at C = 64 with leaky 0.1:
     ``fast --fused`` (the 640 bucket) and ``max --fused`` (the 448 bucket,
     every second frame)."""
@@ -1618,7 +1956,9 @@ def phase_presets(card: str, frames: np.ndarray, wav: np.ndarray, int8_clip) -> 
                                     profile=traced)
         return pipe, clip, launches
 
-    turbo, turbo_clip, _ = preset("turbo", timed_runs=TIMED_RUNS)
+    # one timed run: the smoke's budget went to the I420, --calibrate and
+    # build-cache phases (max --fused keeps three)
+    turbo, turbo_clip, _ = preset("turbo")
     phase_reference_mobilenet(turbo.detect.inner.model, frames)
     phase_run_many(card, turbo, frames, wav)
     del turbo
@@ -3139,17 +3479,22 @@ def main() -> int:
         return 0
     pipe, fused_pipe = build(card, False), build(card, True)
     int8_pipe, int8_fused_pipe = build(card, False, True), build(card, True, True)
-    kernels = phase_kernels(card, fused_pipe, int8_fused_pipe) + parallel_kernel_entries(card)
+    frames, wav = make_clip()
+    kernels = (phase_kernels(card, fused_pipe, int8_fused_pipe) + [kernels_i420(card, frames)]
+               + parallel_kernel_entries(card))
     mobilenet_kernels = phase_kernels_mobilenet(card)
     int8_modules(card)
-    frames, wav = make_clip()
     ref = phase_reference(pipe, fused_pipe, frames, wav)
     phase_reference_int8(int8_pipe, int8_fused_pipe, frames, wav)
     clip, _ = phase_main(card, pipe, False, frames, wav, profile=True)
+    phase_plain_route(pipe, frames, wav, clip, "parity")
+    phase_wire_formats(card, pipe, frames, wav, clip)
     fused_clip, launches = phase_main(card, fused_pipe, True, frames, wav)
-    int8_clip, _ = phase_main(card, int8_pipe, False, frames, wav, int8=True)
+    # one timed run: int8 unfused is launch-bound and holds no kernel of its own
+    int8_clip, _ = phase_main(card, int8_pipe, False, frames, wav, int8=True, timed_runs=1)
     int8_fused_clip, int8_launches = phase_main(card, int8_fused_pipe, True, frames, wav,
                                                 int8=True, profile=True)
+    phase_plain_route(int8_fused_pipe, frames, wav, int8_fused_clip, "int8 --fused")
     for k in kernels:
         if k["name"].endswith("_int8"):  # the same wrapper, counted in the int8 fused run
             k["launches"] = int8_launches[k["name"][:-len("_int8")]]
@@ -3160,6 +3505,10 @@ def main() -> int:
     # int8 against bf16 is another arithmetic (1e-2 in a probability): reported
     agreement(int8_clip, clip, "int8 vs bf16 (unfused)", 0.0)
     agreement(int8_fused_clip, fused_clip, "int8 fused vs bf16 fused", 0.0)
+    t0 = time.perf_counter()
+    phase_calibrate(card, frames, wav, clip)
+    phase_build_cache(card, frames, wav)
+    log(f"calibrate and build-cache phases: {time.perf_counter() - t0:.2f} s")
     release_build_s = phase_release(card, ref, fused_pipe, frames, wav)
     del pipe, fused_pipe, int8_pipe, int8_fused_pipe, ref
     torch.cuda.empty_cache()
@@ -3213,6 +3562,9 @@ def main() -> int:
             k["launches_by_parallel_path"] = parallel[k["name"]]
         if k["name"] in ("nms_mask_dp", "mha_tc_tp"):  # their only paths are the parallel ones
             k["launches"] = sum(parallel[k["name"]].values())
+    i420 = next(k for k in kernels if k["name"] == "i420_to_bgr")
+    i420["launches_by_path"] = {label: n["i420_to_bgr"] for label, n in PATH_LAUNCHES.items()}
+    i420["device_ms_a_launch_by_profiled_path"] = I420_TRACED
     for k in kernels + mobilenet_kernels:
         name, shape = k.get("held_as", (k["name"], None))
         errs = [err for key, (held, err) in HELD.items() if held == name

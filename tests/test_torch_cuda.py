@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from avcer_tpu_torch.ops.cuda import (attention_kernel, fused_resnet_kernel, fused_ssh_kernel,
-                                      nms_kernel)
+                                      image_kernel, nms_kernel)
 
 from torch_fused_cases import (chain_weights, quant_tensors, quantize_folded, ssh_weights,
                                tensors)
@@ -147,6 +147,34 @@ def test_kernels_raise_on_bad_input(cuda_device):
     boxes = torch.zeros((1, 8, 4), device=cuda_device)
     with pytest.raises(ValueError):
         nms_kernel.nms_mask(boxes, torch.ones((1, 8), device=cuda_device), 0.4)
+    wire = torch.zeros((1, 9, 4), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        image_kernel.i420_to_bgr(wire, 8, 4)  # h = 8 needs 12 rows, not 9
+    with pytest.raises(ValueError):
+        image_kernel.i420_to_bgr(wire.float(), 6, 4)
+    with pytest.raises(ValueError):
+        image_kernel.i420_to_bgr(torch.zeros((1, 9, 5), dtype=torch.uint8,
+                                             device=cuda_device), 6, 5)  # odd width
+
+
+@pytest.mark.parametrize("b,h,w", [(32, 360, 640), (128, 252, 448), (2, 6, 10), (1, 2, 2),
+                                   (3, 48, 64)])
+def test_i420_kernel_equals_plain(cuda_device, b, h, w):
+    """The I420 rebuild at the main paths' shapes (the r50 640 bucket of a
+    640 x 360 clip, the mobilenet presets' 448 bucket at batch 128), where the
+    U plane ends mid-row (h = 6, w = 10), and at one quad: equal bit for bit
+    to the plain version on the card and on the CPU, over uniformly random
+    bytes (every clamp and rounding reached)."""
+    rng = np.random.default_rng(b + h + w)
+    wire = torch.from_numpy(rng.integers(0, 256, (b, h * 3 // 2, w), dtype=np.uint8))
+    dev = wire.to(cuda_device)
+    before = image_kernel.i420_to_bgr.launches
+    got = image_kernel.i420_to_bgr(dev, h, w)
+    torch.cuda.synchronize()
+    assert image_kernel.i420_to_bgr.launches == before + 1
+    assert got.shape == (b, h, w, 3) and got.dtype == torch.uint8
+    assert torch.equal(got, image_kernel.i420_to_bgr_plain(dev, h, w))
+    assert torch.equal(got.cpu(), image_kernel.i420_to_bgr_plain(wire, h, w))
 
 
 # Frames smaller and larger than a tile (one tile up to 32, else tiles of at

@@ -9,6 +9,7 @@ tests/test_torch_int8.py for what a flipped quantised value does to a
 tolerance."""
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -361,10 +362,11 @@ def test_cli_int8_profile():
         assert cfg.audio.shared_extractor == (want == "int8")
 
 
-def test_builder_int8_models_and_refusals(tmp_path):
+def test_builder_int8_models_and_refusals(tmp_path, monkeypatch):
     """``build_pipeline`` builds the int8 variants the config names, seeds
-    their scales, builds what the serving presets switch on, and still
-    refuses what is not ported."""
+    their scales, builds what the serving presets switch on, builds with
+    ``calibrate=True`` (here from a cached record, so that the CPU measures
+    nothing), and still refuses what does not exist."""
     cfg = int8_config(slice_config(str(tmp_path / "no_weights")), fused=True)
     pipe = build_pipeline(cfg, Wav2Vec2Config(**TINY_W2V2), device="cpu")
     det, cnn, aud = pipe.detect.model, pipe.visual.static_model, pipe.audio.model
@@ -386,10 +388,24 @@ def test_builder_int8_models_and_refusals(tmp_path):
         assert built._new_tracker().gap_frames == c.detector.stride
     # the heatmaps and the host-crop path are served (tests/test_torch_cli_surface.py)
     check_supported(dataclasses.replace(cfg, heatmaps="static", save_face_crops=True))
+    # --calibrate is served: the record cached for this CPU and configuration
+    # is applied at build
+    from types import SimpleNamespace
+    from avcer_tpu_torch.pipeline import calibrate
+
+    cache = tmp_path / "calibration.json"
+    record = {"visual_batch": 4, "audio_batch": 2, "cnn_ms_per_frame": {"4": 1.0},
+              "audio_ms_per_window": {"2": 1.0}}
+    calibrated = dataclasses.replace(cfg, calibrate=True)
+    key = calibrate._cache_key(SimpleNamespace(cfg=calibrated, device=torch.device("cpu")))
+    cache.write_text(json.dumps({key: record}))
+    monkeypatch.setattr(calibrate, "DEFAULT_CACHE", str(cache))
+    built = build_pipeline(calibrated, Wav2Vec2Config(**TINY_W2V2), device="cpu")
+    assert (built.visual.batch_size, built.audio.cfg.batch_size) == (4, 2)
     # a mesh of 2 is served since the parallelism slice: on the one CPU it
     # raises the mesh error
     for bad in (dict(heatmaps="bogus"), dict(mesh=dataclasses.replace(cfg.mesh, data=2)),
-                dict(calibrate=True), dict(detector=dataclasses.replace(cfg.detector, stride=3))):
+                dict(detector=dataclasses.replace(cfg.detector, stride=3))):
         with pytest.raises(ValueError,
                            match="not ported|must divide batch_size|mesh 2x1 exceeds 1 devices"):
             build_pipeline(dataclasses.replace(cfg, **bad), Wav2Vec2Config(**TINY_W2V2),

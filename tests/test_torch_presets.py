@@ -53,8 +53,7 @@ def _jax_config(argv):
 def _assert_same_config(argv):
     got = dataclasses.asdict(cli.config_from_args(cli.parse_args(argv)))
     want = dataclasses.asdict(_jax_config(argv))
-    assert got["detector"].pop("transfer_format") == "bgr"  # the I420 wire format is not ported
-    want["detector"].pop("transfer_format")
+    assert got["detector"]["transfer_format"] == "i420"  # the JAX package's wire format
     assert got == want
     return got
 
@@ -63,7 +62,7 @@ def _assert_same_config(argv):
 def test_profile_equals_jax_cli(profile):
     """``--serving_profile P`` alone, with ``--fused`` and with
     ``--exact_audio``: every field of the config equals what the JAX package's
-    ``pipeline_config_from_args`` builds (apart from ``transfer_format``)."""
+    ``pipeline_config_from_args`` builds, ``transfer_format`` included."""
     base = _assert_same_config(["--serving_profile", profile])
     mobilenet = profile in ("fast", "turbo", "max")
     assert base["detector"]["backbone"] == ("mobilenet0.25" if mobilenet else "resnet50")
@@ -97,13 +96,13 @@ def test_explicit_flags_override_the_preset(argv, want):
 
 def test_cli_refusals_that_remain():
     """A negative ``cnn_stride`` fails at config time, as in the JAX package;
-    what is still not ported is refused by name; and the default device never
-    falls back to the CPU."""
+    an unknown profile is refused while parsing; ``--calibrate`` parses into
+    the configuration; and the default device never falls back to the CPU."""
     with pytest.raises(ValueError, match="cnn_stride"):
         cli.config_from_args(cli.parse_args(["--cnn_stride", "-5"]))
-    for argv in (["--calibrate"], ["--serving_profile", "x"]):
-        with pytest.raises(SystemExit):
-            cli.parse_args(argv)
+    with pytest.raises(SystemExit):
+        cli.parse_args(["--serving_profile", "x"])
+    assert cli.config_from_args(cli.parse_args(["--calibrate"])).calibrate
     # ported: the mesh of --data_parallel; too few devices raise at build
     assert cli.config_from_args(cli.parse_args(["--data_parallel", "2"])).mesh.data == 2
     assert cli.config_from_args(cli.parse_args(["--heatmaps", "static"])).heatmaps == "static"

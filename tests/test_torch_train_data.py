@@ -268,9 +268,9 @@ def test_multibox_loss_matches_jax(rng):
 # ---------------------------------------------------------------------------
 
 
-def test_train_audio_cli_surface(tmp_path, capsys):
-    """The JAX CLI's flags and config template; ``--compile_cache_dir``
-    refused by name; DATA_PARALLEL / MODEL_PARALLEL above 1 taken as the
+def test_train_audio_cli_surface(tmp_path, capsys, monkeypatch):
+    """The JAX CLI's flags and config template; ``--compile_cache_dir`` served
+    as the kernel build cache (``_build``); DATA_PARALLEL / MODEL_PARALLEL above 1 taken as the
     trainer's mesh, which on the one CPU raises the mesh error before any
     data is read; the card by default, which raises without CUDA rather than
     train on the CPU."""
@@ -283,10 +283,14 @@ def test_train_audio_cli_surface(tmp_path, capsys):
     assert cli.example_config() == jax_cli.example_config()
     assert cli.main(["--print_example_config"]) == 0
     assert json.loads(capsys.readouterr().out) == jax_cli.example_config()
-    with pytest.raises(SystemExit) as e:
-        cli.parse_args(["--config", "c.json", "--compile_cache_dir", "X"])
-    assert e.value.code == 2
-    assert "Not ported" in capsys.readouterr().err
+    from avcer_tpu_torch import _build
+
+    monkeypatch.setattr(_build, "_build_dir", None)
+    assert cli.parse_args(["--config", "c.json", "--compile_cache_dir", "X"]).compile_cache_dir \
+        == "X"
+    assert cli.main(["--print_example_config", "--compile_cache_dir", str(tmp_path / "kc")]) == 0
+    assert _build.build_dir() == tmp_path / "kc"
+    assert json.loads(capsys.readouterr().out) == jax_cli.example_config()
     for key, mesh in (("DATA_PARALLEL", "2x1"), ("MODEL_PARALLEL", "1x2")):
         cfg = dict(cli.example_config(), **{key: 2})
         path = tmp_path / f"{key}.json"
