@@ -48,8 +48,12 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: of a multiply and an add into an FMA anywhere in that file. (The fused
 #: convolution kernels keep their FMAs in the products and use rounding
 #: intrinsics where a multiply and an add must stay apart.) The I420 rebuild
-#: must equal its plain version bit for bit: the same flag.
-_EXTRA_FLAGS = {"nms": ("--fmad=false",), "image": ("--fmad=false",)}
+#: must equal its plain version bit for bit: the same flag. The two fused
+#: convolution sources, each some ten kernel instantiations, optimise their
+#: functions on four threads apiece (the two build at once on eight cores):
+#: 190-200 s -> 93 s on the H100's host, the same registers and spills.
+_EXTRA_FLAGS = {"nms": ("--fmad=false",), "image": ("--fmad=false",),
+                "fused_resnet": ("-split-compile=4",), "fused_ssh": ("-split-compile=4",)}
 
 _lock = threading.RLock()
 _libs: dict[str, ctypes.CDLL] = {}

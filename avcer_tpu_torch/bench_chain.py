@@ -1,6 +1,6 @@
 """Times ``fused_chain`` (K3) at every call the r50 main paths make, in bf16
 and in the int8 mode, or with ``--kernel ssh`` ``fused_ssh_heads`` (K4) at the
-nine calls of the main paths, with ``--kernel flat`` ``fused_chain_flat`` (K5)
+twelve calls of the main paths, with ``--kernel flat`` ``fused_chain_flat`` (K5)
 beside ``fused_chain`` at the seven stride-1 chains of the main paths (bf16)
 and the three small f32 cases of the JAX package's test of its flat kernel,
 or with ``--kernel nms`` ``nms_mask`` (K1) at the main paths' detect batches,
@@ -21,9 +21,10 @@ reports it holds of that launch (clusters at once, blocks an SM), where the
 version has them, and ms. Every call also carries the SHA-256 of its
 outputs from the seeded inputs: two versions that compute alike give equal
 hashes (K5's must equal K3's, ``same_as_chain``; K3's int8 sums are exact, so
-its int8 hashes do not depend on the product that took them). K3's int8
-calls hand the kernel its packed weights (``pack_chain_q``, made before the
-timing, as the models make them once per fold) where the version has them. K1's calls also carry
+its int8 hashes do not depend on the product that took them, nor do K4's).
+K3's and K4's int8 calls hand the kernel its packed weights
+(``pack_chain_q``, made before the timing, as the models make them once per
+fold) where the version takes them. K1's calls also carry
 ``device_ms``, the kernel's own time in a ``torch.profiler`` trace of 50
 calls, beside ``ms`` a call (host work of the wrapper included). ``--sweep``
 also times every call at each cluster size C = 1 to 4, forced through the
@@ -61,8 +62,9 @@ CALLS = [
 #: modes): the r50 detector's three scales in the fused order (scale 3 emits
 #: its lateral, scale 2 its merged feature; scales 2 and 1 add ``up``) at its
 #: detect batch of 32, bf16 and int8, and the mobilenet0.25 detector's at
-#: C = 64 with leaky ReLU 0.1, batch 128 at the 640 bucket, int8 (the modes
-#: that ``parity --fused``, ``int8 --fused`` and ``fast --fused`` launch)
+#: C = 64 with leaky ReLU 0.1, int8, batch 128 at the 640 bucket and 64 at
+#: the 448 bucket (the modes that ``parity --fused``, ``int8 --fused``,
+#: ``fast --fused`` and ``max --fused`` / ``turbo --fused`` launch)
 SSH_CALLS = [
     ("r50 scale 3", (32, 12, 20, 2048), 256, False, 0.0, ("bf16", "int8")),
     ("r50 scale 2", (32, 23, 40, 1024), 256, True, 0.0, ("bf16", "int8")),
@@ -70,6 +72,9 @@ SSH_CALLS = [
     ("mobilenet scale 3", (128, 12, 20, 256), 64, False, 0.1, ("int8",)),
     ("mobilenet scale 2", (128, 23, 40, 128), 64, True, 0.1, ("int8",)),
     ("mobilenet scale 1", (128, 45, 80, 64), 64, True, 0.1, ("int8",)),
+    ("mobilenet 448 scale 3", (64, 8, 14, 256), 64, False, 0.1, ("int8",)),
+    ("mobilenet 448 scale 2", (64, 16, 28, 128), 64, True, 0.1, ("int8",)),
+    ("mobilenet 448 scale 1", (64, 32, 56, 64), 64, True, 0.1, ("int8",)),
 ]
 
 #: the stride-1 chains of CALLS (K5's shapes) and the three cases of the JAX
@@ -247,8 +252,12 @@ def bench_chain(torch, args, sms: int, gen) -> list[dict]:
 
 
 def bench_ssh(torch, args, sms: int, gen) -> list[dict]:
+    import inspect
+
+    from avcer_tpu_torch.ops.cuda import fused_resnet_kernel as frk
     from avcer_tpu_torch.ops.cuda import fused_ssh_kernel as fsk
 
+    takes_packed = "packed" in inspect.signature(fsk.fused_ssh_heads).parameters
     rows = []
     for label, shape, c, merge, leaky, modes in SSH_CALLS:
         x = torch.randn(shape, generator=gen, device="cuda").relu().bfloat16()
@@ -259,6 +268,9 @@ def bench_ssh(torch, args, sms: int, gen) -> list[dict]:
             quant = mode == "int8"
             kw = ssh_weights(torch, gen, shape[-1], c, merge, quant)
             kw.update(leaky=leaky, up=up, emit_feature=emit)
+            if quant and takes_packed:  # the copy a model keeps
+                kw["packed"] = frk.pack_chain_q(
+                    kw["fpn_lat"] + (kw["fpn_merge"] or []) + kw["conv_folded"])
 
             def call(**force):
                 if force:

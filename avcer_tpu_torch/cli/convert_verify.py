@@ -200,11 +200,16 @@ def _probe_parity(family: str, sd: dict, converted: dict, reference_src: str,
 
 def verify_weights_dir(weights_dir: str, reference_src: Optional[str] = None,
                        families: Optional[list[str]] = None, cache: bool = True,
-                       progress: Callable[[str], None] = print, device: str = "cpu") -> dict:
+                       progress: Callable[[str], None] = print, device: str = "cuda") -> dict:
     """Load, account, check the structure and (with ``reference_src``) the
-    activations of each family; returns the report (what the CLI prints).
-    ``cache`` is the JAX signature's: nothing is cached either way."""
+    activations of each family on ``device`` (the card unless the caller asks
+    for the CPU; "cuda" raises without one, as the CLI does); returns the
+    report (what the CLI prints). ``cache`` is the JAX signature's: nothing
+    is cached either way."""
     from avcer_tpu_torch.core import checkpoint
+
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() is False")
 
     report: dict[str, Any] = {"weights_dir": os.path.abspath(weights_dir), "cache": NO_CACHE}
     for family in families or FAMILIES:

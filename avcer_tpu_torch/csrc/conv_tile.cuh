@@ -34,15 +34,12 @@
 // quantises that conv's input rows once, with the conv's static scale (true
 // f32 division, round half to even, clip to +-127), into an int8 plane of its
 // scratch; the product then reads int8 rows exactly as the other modes read
-// theirs. K3's int8 convs multiply through block_gemm_tc_q: 128 x 128 tiles
-// on mma.sync m16n8k32 (s8 x s8 -> s32), both operands by ldmatrix from
-// k-contiguous rows (the weights packed [taps, N, K] once, when folded), a
-// three-stage cp.async ring of 128-channel slabs with swizzled rows. K4's
-// int8 convs still go through block_gemm<signed char> (wmma m16n16k16 on
-// 128 x 64 tiles, weights [taps, K, N]). Either way the sums are exact, so
-// the two products give the same bits, and the epilogue is one f32 multiply
-// by `mult` and one f32 add of `shift` (no FMA across them), rounded once to
-// T.
+// theirs. The int8 convs of K3 and K4 multiply through block_gemm_tc_q:
+// 128 x 128 tiles on mma.sync m16n8k32 (s8 x s8 -> s32), both operands by
+// ldmatrix from k-contiguous rows (the weights packed [taps, N, K] once, when
+// folded), a three-stage cp.async ring of 128-channel slabs with swizzled
+// rows. The sums are exact, and the epilogue is one f32 multiply by `mult`
+// and one f32 add of `shift` (no FMA across them), rounded once to T.
 
 #pragma once
 
@@ -111,13 +108,13 @@ struct ConvW {
   const void* shift;
 };
 
-// Shared-memory layout of the product for operands of type Op (float, bf16
-// or, in the int8 mode, signed char).
+// Shared-memory layout of block_gemm for operands of type Op (float or bf16;
+// the int8 product takes only its row tables, kRowBytes, from
+// Tile<signed char>).
 template <typename Op>
 struct Tile {
-  static constexpr bool kInt8 = sizeof(Op) == 1;
   static constexpr int kVec = 16 / sizeof(Op);  // elements per 16-byte access
-  static constexpr int kBK = kInt8 ? 64 : 128 / sizeof(Op);  // input channels per slab
+  static constexpr int kBK = 128 / sizeof(Op);  // input channels per slab
   static constexpr int kAS = kBK + kVec;        // padded row strides
   static constexpr int kBS = kBN + kVec;
   static constexpr int kCS = kBN + 4;
@@ -127,10 +124,6 @@ struct Tile {
   static constexpr size_t kRowBytes = sizeof(int) * (kMaxTaps + 1) * kBM;
   static constexpr size_t kBytes = kABytes + kBBytes + kCBytes + kRowBytes;
 };
-
-// The operand type of a kernel that computes in T.
-template <typename T, bool Q>
-using OpOf = std::conditional_t<Q, signed char, T>;
 
 // 16 bytes from device memory to shared memory without passing through
 // registers (cp.async, read through L2); zeros where `valid` is false.
@@ -223,7 +216,7 @@ __device__ __forceinline__ Vec<T> fold_vec(const float* acc, const ConvW& cw, in
 }
 
 // The accumulators of one 128 x 64 tile, spread over the block. `Op` is the
-// operand type: float, bf16 or, in the int8 mode, signed char.
+// operand type: float or bf16.
 template <typename T>
 struct Acc;
 
@@ -304,50 +297,6 @@ struct Acc<__nv_bfloat16> {
   }
 };
 
-template <>
-struct Acc<signed char> {
-  using L = Tile<signed char>;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, int> c[2][2];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(c[i][j], 0);
-  }
-  __device__ __forceinline__ void step(const signed char* as, const signed char* bs) {
-    namespace w = nvcuda::wmma;
-    const int warp = threadIdx.x / 32;
-    const int wm = warp % 4, wn = warp / 4;
-#pragma unroll
-    for (int ks = 0; ks < L::kBK; ks += 16) {
-      w::fragment<w::matrix_a, 16, 16, 16, signed char, w::row_major> a[2];
-      w::fragment<w::matrix_b, 16, 16, 16, signed char, w::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        w::load_matrix_sync(a[i], as + (wm * 32 + i * 16) * L::kAS + ks, L::kAS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        w::load_matrix_sync(b[j], bs + ks * L::kBS + wn * 32 + j * 16, L::kBS);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) w::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-    }
-  }
-  __device__ __forceinline__ void store(float* cs) {
-    namespace w = nvcuda::wmma;
-    const int warp = threadIdx.x / 32;
-    const int wm = warp % 4, wn = warp / 4;
-    int* ci = reinterpret_cast<int*>(cs);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        w::store_matrix_sync(ci + (wm * 32 + i * 16) * L::kCS + wn * 32 + j * 16, c[i][j],
-                             L::kCS, w::mem_row_major);
-  }
-};
-
 // Every thread of every block of the cluster waits here; what each wrote to
 // memory before is visible to all of them after (release / acquire at
 // cluster scope). Every block of a cluster must reach it equally often.
@@ -375,8 +324,7 @@ __device__ __forceinline__ void sync_parts(int parts) {
 // element. `a` holds rows of `lda` elements (K of them used); it may be
 // memory this block wrote before the call, so it is read through L2 and
 // never through the read-only path. `w` is [taps, K, N], read-only for the
-// kernel. K, N and lda are multiples of 16 bytes' worth of elements. For int8
-// operands `acc` holds the bits of int32 sums (fold_vec reads either). Ends
+// kernel. K, N and lda are multiples of 16 bytes' worth of elements. Ends
 // with a barrier: what `epi` stored is visible to the whole block on return.
 // `part` of `parts`: the block computes only the (m-tile, n-tile) pairs p,
 // numbered m-tile major, with p % parts == part (the blocks of a cluster share
@@ -599,26 +547,27 @@ __device__ void block_gemm_tc(const __nv_bfloat16* a, int lda, int K,
   }
 }
 
-// The int8 product of K3 (fused_resnet.cu) on mma.sync: the function of
-// block_gemm<signed char> (int8 x int8 -> exact int32 sums, the same rowfn /
-// infofn / epi contract, `acc` the bits of the sums) with the weights `w`
-// stored [taps, N, K], k contiguous. Tiles of 128 pixels x BN output channels
-// (BN 128 where N >= 128, else 64); eight warps in 2 x 4 each own 64 x BN/4 of
-// the tile as 4 x BN/32 fragments of mma.sync m16n8k32 (s8 x s8 -> s32). Both
-// operands are k-contiguous rows, so both reach their fragments through
-// ldmatrix without .trans (sm_90 has no 8-bit transposing ldmatrix: that is
-// why the weights are packed n-major once, when they are folded). Slabs of
-// 128 input channels (128 bytes a row) go through a ring of three cp.async
+// The int8 product of K3 and K4 (fused_resnet.cu, fused_ssh.cu) on mma.sync:
+// int8 x int8 -> exact int32 sums under block_gemm's rowfn / infofn / epi
+// contract (`acc` the bits of the sums, which fold_vec reads), with the weights
+// `w` stored [taps, N, K], k contiguous. Tiles of 128 pixels x BN output
+// channels (BN 128 where N >= 128, else 64); eight warps in 2 x 4 each own 64 x
+// BN/4 of the tile as 4 x BN/32 fragments of mma.sync m16n8k32 (s8 x s8 ->
+// s32). Both operands are k-contiguous rows, so both reach their fragments
+// through ldmatrix without .trans (sm_90 has no 8-bit transposing ldmatrix:
+// that is why the weights are packed n-major once, when they are folded). Slabs
+// of 128 input channels (128 bytes a row) go through a ring of three cp.async
 // stages with one block barrier a slab; a slab of a conv with fewer channels
 // left copies and multiplies only its 32-deep steps that hold some. Rows are
 // not padded: the 16-byte chunk c of slab row r sits at chunk c ^ (r % 8)
-// (swz), so the eight rows of an ldmatrix phase fall in eight bank groups,
-// and a stage is 128 x (128 + BN) bytes: 96 KiB of ring at BN = 128, 103,424
-// bytes with the row tables, which leaves two blocks an SM (rows padded by 16
-// bytes would take 115,712, the last byte two blocks may have). Integer sums
-// are exact in any order (at most 9 * 2048 * 127^2 < 2^31 at the models'
-// widths), so every output equals block_gemm's bit for bit. The int32 sums
-// are staged for the 16-byte epilogue in the ring, which is idle by then.
+// (swz), so the eight rows of an ldmatrix phase fall in eight bank groups, and
+// a stage is 128 x (128 + BN) bytes: 96 KiB of ring at BN = 128, 103,424 bytes
+// with the row tables, which leaves two blocks an SM (rows padded by 16 bytes
+// would take 115,712, the last byte two blocks may have). Integer sums are
+// exact in any order (at most 9 * 2048 * 127^2 < 2^31 at the models' widths),
+// so every output is the exact sum whichever order or product takes it. The
+// int32 sums are staged for the 16-byte epilogue in the ring, which is idle by
+// then.
 template <int BN>
 struct TcQTile {
   static constexpr int kBK = 128;                  // input channels (bytes) a slab
@@ -789,13 +738,15 @@ int launch_clusters(void (*kernel)(P), const P& p, int grid, int cluster, size_t
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory of a kernel whose convs go through conv_gemm<T, Q, TC, TCQ>.
+// Shared memory of a kernel whose convs go through conv_gemm<T, Q, TC, TCQ>:
+// the int8 mode's is block_gemm_tc_q's at its widest tile.
 template <typename T, bool Q, bool TC, bool TCQ = false>
 constexpr size_t conv_smem_bytes() {
-  if constexpr (Q && TCQ) return TcQTile<128>::kBytes;
-  if constexpr (TC && !Q && std::is_same_v<T, __nv_bfloat16>)
+  static_assert(!Q || TCQ, "the int8 mode multiplies through block_gemm_tc_q only");
+  if constexpr (Q) return TcQTile<128>::kBytes;
+  if constexpr (TC && std::is_same_v<T, __nv_bfloat16>)
     return TcTile<128>::kBytes > Tile<T>::kBytes ? TcTile<128>::kBytes : Tile<T>::kBytes;
-  return Tile<OpOf<T, Q>>::kBytes;
+  return Tile<T>::kBytes;
 }
 
 // One convolution of a fused kernel, in either mode. The conv's input is R
@@ -810,10 +761,10 @@ constexpr size_t conv_smem_bytes() {
 // part it ends with a cluster barrier, so that every part's output is visible
 // to the whole cluster on return. TC: the exact bf16 mode multiplies through
 // block_gemm_tc (the kernel then has conv_smem_bytes<T, Q, true>() of shared
-// memory); every other mode, and TC false, through block_gemm. TCQ: the
-// int8 mode multiplies through block_gemm_tc_q, `w` then [taps, N, K] (the
-// kernel has conv_smem_bytes<T, Q, TC, true>() of shared memory); without
-// it, through block_gemm<signed char> on [taps, K, N].
+// memory); the exact f32 mode, and TC false, through block_gemm. TCQ, which
+// the int8 mode requires: it multiplies through block_gemm_tc_q, `w` then
+// [taps, N, K] (the kernel has conv_smem_bytes<T, Q, TC, true>() of shared
+// memory).
 template <typename T, bool Q, bool TC = false, bool TCQ = false, typename GatherFn,
           typename RowFn, typename InfoFn, typename EpiFn>
 __device__ void conv_gemm(const T* a, int lda, int K, int R, GatherFn gather, signed char* qbuf,
@@ -821,6 +772,7 @@ __device__ void conv_gemm(const T* a, int lda, int K, int R, GatherFn gather, si
                           RowFn rowfn, InfoFn infofn, EpiFn epi, int part = 0, int parts = 1) {
   constexpr int EV = 16 / sizeof(T);
   if constexpr (Q) {
+    static_assert(TCQ, "the int8 mode multiplies through block_gemm_tc_q only");
     const int chunks = K / 16;
     for (int idx = part * kThreads + threadIdx.x; idx < R * chunks; idx += parts * kThreads) {
       const int r = idx / chunks, c = (idx % chunks) * 16;
@@ -844,17 +796,10 @@ __device__ void conv_gemm(const T* a, int lda, int K, int R, GatherFn gather, si
     }
     sync_parts(parts);
     const signed char* wq = static_cast<const signed char*>(w);
-    if constexpr (TCQ) {
-      if (N >= 128)
-        block_gemm_tc_q<128, EV>(qbuf, K, K, wq, N, taps, M, smem, rowfn, infofn, epi, part,
-                                 parts);
-      else
-        block_gemm_tc_q<64, EV>(qbuf, K, K, wq, N, taps, M, smem, rowfn, infofn, epi, part,
-                                parts);
-    } else {
-      block_gemm<signed char, EV>(qbuf, K, K, wq, N, taps, M, smem, rowfn, infofn, epi, part,
-                                  parts);
-    }
+    if (N >= 128)
+      block_gemm_tc_q<128, EV>(qbuf, K, K, wq, N, taps, M, smem, rowfn, infofn, epi, part, parts);
+    else
+      block_gemm_tc_q<64, EV>(qbuf, K, K, wq, N, taps, M, smem, rowfn, infofn, epi, part, parts);
   } else {
     auto rows = [=](int m, int tap) {
       const int r = rowfn(m, tap);

@@ -80,8 +80,8 @@
 // weights arrive packed [taps, co, ci] (the wrapper's pack_chain_q, made
 // once when the model folds them), a three-stage ring of 128-channel slabs
 // with one barrier a slab. Bound by operations at twice bf16's peak (1979
-// TOP/s); the int32 sums are exact in any order, so the outputs are
-// block_gemm<signed char>'s bit for bit.
+// TOP/s); the int32 sums are exact in any order, so the outputs do not
+// depend on the product that takes them.
 // Activations stay in the compute type between convs: the out-of-frame zeros,
 // the residual and both readers of a block's input (conv1 and the projection,
 // each with its own scale) need them so; each conv's input is quantised once

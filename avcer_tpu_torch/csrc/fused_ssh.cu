@@ -33,9 +33,10 @@
 // value that a later step reads is summed as over the whole region. The
 // bf16 product is block_gemm_tc (mma.sync, 128 x 128 tiles where the conv
 // has 128 output channels or more, else 128 x 64, a three-stage cp.async
-// ring); f32 and the int8 option take block_gemm. The lateral streams its up
-// to 2048 input channels through shared memory in slabs of 32 to 64 and only
-// the 256-channel result is kept.
+// ring), the int8 option's block_gemm_tc_q (mma.sync m16n8k32 s8 on the same
+// tiles and ring, 128-channel slabs), f32 block_gemm. The lateral streams its
+// up to 2048 input channels through shared memory in slabs of 32 to 128 and
+// only the 256-channel result is kept.
 //
 // Clusters. A work item belongs to a cluster of C thread blocks, C from the
 // wrapper's plan: the size of 1 to 4 with the fewest rounds of work items a
@@ -65,10 +66,16 @@
 // The int8 option (avcer_fused_ssh_q; the TPU kernel's act_s): the lateral,
 // the merge and the five SSH convs multiply int8 weights with activations
 // quantised by their static scales (once per conv, the rows it reads, into
-// an int8 plane of the cluster's scratch) and sum in int32 (conv_tile.cuh), the
-// leaky ReLU acts on the value already rounded to the compute type, and the
-// three heads stay exact f32 sums over the ReLU'd segments. The scales come
-// in the TPU kernel's order: lateral, merge, then the five SSH convs.
+// an int8 plane of the cluster's scratch) and sum in int32 on
+// block_gemm_tc_q (conv_tile.cuh), both operands by ldmatrix from
+// k-contiguous rows: the weights arrive packed [taps, co, ci] (the wrapper's
+// pack_chain_q, which the model makes once when it folds a scale). Bound by
+// operations at twice bf16's peak (1979 TOP/s): r50 scale 1 0.15 ms. The
+// int32 sums are exact in any order, so the outputs do not depend on the
+// product that takes them. The leaky ReLU acts on the value already rounded
+// to the compute type, and the three heads stay exact f32 sums over the
+// ReLU'd segments. The scales come in the TPU kernel's order: lateral,
+// merge, then the five SSH convs.
 
 #include "conv_tile.cuh"
 
@@ -164,7 +171,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssh_kernel(const SshP p) {
                        int off, int a, bool mask, int d) {
       const int rh = RH - 2 * d, rw = RW - 2 * d, pd = rh * rw;
       const int rwi = rw + 2, pdi = (rh + 2) * rwi;
-      conv_gemm<T, Q, true>(
+      conv_gemm<T, Q, true, true>(
           src, k, k, gc * pdi, [=](int r) { return pix(r, d - 1); }, qbuf, scale, cw.w, n, 9,
           gc * pd, smem,
           [=](int i, int tap) {
@@ -182,7 +189,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssh_kernel(const SshP p) {
     if (p.has_lat) {
       const ConvW lat = p.lat;
       const bool has_up = p.has_up;
-      conv_gemm<T, Q, true>(
+      conv_gemm<T, Q, true, true>(
           x, Ci, Ci, M, xrow, qbuf, sx(0), lat.w, C, 1, M, smem, [](int m, int) { return m; }, xrow,
           [=](int m, int j, const float* acc, int row) {
             Vec<T> v = fold_vec<T, Q>(acc, lat, j, act, leaky, row >= 0);
@@ -278,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssh_kernel(const SshP p) {
 template <typename T, bool Q>
 int launch(const SshP& p, int grid, int cluster, cudaStream_t stream, int* clusters = nullptr,
            int* blocks = nullptr) {
-  constexpr size_t smem = conv_smem_bytes<T, Q, true>();
+  constexpr size_t smem = conv_smem_bytes<T, Q, true, true>();
   return cluster > 1 ? launch_clusters(ssh_kernel<T, Q, true>, p, grid, cluster, smem, stream,
                                        clusters, blocks)
                      : launch_clusters(ssh_kernel<T, Q, false>, p, grid, cluster, smem, stream,
@@ -365,10 +372,11 @@ extern "C" int avcer_fused_ssh(const void* x, const void* up, const void* const*
              grid, cluster, dtype, nullptr, stream);
 }
 
-// The int8 option: as above with the conv weights int8, their inv (the merged
-// multiply) and shift float32 whatever `dtype`, the heads in `dtype`, and
-// act_s [5 + the number of FPN convs] float32 on the device. C is a multiple
-// of 64.
+// The int8 option: as above with the conv weights int8 and packed [taps, co,
+// ci] (the lateral [1, C, Ci], the merge [9, C, C], the SSH convs [9, co,
+// ci], tap 3 ky + kx), their inv (the merged multiply) and shift float32
+// whatever `dtype`, the heads in `dtype`, and act_s [5 + the number of FPN
+// convs] float32 on the device. C is a multiple of 64.
 extern "C" int avcer_fused_ssh_q(const void* x, const void* up, const void* const* wptrs,
                                  const int* head_n, void* const* outs, void* scratch,
                                  long long scratch_bytes, int B, int H, int W, int Ci, int C,
@@ -380,8 +388,9 @@ extern "C" int avcer_fused_ssh_q(const void* x, const void* up, const void* cons
 }
 
 // What the card reports for ssh_kernel in clusters of `cluster` blocks
-// (dtype as above; quant 1 for the int8 option): the clusters it can hold at
-// once (cudaOccupancyMaxActiveClusters) and the blocks an SM
+// (dtype as above; quant 1 for the int8 option, whose shared memory is
+// block_gemm_tc_q's): the clusters it can hold at once
+// (cudaOccupancyMaxActiveClusters) and the blocks an SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Launches nothing;
 // returns a CUDA error code.
 extern "C" int avcer_fused_ssh_occupancy(int dtype, int quant, int cluster, int* clusters,

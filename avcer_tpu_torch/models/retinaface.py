@@ -32,7 +32,9 @@ scales, int32 sums); the stem and the heads stay exact. In the mobilenet body
 only the pointwise convs are quantised: the first conv (3 input channels) and
 every depthwise conv stay in the compute dtype. With the fused
 switches the int8 convs run inside the fused kernels' int8 mode, folded to
-``(wq, mult, shift)`` with the activation scales in the kernels' order.
+``(wq, mult, shift)`` with the activation scales in the kernels' order, and
+their int8 weights packed once per fold for the kernels' product
+(``pack_chain_q``).
 Calibration forwards (``layers.calibrating``) and a model in ``training`` always
 run the unfused modules.
 The space-to-depth stem is not ported yet.
@@ -345,9 +347,12 @@ class RetinaFace(FoldCache):
         self.LandmarkHead = nn.ModuleList(Head(c, num_anchors, 10) for _ in range(3))
 
     def _scale_folded(self, i: int, dtype: torch.dtype):
-        """(5 SSH convs, 3 heads, lateral, merge or None, scales) of scale
-        ``i``. ``scales`` is None for the exact model; in int8 it holds the
-        activation scales of (lateral, merge or None, the five SSH convs)."""
+        """(5 SSH convs, 3 heads, lateral, merge or None, scales, packed) of
+        scale ``i``. ``scales`` and ``packed`` are None for the exact model; in
+        int8 ``scales`` holds the activation scales of (lateral, merge or None,
+        the five SSH convs) and ``packed`` the kernel's copy of their int8
+        weights (``pack_chain_q`` of the lateral, the merge and the SSH folds,
+        in that order)."""
         ssh = getattr(self, f"ssh{i + 1}")
         convs, ssh_sx = fold_pairs([tuple(getattr(ssh, name)) for name in (
             "conv3X3", "conv5X5_1", "conv5X5_2", "conv7X7_2", "conv7x7_3")], dtype)
@@ -357,18 +362,24 @@ class RetinaFace(FoldCache):
         lat, lat_sx = fold_pairs([tuple(getattr(self.fpn, f"output{i + 1}"))], dtype)
         merge, merge_sx = (fold_pairs([tuple(getattr(self.fpn, f"merge{i + 1}"))], dtype)
                            if i < 2 else (None, None))
-        scales = None if ssh_sx is None else (lat_sx, merge_sx, ssh_sx)
-        return tuple(convs), heads, tuple(lat), None if merge is None else tuple(merge), scales
+        scales = packed = None
+        if ssh_sx is not None:
+            scales = (lat_sx, merge_sx, ssh_sx)
+            packed = pack_chain_q(list(lat) + list(merge or ()) + list(convs))
+        return (tuple(convs), heads, tuple(lat), None if merge is None else tuple(merge), scales,
+                packed)
 
     def _fused_heads(self, feats, dtype: torch.dtype):
         """``feats`` NCHW-shaped: the body's (with ``fused_fpn``) or the
-        FPN's. Rows stay (h, w, anchor): the kernel writes NHWC."""
+        FPN's. Rows stay (h, w, anchor): the kernel writes NHWC. The folds
+        (and, in int8, the packed weights) are made once per (scale, dtype,
+        device)."""
         leaky = 0.1 if self.out_ch <= 64 else 0.0  # as FPN and SSH choose theirs
         per_scale: list = [None, None, None]
         feat_prev = None
         for i in (2, 1, 0):
             w = self.BboxHead[0].conv1x1.weight
-            convs, heads, lat, merge, scales = self.folded(
+            convs, heads, lat, merge, scales, packed = self.folded(
                 ("scale", i, w.dtype, w.device), lambda: self._scale_folded(i, dtype))
             x = nhwc(feats[i].to(dtype))
             if self.fused_fpn:
@@ -379,12 +390,13 @@ class RetinaFace(FoldCache):
                 act_s = None if scales is None else torch.cat(
                     [sx for sx in scales if sx is not None])
                 res = fused_ssh_heads(x, convs, heads, leaky, fpn_lat=lat, fpn_merge=merge,
-                                      up=up, emit_feature=i > 0, act_s=act_s)
+                                      up=up, emit_feature=i > 0, act_s=act_s, packed=packed)
                 if i > 0:
                     feat_prev = res[3]
             else:
                 res = fused_ssh_heads(x, convs, heads, leaky,
-                                      act_s=None if scales is None else scales[2])
+                                      act_s=None if scales is None else scales[2],
+                                      packed=None if packed is None else packed[-5:])
             b = x.shape[0]
             per_scale[i] = (res[0].reshape(b, -1, 4), res[1].reshape(b, -1, 2),
                             res[2].reshape(b, -1, 10))

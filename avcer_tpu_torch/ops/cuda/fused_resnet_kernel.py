@@ -114,6 +114,11 @@ def pack_chain_q(folded: Sequence[torch.Tensor]) -> tuple[torch.Tensor, ...]:
 pack_chain_q.calls = 0
 
 
+def packed_shape(w: torch.Tensor) -> tuple[int, int, int]:
+    """``(taps, co, ci)``: the shape of ``pack_chain_q``'s copy of ``w``."""
+    return w.numel() // w.shape[-2:].numel(), w.shape[-1], w.shape[-2]
+
+
 def _check_blocks(blocks: Sequence[str], act_s, n_folded: int) -> None:
     if not blocks or any(b not in KINDS for b in blocks):
         raise ValueError(f"fused_chain: unknown block kinds in {blocks}")
@@ -237,8 +242,7 @@ def _check_chain_weights(name: str, x: torch.Tensor, per_block, blocks, quant: b
         if packs is not None:
             for j in range(0, len(t), 3):
                 p, w = next(packs, None), t[j]
-                if p is None or p.shape != (w.numel() // w.shape[-2:].numel(), w.shape[-1],
-                                            w.shape[-2]):
+                if p is None or p.shape != packed_shape(w):
                     raise ValueError(f"{name}: the packed weights are not pack_chain_q of the "
                                      f"folds (conv {tuple(w.shape)})")
                 check_cuda_tensor(name, p, x, torch.int8)

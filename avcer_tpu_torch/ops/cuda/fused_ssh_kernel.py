@@ -14,6 +14,10 @@ The int8 option (``act_s``), as the JAX function's: the lateral, the merge and
 the five SSH convs hold ``(wq int8, mult f32, shift f32)`` with ``mult = sx *
 sw * bn_inv``, ``act_s`` their static activation scales in the order lateral,
 merge, then the five SSH convs; the heads stay exact in the compute dtype.
+The kernel's int8 product reads each ``wq`` packed ``[taps, co, ci]``
+(``pack_chain_q`` of the lateral, merge and SSH folds, in that order): a
+caller that folds once packs once and hands the copy in as ``packed``;
+without it a CUDA call packs its own.
 
 Dispatch rule, with no fallback: a CPU tensor goes to
 ``fused_ssh_heads_plain``; a CUDA tensor launches the kernel (one launch per
@@ -32,7 +36,8 @@ from avcer_tpu_torch import _build
 from avcer_tpu_torch.ops.cuda.fused_resnet_kernel import (DTYPE_CODE, MAX_CLUSTER,
                                                           REGION_PIXELS, card_occupancy,
                                                           check_cuda_tensor, conv_bn_plain,
-                                                          conv_bn_plain_q, tile_edge)
+                                                          conv_bn_plain_q, pack_chain_q,
+                                                          packed_shape, tile_edge)
 
 
 def _check_args(conv_folded, head_folded, fpn_lat, fpn_merge, act_s) -> None:
@@ -49,6 +54,26 @@ def _check_args(conv_folded, head_folded, fpn_lat, fpn_merge, act_s) -> None:
             f"{tuple(act_s.shape)}")
 
 
+def kernel_conv_weights(conv_weights: Sequence[torch.Tensor],
+                        packed: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """The int8 option's conv tensors as the kernel reads them:
+    ``conv_weights`` (the flat ``(wq, mult, shift)`` of the lateral, the merge
+    and the five SSH convs that the call has, in that order) with each ``wq``
+    replaced by its copy in ``packed``. Raises ``ValueError`` unless
+    ``packed`` is ``pack_chain_q`` of those folds: one int8 ``[taps, co, ci]``
+    tensor a conv, no more and no fewer."""
+    out = list(conv_weights)
+    if len(packed) != len(out) // 3:
+        raise ValueError(f"fused_ssh_heads: {len(packed)} packed weights for "
+                         f"{len(out) // 3} convs")
+    for j, p in zip(range(0, len(out), 3), packed):
+        if p.dtype != torch.int8 or p.shape != packed_shape(out[j]):
+            raise ValueError(f"fused_ssh_heads: packed weights {tuple(p.shape)} {p.dtype} are "
+                             f"not pack_chain_q of the fold {tuple(out[j].shape)}")
+        out[j] = p
+    return out
+
+
 def activate(y: torch.Tensor, leaky: float) -> torch.Tensor:
     """ReLU, or leaky ReLU with the slope rounded to ``y``'s dtype and the
     product taken in it: the kernel's rule and the JAX package's."""
@@ -62,10 +87,13 @@ def fused_ssh_heads_plain(
     leaky: float = 0.0, fpn_lat: Optional[Sequence[torch.Tensor]] = None,
     fpn_merge: Optional[Sequence[torch.Tensor]] = None, up: Optional[torch.Tensor] = None,
     emit_feature: bool = False, band: int = 32, act_s=None,
+    packed: Optional[Sequence[torch.Tensor]] = None,
 ) -> tuple[torch.Tensor, ...]:
     """The scale in plain PyTorch (``F.conv2d`` on NCHW views, f32
     accumulation or, with ``act_s``, exact integer sums in the convs; the
-    kernel's rounding points)."""
+    kernel's rounding points). It reads the folds in the JAX layout;
+    ``packed`` (the kernel's copy of the int8 weights) is taken for the
+    wrapper's signature and not read."""
     _check_args(conv_folded, head_folded, fpn_lat, fpn_merge, act_s)
     scales = iter(act_s) if act_s is not None else None
 
@@ -161,11 +189,14 @@ def fused_ssh_heads(
     leaky: float = 0.0, fpn_lat: Optional[Sequence[torch.Tensor]] = None,
     fpn_merge: Optional[Sequence[torch.Tensor]] = None, up: Optional[torch.Tensor] = None,
     emit_feature: bool = False, band: int = 32, act_s=None,
+    packed: Optional[Sequence[torch.Tensor]] = None,
 ) -> tuple[torch.Tensor, ...]:
     """One FPN scale: optional lateral + top-down add + merge, the SSH
     module, the three heads; with ``act_s`` the convs in int8. ``band`` is the
-    TPU kernel's VMEM tiling and is ignored by the CUDA kernel.
-    ``fused_ssh_heads.launches`` counts kernel launches,
+    TPU kernel's VMEM tiling and is ignored by the CUDA kernel. ``packed``:
+    ``pack_chain_q`` of the int8 lateral, merge and SSH folds the call has,
+    made once by a caller that keeps its folds (else the int8 option packs on
+    every CUDA call). ``fused_ssh_heads.launches`` counts kernel launches,
     ``fused_ssh_heads.launches_by_leaky`` the same launches by their slope,
     and ``fused_ssh_heads.occupancy`` holds what the card reported for each
     launch configuration (see ``ssh_occupancy``)."""
@@ -175,7 +206,7 @@ def fused_ssh_heads(
     if x.device.type != "cuda":
         raise ValueError(f"fused_ssh_heads: unsupported device {x.device}")
     return _fused_ssh_cuda(x, conv_folded, head_folded, leaky, fpn_lat, fpn_merge, up,
-                           emit_feature, act_s)
+                           emit_feature, act_s, packed=packed)
 
 
 def _fused_ssh_cuda(x: torch.Tensor, conv_folded: Sequence[torch.Tensor],
@@ -183,11 +214,13 @@ def _fused_ssh_cuda(x: torch.Tensor, conv_folded: Sequence[torch.Tensor],
                     fpn_lat: Optional[Sequence[torch.Tensor]] = None,
                     fpn_merge: Optional[Sequence[torch.Tensor]] = None,
                     up: Optional[torch.Tensor] = None, emit_feature: bool = False, act_s=None,
-                    cluster: Optional[int] = None) -> tuple[torch.Tensor, ...]:
+                    cluster: Optional[int] = None,
+                    packed: Optional[Sequence[torch.Tensor]] = None) -> tuple[torch.Tensor, ...]:
     """The launch behind ``fused_ssh_heads`` for a CUDA tensor; ``cluster``
     forces the cluster size instead of the plan's (the card tests compare
     sizes with it). A cluster the card refuses raises: nothing retries with
-    another size."""
+    another size. The int8 option launches on ``packed`` (packed here when
+    not given)."""
     _check_args(conv_folded, head_folded, fpn_lat, fpn_merge, act_s)
     if x.dim() != 4 or x.dtype not in DTYPE_CODE or not x.is_contiguous():
         raise ValueError(
@@ -199,11 +232,6 @@ def _fused_ssh_cuda(x: torch.Tensor, conv_folded: Sequence[torch.Tensor],
     vec = 16 // x.element_size()
     conv_weights = list(fpn_lat or ()) + list(fpn_merge or ()) + list(conv_folded)
     weights = conv_weights + list(head_folded)
-    for j, t in enumerate(conv_weights):
-        want = None if not quant else (torch.int8 if j % 3 == 0 else torch.float32)
-        check_cuda_tensor("fused_ssh_heads", t, x, want)
-    for t in head_folded:
-        check_cuda_tensor("fused_ssh_heads", t, x)
     q = c // 4
     shapes_ok = (
         [tuple(t.shape) for t in conv_folded[0::3]]
@@ -219,7 +247,14 @@ def _fused_ssh_cuda(x: torch.Tensor, conv_folded: Sequence[torch.Tensor],
             f"fused_ssh_heads: weights {[tuple(t.shape) for t in weights]} do not fit input "
             f"channels {ci}, feature channels {c} (C must be a multiple of {c_align})")
     if quant:
+        conv_weights = kernel_conv_weights(
+            conv_weights, pack_chain_q(conv_weights) if packed is None else packed)
         act_s = act_s.to(device=x.device, dtype=torch.float32).contiguous()
+    for j, t in enumerate(conv_weights):
+        want = None if not quant else (torch.int8 if j % 3 == 0 else torch.float32)
+        check_cuda_tensor("fused_ssh_heads", t, x, want)
+    for t in head_folded:
+        check_cuda_tensor("fused_ssh_heads", t, x)
     if up is not None:
         if fpn_lat is None:
             raise ValueError("fused_ssh_heads: up requires fpn_lat")
@@ -236,9 +271,12 @@ def _fused_ssh_cuda(x: torch.Tensor, conv_folded: Sequence[torch.Tensor],
         return tuple(outs)
     plan = card_plan(x, c, fpn_merge is not None, quant, cluster)
     scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=x.device)
-    ptrs = ([t.data_ptr() for t in fpn_lat] if fpn_lat is not None else [None] * 3)
-    ptrs += ([t.data_ptr() for t in fpn_merge] if fpn_merge is not None else [None] * 3)
-    ptrs += [t.data_ptr() for t in conv_folded] + [t.data_ptr() for t in head_folded]
+    # (w, inv, shift) of the lateral and the merge (null where absent), the SSH
+    # convs', then the heads'
+    convs = iter(conv_weights)
+    ptrs = [next(convs).data_ptr() if present else None
+            for present in (fpn_lat is not None, fpn_merge is not None) for _ in range(3)]
+    ptrs += [t.data_ptr() for t in convs] + [t.data_ptr() for t in head_folded]
     out_ptrs = [o.data_ptr() for o in outs] + ([None] if not emit_feature else [])
     lib = _build.library("fused_ssh")
     fn = lib.avcer_fused_ssh_q if quant else lib.avcer_fused_ssh

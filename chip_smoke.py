@@ -32,8 +32,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    weights the models keep, with the blocks an SM the card reports for it at
    every C (the plan's 2, or the phase fails); fused_ssh_heads likewise at each
    of its calls (the r50 detector's scales 2 and 3 in clusters of at least
-   128 blocks in all); nms_mask also at the mobilenet presets' detect batch
-   of 128 and at [2, 1000] (no path's K), with its device time from a
+   128 blocks in all; the int8 option on the packed weights the model keeps,
+   two blocks an SM at every C, and for the mobilenet detector also at the
+   448 bucket's calls of ``max --fused`` and ``turbo --fused``); nms_mask
+   also at the mobilenet presets' detect batch of 128 and at [2, 1000] (no
+   path's K), with its device time from a
    profiler trace beside its time a call and the plain version's;
    fused_chain_flat at the seven stride-1 chains of those calls, each
    with its plan (band height, C, grid), equal to fused_chain bit for bit
@@ -57,8 +60,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    against the unfused runs'; one more run of the unfused exact path and of
    the int8 fused path under the CLI's ``--profile_dir`` helper, for the
    device's busy and idle share of the wall (every NMS kernel in its trace
-   must be nms_bitmask_kernel; in int8 fused, K3's kernel as often as in a
-   timed run, with its device time and share); no timed or profiled run
+   must be nms_bitmask_kernel; in int8 fused, K3's and K4's kernels as often
+   as in a timed run, with their device time and share); no timed or profiled run
    packs int8 weights (the models pack them once, when they fold). In every warm-up run, of
    these paths and of the presets', each kernel call with shapes, types or
    modes that no path has shown yet is held against the kernel's plain
@@ -799,16 +802,21 @@ def kernels_fused_ssh(card: str, detector, quant: bool = False) -> dict:
     coarser one) and once with fused_ssh alone (scale 1 after the unfused
     FPN), at the detector's own widths: the r50 model's 256 channels with ReLU
     at its detect batch of 32, or the mobilenet model's 64 channels with leaky
-    ReLU 0.1 at its detect batch of 128 (the 640 bucket's three scales). The
-    library yardstick is the port's FPN lateral and merge, SSH module and
-    heads for that scale, unfused: cuDNN or, with ``quant``, the int8
-    modules."""
+    ReLU 0.1 at its detect batch of 128 (the 640 bucket's three scales; in
+    int8 also the 448 bucket's, 64 frames a call, as ``max --fused`` and
+    ``turbo --fused`` call it). The int8 option runs on the packed weights
+    the model keeps (``_scale_folded``). The library yardstick is the port's
+    FPN lateral and merge, SSH module and heads for that scale, unfused:
+    cuDNN or, with ``quant``, the int8 modules."""
     c = detector.out_ch
     mobile = detector.backbone == MNET
     batch = MNET_BATCH if mobile else DETECT_BATCH
     leaky = 0.1 if mobile else 0.0
-    shapes = [(batch, 45, 80, t) for t in ((64, 128, 256) if mobile else (512, 1024, 2048))]
-    shapes[1], shapes[2] = (batch, 23, 40) + shapes[1][3:], (batch, 12, 20) + shapes[2][3:]
+    taps = (64, 128, 256) if mobile else (512, 1024, 2048)
+    # (bucket, frames a call, (h, w) of scales 1-3, scale)
+    cases = [(640, batch, ((45, 80), (23, 40), (12, 20)), i) for i in (2, 1, 0, "ssh alone")]
+    if mobile and quant:
+        cases += [(448, 64, ((32, 56), (16, 28), (8, 14)), i) for i in (2, 1, 0)]
     folded = {dt: [detector._scale_folded(i, dt) for i in range(3)]
               for dt in (torch.float32, torch.bfloat16)}
     heads_of = [(detector.BboxHead[i], detector.ClassHead[i], detector.LandmarkHead[i])
@@ -818,12 +826,14 @@ def kernels_fused_ssh(card: str, detector, quant: bool = False) -> dict:
     kind = "int8" if quant else "bf16"
     rows, worst = [], 0.0
     feat_prev = None
-    for i in (2, 1, 0, "ssh alone"):
+    for bucket, frames, sizes, i in cases:
         alone = i == "ssh alone"
         i = 0 if alone else i
+        if i == 2:  # a bucket starts at its coarsest scale, which has no up
+            feat_prev = None
         # activations as the body's last activation leaves them
-        x = randn(shapes[i][:3] + (c,) if alone else shapes[i], 200 + (0 if alone else i),
-                  relu=False)
+        x = randn((frames,) + sizes[i] + (c if alone else taps[i],),
+                  (200 if bucket == 640 else 210) + (0 if alone else i), relu=False)
         x = fused_ssh_kernel.activate(x, leaky)
         up = None
         if feat_prev is not None and not alone:
@@ -831,14 +841,15 @@ def kernels_fused_ssh(card: str, detector, quant: bool = False) -> dict:
         emit = i > 0 and not alone
 
         def args(dt, n=None):
-            convs, heads, lat, merge, scales = folded[dt][i]
+            convs, heads, lat, merge, scales, packed = folded[dt][i]
             u = None if up is None else up[:n].to(dt)
             act_s = None
             if scales is not None:  # the kernel's order: lateral, merge, the SSH convs
                 act_s = scales[2] if alone else torch.cat([sx for sx in scales if sx is not None])
+                packed = packed[-5:] if alone else packed
             return dict(conv_folded=convs, head_folded=heads, leaky=leaky,
                         fpn_lat=None if alone else lat, fpn_merge=None if alone else merge,
-                        up=u, emit_feature=emit, act_s=act_s)
+                        up=u, emit_feature=emit, act_s=act_s, packed=packed)
 
         def run(a, dt):
             return fused_ssh_kernel.fused_ssh_heads(a, **args(dt, a.shape[0]))
@@ -861,6 +872,8 @@ def kernels_fused_ssh(card: str, detector, quant: bool = False) -> dict:
             return tuple(h(s) for h in heads_of[i])
 
         label = "scale 1 after the unfused FPN" if alone else f"scale {i + 1} with the FPN"
+        if bucket != 640:
+            label += f" at the {bucket} bucket"
         case = f"{label} {list(x.shape)}" + (" + up" if up is not None else "") + (
             " -> feature" if emit else "")
         a = args(torch.bfloat16)
@@ -895,13 +908,28 @@ def kernels_fused_ssh(card: str, detector, quant: bool = False) -> dict:
             feat_prev = outs[3]
         rows.append({"case": label, "shape": list(x.shape), "ms": ms, "plain_ms": plain,
                      "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by, **plan})
-    main = rows[2]  # scale 1 with the FPN: the largest of the three calls
+    extra = {}
+    if quant:
+        # the int8 product's shared memory leaves two blocks an SM at every C
+        occ = {f"{dt} C = {n}": fused_ssh_kernel.ssh_occupancy(
+                   torch.device(DEVICE), dt, True, n)["blocks_per_sm"]
+               for dt in (torch.float32, torch.bfloat16)
+               for n in range(1, fused_ssh_kernel.MAX_CLUSTER + 1)}
+        log(f"  {name}: product mma.sync m16n8k32 s8 (block_gemm_tc_q); blocks an SM by "
+            f"compute dtype and cluster size {occ}")
+        if set(occ.values()) != {fused_resnet_kernel.BLOCKS_PER_SM}:
+            raise AssertionError(f"{name}: blocks an SM {occ}, expected "
+                                 f"{fused_resnet_kernel.BLOCKS_PER_SM}")
+        extra = {"product": "mma.sync m16n8k32 s8",
+                 "blocks_per_sm": fused_resnet_kernel.BLOCKS_PER_SM}
+    main = rows[2]  # scale 1 with the FPN at the 640 bucket: the largest of the calls
     return entry("fused_ssh_heads" + ("_c64" if mobile else "") + ("_int8" if quant else ""),
                  "fused_ssh.cu",
                  "avcer_tpu/ops/pallas/fused_ssh_kernel.py:" + ("51" if quant else "198"),
                  max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
                  bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                 library_ms=main["library_ms"], shape=main["shape"], leaky=leaky, cases=rows)
+                 library_ms=main["library_ms"], shape=main["shape"], leaky=leaky, **extra,
+                 cases=rows)
 
 
 def depthwise_sections(card: str, detector) -> None:
@@ -1755,7 +1783,8 @@ def profiled_run(card: str, pipe, frames: np.ndarray, wav: np.ndarray, label: st
     device time. Every NMS kernel in the trace must be the bitmask kernel,
     as many as a timed run's ``nms_launches``; K3's kernel (``chain_kernel``)
     must appear ``chain_launches`` times, as in a timed run, and its device
-    time and share of the busy time are reported; the I420 rebuild's kernel
+    time and share of the busy time are reported, K4's (``ssh_kernel``) as
+    often as a timed run launched it, likewise; the I420 rebuild's kernel
     (``i420_to_bgr_kernel``) as often as a timed run launched it, with its
     device time; the run must pack no int8 weights. ``launches``: a timed
     run's."""
@@ -1808,6 +1837,14 @@ def profiled_run(card: str, pipe, frames: np.ndarray, wav: np.ndarray, label: st
     if len(chain) != chain_launches:
         raise AssertionError(f"{label}: {len(chain)} chain_kernel launches in the trace, "
                              f"{chain_launches} in a timed run")
+    ssh = [float(e["dur"]) * 1e-3 for e in events if e["cat"] == "kernel"
+           and "ssh_kernel" in e["name"]]
+    log(f"{label} under the profiler: K4 (ssh_kernel) {len(ssh)} launches "
+        f"({launches['fused_ssh_heads']} a timed run), {sum(ssh):.3f} ms of device time = "
+        f"{sum(ssh) * 1e-3 / busy:.1%} of the busy time")
+    if len(ssh) != launches["fused_ssh_heads"]:
+        raise AssertionError(f"{label}: {len(ssh)} ssh_kernel launches in the trace, "
+                             f"{launches['fused_ssh_heads']} in a timed run")
     i420 = [float(e["dur"]) * 1e-3 for e in events if e["cat"] == "kernel"
             and "i420_to_bgr_kernel" in e["name"]]
     log(f"{label} under the profiler: i420_to_bgr_kernel {len(i420)} launches "

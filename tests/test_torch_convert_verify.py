@@ -57,7 +57,7 @@ def test_report_and_exit_codes_match_jax(release, capsys):
     detector file carries, takes the r50 file for mobilenet0.25 and reports
     ``FAIL (structure mismatch)``; the port strips the prefix first.)"""
     events: list[str] = []
-    got = cv.verify_weights_dir(release, progress=events.append)
+    got = cv.verify_weights_dir(release, progress=events.append, device="cpu")
     want = jax_cv.verify_weights_dir(release, cache=False, progress=lambda _s: None)
     assert want["retinaface"]["status"] == "FAIL (structure mismatch)"
     for family in cv.FAMILIES:
@@ -75,6 +75,8 @@ def test_report_and_exit_codes_match_jax(release, capsys):
     if not torch.cuda.is_available():  # the default device is the card's
         with pytest.raises(RuntimeError, match="cuda"):
             cv.main(["--weights_dir", release])
+        with pytest.raises(RuntimeError, match="cuda"):
+            cv.verify_weights_dir(release, progress=lambda _s: None)
 
 
 def test_wrong_file_fails(release, tmp_path, capsys):
@@ -91,7 +93,7 @@ def test_wrong_file_fails(release, tmp_path, capsys):
         d.mkdir()
         torch.save(bad, d / name)
         got = cv.verify_weights_dir(str(d), families=["temporal_lstm", "retinaface"],
-                                    progress=lambda _s: None)
+                                    progress=lambda _s: None, device="cpu")
         want = jax_cv.verify_weights_dir(str(d), families=["temporal_lstm"], cache=False,
                                          progress=lambda _s: None)
         rec = got["temporal_lstm"]

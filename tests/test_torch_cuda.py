@@ -416,9 +416,11 @@ QSSH_CASES = [
 @pytest.mark.parametrize("shape,c,leaky,lat,merge,has_up,emit", QSSH_CASES)
 def test_fused_ssh_heads_kernel_int8(cuda_device, shape, c, leaky, lat, merge, has_up, emit,
                                      dtype):
-    """The int8 option (lateral, merge and the five SSH convs in int8, heads
-    exact) against its plain version; bounds as for the int8 chain, and for
-    the heads' f32 sums in another order the exact kernel's."""
+    """The int8 option (lateral, merge and the five SSH convs in int8 on
+    block_gemm_tc_q, heads exact) against its plain version; bounds as for the
+    int8 chain, and for the heads' f32 sums in another order the exact
+    kernel's. The kernel's packed copy of the int8 weights, made once and
+    handed in, gives the bits of a call that packs its own."""
     rng = np.random.default_rng(5)
     x = torch.from_numpy(np.maximum(rng.normal(size=shape), 0).astype(np.float32))
     x = x.to(cuda_device, dtype)
@@ -445,6 +447,20 @@ def test_fused_ssh_heads_kernel_int8(cuda_device, shape, c, leaky, lat, merge, h
     assert len(got) == len(want) == 3 + emit
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), atol=2 ** -5, rtol=2 ** -5)
+    packed = fused_resnet_kernel.pack_chain_q(list(fl or ()) + list(fm or ()) + list(convs))
+    again = fused_ssh_kernel.fused_ssh_heads(x, convs, heads, packed=packed, **kw)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ssh_int8_occupancy(cuda_device, dtype):
+    """The int8 option's shared memory (block_gemm_tc_q's three-stage ring of
+    128 x 256 bytes and the row tables) leaves the card room for two blocks
+    an SM at every cluster size, as K3's int8 mode."""
+    for c in range(1, fused_ssh_kernel.MAX_CLUSTER + 1):
+        occ = fused_ssh_kernel.ssh_occupancy(cuda_device, dtype, True, c)
+        assert occ["blocks_per_sm"] == fused_resnet_kernel.BLOCKS_PER_SM, (c, occ)
+        assert occ["clusters"] >= 1
 
 
 # Few work items, as the r50 detector's scales 2 and 3 give them: with and
@@ -465,7 +481,8 @@ def test_fused_ssh_cluster_equals_one_block(cuda_device, shape, c, lat, merge, e
     gives the result of one block bit for bit: every conv output and every
     head output is summed by the same instructions in the same order,
     whichever block computes it. C is forced through the wrapper's private
-    launch path."""
+    launch path. The int8 modes also launch on a packed copy of the weights
+    made once, with the bits of a call that packs its own."""
     rng = np.random.default_rng(13)
     dtype = torch.bfloat16 if mode.endswith("bf16") else torch.float32
     x = torch.from_numpy(np.maximum(rng.normal(size=shape), 0).astype(np.float32))
@@ -500,6 +517,12 @@ def test_fused_ssh_cluster_equals_one_block(cuda_device, shape, c, lat, merge, e
     # and the plan's own C, which the public wrapper launches
     assert all(torch.equal(g, o) for g, o in zip(
         fused_ssh_kernel.fused_ssh_heads(x, convs, heads, **kw), one))
+    if act_s is not None:
+        packed = fused_resnet_kernel.pack_chain_q(list(fl or ()) + list(fm or ()) + list(convs))
+        assert all(torch.equal(g, o) for g, o in zip(
+            launch(x, convs, heads, cluster=cluster, packed=packed, **kw), one))
+        assert all(torch.equal(g, o) for g, o in zip(
+            fused_ssh_kernel.fused_ssh_heads(x, convs, heads, packed=packed, **kw), one))
 
 
 def test_fused_ssh_refused_cluster_raises(cuda_device):
