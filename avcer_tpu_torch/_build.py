@@ -33,6 +33,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from avcer_tpu_torch.utils import trace
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "avcer_tpu_torch"
 CACHE_ENV = "AVCER_COMPILE_CACHE"
@@ -143,11 +145,15 @@ def _compile(name: str) -> Path:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first if needed (the
+    span ``setup.kernel_load``, ``compiled`` if nvcc ran)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_compile(name)))
+            before = compiles
+            with trace.setup("kernel_load", kernel=name) as sp:
+                lib = ctypes.CDLL(str(_compile(name)))
+                sp.note(compiled=compiles > before)
             _libs[name] = lib
         return lib
 

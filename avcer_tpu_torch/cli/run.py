@@ -26,7 +26,10 @@ the fused CUDA kernels (same weights, same outputs up to rounding). A
 directory of clips is served through ``Pipeline.run_many``, two clips at a
 time. ``--profile_dir DIR`` runs the single-clip ``Pipeline.run`` under
 ``torch.profiler`` (CPU, and CUDA on a card) and writes a Chrome trace into
-DIR. The JAX CLI's other flags are served as there: ``--audio_head v1|v2|v3``
+DIR, and beside it ``spans.json``: the clip's spans by name (self time, and
+the card's idle time in each span of the serving thread), its counters and
+launches, and the process's set-up spans (``utils.trace``). The JAX CLI's
+other flags are served as there: ``--audio_head v1|v2|v3``
 (default v3 with ``--audio_classes 8``, v2 with 7; the 7-class audio CSV
 goes to ``audio_<padding>_<step>/``), ``--save_face_crops`` (the host-crop
 path, detect stride 1 only: every tracklet's crops as jpgs under
@@ -61,6 +64,7 @@ from avcer_tpu_torch.core.config import (AudioConfig, DetectorConfig, FusionConf
                                          MeshConfig, PipelineConfig, VisualConfig)
 
 TRACE_FILE = "trace.json"
+SPANS_FILE = "spans.json"
 PROFILES = ("parity", "balanced", "int8", "int8_s2", "int8_448", "int8_448_s2", "fast", "turbo",
             "max")
 
@@ -106,7 +110,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--audio_head", choices=["v1", "v2", "v3"], default=None,
                    help="default: v3 for 8 classes, v2 for 7 (the reference's pairing)")
     p.add_argument("--profile_dir", type=str, default="",
-                   help="write a torch.profiler Chrome trace of the run here")
+                   help="write a torch.profiler Chrome trace of the run here, and spans.json")
     p.add_argument("--calibrate", action="store_true",
                    help="measure the CNN and audio batch sizes on this card once and cache "
                         "them (pipeline.calibrate)")
@@ -122,17 +126,25 @@ def parse_args(argv=None) -> argparse.Namespace:
 def profiled(path: str, device="cuda"):
     """``torch.profiler`` over the body (CPU activity, and CUDA where
     ``device`` is a GPU); on exit the Chrome trace goes to
-    ``path/trace.json``."""
+    ``path/trace.json`` and the spans of the clips served in the body, joined
+    with the device's intervals, to ``path/spans.json`` (``trace.report``)."""
+    import json
+
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from avcer_tpu_torch.utils import trace
 
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(path, exist_ok=True)
+    since = time.time_ns()
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(path, TRACE_FILE))
+    with open(os.path.join(path, SPANS_FILE), "w") as f:
+        json.dump(trace.report(trace.device_intervals(prof), since), f, indent=1)
 
 
 def config_from_args(a: argparse.Namespace) -> PipelineConfig:

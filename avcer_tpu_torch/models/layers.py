@@ -50,6 +50,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from avcer_tpu_torch.utils import trace
+
 
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1 of [B, C, ...] with the state names of
@@ -219,7 +221,8 @@ class FoldCache(nn.Module):
             raise RuntimeError("folded weights are for inference: a model in training "
                                "takes its unfused modules")
         if key not in self._folds:
-            self._folds[key] = make()
+            with trace.setup("fold", model=type(self).__name__):
+                self._folds[key] = make()
         return self._folds[key]
 
     def _apply(self, fn, *args, **kwargs):

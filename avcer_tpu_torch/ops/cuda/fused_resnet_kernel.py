@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from avcer_tpu_torch import _build
+from avcer_tpu_torch.utils import trace
 
 KINDS = {"id": 0, "ds": 1, "s2ds": 2, "s2pre": 3}
 MAX_BLOCKS = 6
@@ -108,7 +109,9 @@ def pack_chain_q(folded: Sequence[torch.Tensor]) -> tuple[torch.Tensor, ...]:
     if len(folded) % 3:
         raise ValueError(f"pack_chain_q: {len(folded)} tensors are not (wq, mult, shift) triples")
     pack_chain_q.calls += 1
-    return tuple(w.reshape(-1, *w.shape[-2:]).transpose(1, 2).contiguous() for w in folded[0::3])
+    with trace.setup("pack"):
+        return tuple(w.reshape(-1, *w.shape[-2:]).transpose(1, 2).contiguous()
+                     for w in folded[0::3])
 
 
 pack_chain_q.calls = 0
@@ -266,13 +269,17 @@ def fused_chain(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequenc
     folds (else the int8 mode packs on every CUDA call).
     ``fused_chain.launches`` counts kernel launches; ``fused_chain.occupancy``
     holds what the card reported for each launch configuration (see
-    ``chain_occupancy``)."""
+    ``chain_occupancy``). While a profiler records, each call is the span
+    ``k3`` (``utils.trace``)."""
     blocks = tuple(blocks)
-    if x.device.type == "cpu":
-        return fused_chain_plain(x, folded, blocks, band=band, act_s=act_s)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_chain: unsupported device {x.device}")
-    return _fused_chain_cuda(x, folded, blocks, act_s, packed=packed)
+    with trace.span("k3") as sp:
+        if sp:
+            sp.note(shape=tuple(x.shape), dtype=str(x.dtype), int8=act_s is not None)
+        if x.device.type == "cpu":
+            return fused_chain_plain(x, folded, blocks, band=band, act_s=act_s)
+        if x.device.type != "cuda":
+            raise ValueError(f"fused_chain: unsupported device {x.device}")
+        return _fused_chain_cuda(x, folded, blocks, act_s, packed=packed)
 
 
 def card_occupancy(lib: str, name: str, cache: dict, device: torch.device, dtype: torch.dtype,
@@ -289,7 +296,7 @@ def card_occupancy(lib: str, name: str, cache: dict, device: torch.device, dtype
         fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
         fn.restype = ctypes.c_int
         clusters, blocks = ctypes.c_int(0), ctypes.c_int(0)
-        with torch.cuda.device(device):
+        with trace.setup("occupancy", kernel=name, cluster=cluster), torch.cuda.device(device):
             rc = fn(DTYPE_CODE[dtype], int(quant), cluster, ctypes.byref(clusters),
                     ctypes.byref(blocks))
         if rc != 0 or clusters.value < 1:
@@ -345,6 +352,7 @@ def _fused_chain_cuda(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: t
     if b == 0:
         return out
     chain_occupancy(x.device, x.dtype, quant, plan["cluster"])
+    trace.annotate("k3", C=plan["cluster"], grid=plan["grid"])
     scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=x.device)
     n = len(blocks)
     lib = _build.library("fused_resnet")

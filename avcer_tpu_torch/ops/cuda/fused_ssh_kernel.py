@@ -38,6 +38,7 @@ from avcer_tpu_torch.ops.cuda.fused_resnet_kernel import (DTYPE_CODE, MAX_CLUSTE
                                                           check_cuda_tensor, conv_bn_plain,
                                                           conv_bn_plain_q, pack_chain_q,
                                                           packed_shape, tile_edge)
+from avcer_tpu_torch.utils import trace
 
 
 def _check_args(conv_folded, head_folded, fpn_lat, fpn_merge, act_s) -> None:
@@ -199,14 +200,18 @@ def fused_ssh_heads(
     every CUDA call). ``fused_ssh_heads.launches`` counts kernel launches,
     ``fused_ssh_heads.launches_by_leaky`` the same launches by their slope,
     and ``fused_ssh_heads.occupancy`` holds what the card reported for each
-    launch configuration (see ``ssh_occupancy``)."""
-    if x.device.type == "cpu":
-        return fused_ssh_heads_plain(x, conv_folded, head_folded, leaky, fpn_lat, fpn_merge,
-                                     up, emit_feature, band, act_s)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_ssh_heads: unsupported device {x.device}")
-    return _fused_ssh_cuda(x, conv_folded, head_folded, leaky, fpn_lat, fpn_merge, up,
-                           emit_feature, act_s, packed=packed)
+    launch configuration (see ``ssh_occupancy``). While a profiler records,
+    each call is the span ``k4`` (``utils.trace``)."""
+    with trace.span("k4") as sp:
+        if sp:
+            sp.note(shape=tuple(x.shape), dtype=str(x.dtype), int8=act_s is not None)
+        if x.device.type == "cpu":
+            return fused_ssh_heads_plain(x, conv_folded, head_folded, leaky, fpn_lat,
+                                         fpn_merge, up, emit_feature, band, act_s)
+        if x.device.type != "cuda":
+            raise ValueError(f"fused_ssh_heads: unsupported device {x.device}")
+        return _fused_ssh_cuda(x, conv_folded, head_folded, leaky, fpn_lat, fpn_merge, up,
+                               emit_feature, act_s, packed=packed)
 
 
 def _fused_ssh_cuda(x: torch.Tensor, conv_folded: Sequence[torch.Tensor],
@@ -270,6 +275,7 @@ def _fused_ssh_cuda(x: torch.Tensor, conv_folded: Sequence[torch.Tensor],
     if b == 0:
         return tuple(outs)
     plan = card_plan(x, c, fpn_merge is not None, quant, cluster)
+    trace.annotate("k4", C=plan["cluster"], grid=plan["grid"])
     scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=x.device)
     # (w, inv, shift) of the lateral and the merge (null where absent), the SSH
     # convs', then the heads'

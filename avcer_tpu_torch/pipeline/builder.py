@@ -55,6 +55,7 @@ from avcer_tpu_torch.pipeline.audio_stage import AudioStage
 from avcer_tpu_torch.pipeline.detect import DetectStage
 from avcer_tpu_torch.pipeline.runner import Pipeline, check_supported
 from avcer_tpu_torch.pipeline.visual import VisualStage
+from avcer_tpu_torch.utils import trace
 
 log = logging.getLogger("avcer_tpu_torch")
 
@@ -76,8 +77,17 @@ def build_pipeline(
     says), "emotion_resnet50", "temporal_lstm" and "expr_model", converted
     with ``core.convert`` and loaded strictly. Every family not given is
     loaded from its release file in ``cfg.weights_dir``, or where there is
-    none initialised from ``torch.Generator().manual_seed(seed)``.
+    none initialised from ``torch.Generator().manual_seed(seed)``. The build
+    is the span ``setup.build_pipeline`` (``utils.trace``).
     """
+    with trace.setup("build_pipeline"):
+        return _build_pipeline(cfg, wav2vec2_config, device, seed, jax_variables, mesh_devices)
+
+
+def _build_pipeline(cfg: PipelineConfig, wav2vec2_config: Optional[Wav2Vec2Config],
+                    device: torch.device | str, seed: int,
+                    jax_variables: Optional[Mapping[str, Mapping[str, Any]]],
+                    mesh_devices: Optional[list]) -> Pipeline:
     check_supported(cfg)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():

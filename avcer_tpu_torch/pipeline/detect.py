@@ -61,6 +61,7 @@ from avcer_tpu_torch.ops.cuda.nms_kernel import nms_mask
 from avcer_tpu_torch.ops.image import (bgr_batch_to_i420, letterbox_params,
                                        resize_bilinear_uint8, retinaface_normalize)
 from avcer_tpu_torch.parallel.mesh import split_rows
+from avcer_tpu_torch.utils import trace
 
 
 log = logging.getLogger("avcer_tpu_torch")
@@ -204,7 +205,7 @@ class DetectStage:
         letterbox it on the device to the configured bucket (or pad to a
         multiple of 32 when long_side is 0). Returns (frames on the device,
         scale bucket -> native)."""
-        x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+        x = self._upload(frames)
         b, h, w = frames.shape[:3]
         if self.cfg.long_side > 0:
             nh, nw, scale = letterbox_params(h, w, self.cfg.long_side)
@@ -238,13 +239,20 @@ class DetectStage:
         scale = letterbox_params(h, w, self.cfg.long_side)[2] if self.cfg.long_side > 0 else 1.0
         return frames, scale
 
+    def _upload(self, frames: np.ndarray) -> torch.Tensor:
+        """The host -> device copy of a wire or of native frames."""
+        with trace.span("detect.upload"):
+            trace.count("detect.upload_bytes", frames.nbytes)
+            return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+
     def upload_wire(self, wire: np.ndarray) -> torch.Tensor:
         """The wire on the device as letterboxed BGR frames [B, H, W, 3]
         uint8: the I420 upload rebuilt by ``i420_to_bgr``, or the native
         frames uploaded and letterboxed."""
         if self.cfg.transfer_format == "i420":
-            x = torch.from_numpy(np.ascontiguousarray(wire)).to(self.device)
-            return i420_to_bgr(x, wire.shape[1] * 2 // 3, wire.shape[2])
+            x = self._upload(wire)
+            with trace.span("detect.rebuild"):
+                return i420_to_bgr(x, wire.shape[1] * 2 // 3, wire.shape[2])
         return self.letterbox_device(wire)[0]
 
     def _priors_for(self, h: int, w: int, device: torch.device | None = None) -> torch.Tensor:
@@ -272,19 +280,22 @@ class DetectStage:
 
     def _forward_shard(self, model: torch.nn.Module, frames: torch.Tensor) -> torch.Tensor:
         h, w, dev = frames.shape[1], frames.shape[2], frames.device
-        loc, conf, landms = model(retinaface_normalize(frames))
-        priors = self._priors_for(h, w, dev)
-        scale = torch.tensor([w, h, w, h], dtype=torch.float32, device=dev)
-        boxes = box_ops.decode_boxes(loc.float(), priors) * scale
-        lscale = torch.tensor([w, h] * 5, dtype=torch.float32, device=dev)
-        landms = box_ops.decode_landmarks(landms.float(), priors) * lscale
-        k = min(self.cfg.nms_candidates, 64)
-        cand_boxes, cand_scores, valid, idx = nms_ops.topk_candidates(
-            boxes, conf[..., 1], k, self.cfg.threshold)
-        keep = nms_mask(cand_boxes.contiguous(), valid.contiguous(), self.cfg.nms_thresh)
-        cand_landms = torch.gather(landms, 1, idx[..., None].expand(-1, -1, 10))
-        return torch.cat([cand_boxes, cand_scores[..., None],
-                          keep.float()[..., None], cand_landms], dim=-1)
+        with trace.span("detect.network"):
+            loc, conf, landms = model(retinaface_normalize(frames))
+        with trace.span("detect.decode"):
+            trace.count("detect.frames", frames.shape[0])
+            priors = self._priors_for(h, w, dev)
+            scale = torch.tensor([w, h, w, h], dtype=torch.float32, device=dev)
+            boxes = box_ops.decode_boxes(loc.float(), priors) * scale
+            lscale = torch.tensor([w, h] * 5, dtype=torch.float32, device=dev)
+            landms = box_ops.decode_landmarks(landms.float(), priors) * lscale
+            k = min(self.cfg.nms_candidates, 64)
+            cand_boxes, cand_scores, valid, idx = nms_ops.topk_candidates(
+                boxes, conf[..., 1], k, self.cfg.threshold)
+            keep = nms_mask(cand_boxes.contiguous(), valid.contiguous(), self.cfg.nms_thresh)
+            cand_landms = torch.gather(landms, 1, idx[..., None].expand(-1, -1, 10))
+            return torch.cat([cand_boxes, cand_scores[..., None],
+                              keep.float()[..., None], cand_landms], dim=-1)
 
     def dispatch_wire(self, wire: np.ndarray, scale: float
                       ) -> tuple[torch.Tensor, float, torch.Tensor]:
@@ -294,7 +305,8 @@ class DetectStage:
         letterboxed BGR frames on the device for the crop stage)."""
         frames_dev = self.upload_wire(wire)
         if self.quant:
-            self._watch_calibration(frames_dev)
+            with trace.span("detect.calibrate"):
+                self._watch_calibration(frames_dev)
         return self.forward(frames_dev), scale, frames_dev
 
     def dispatch(self, frames: np.ndarray) -> tuple[torch.Tensor, float, torch.Tensor]:

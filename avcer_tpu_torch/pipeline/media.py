@@ -100,7 +100,9 @@ class ArrayReader:
 def prefetch_iter(it: Iterator, depth: int = 2) -> Iterator:
     """Run an iterator in a background thread with a bounded queue, so host
     decode overlaps device work. An exception in the producer is re-raised
-    here."""
+    here. The thread runs in a copy of the caller's ``contextvars`` context
+    (the clip a span records for, ``utils.trace``)."""
+    import contextvars
     import queue
     import threading
 
@@ -117,7 +119,8 @@ def prefetch_iter(it: Iterator, depth: int = 2) -> Iterator:
         finally:
             q.put(end)
 
-    t = threading.Thread(target=producer, daemon=True)
+    t = threading.Thread(target=contextvars.copy_context().run, args=(producer,),
+                         daemon=True)
     t.start()
     while True:
         item = q.get()

@@ -19,6 +19,7 @@ host arrays after a synchronising copy.
 
 from __future__ import annotations
 
+import contextvars
 import logging
 import os
 import subprocess
@@ -41,6 +42,7 @@ from avcer_tpu_torch.pipeline.audio_stage import AudioStage, AudioWindows
 from avcer_tpu_torch.pipeline.detect import DetectStage
 from avcer_tpu_torch.pipeline.visual import (TemporalPlan, VisualStage, build_temporal_plan,
                                              cnn_compute_sel, subset_forward_fill)
+from avcer_tpu_torch.utils import trace
 
 log = logging.getLogger("avcer_tpu_torch")
 
@@ -129,7 +131,9 @@ class Pipeline:
         pending: list[tuple[np.ndarray, int, torch.Tensor, float]] = []
 
         def drain(frames_np: np.ndarray, n_valid: int, packed: torch.Tensor, scale: float):
-            det = self.detect.unpack(packed.cpu().numpy(), scale)
+            with trace.span("runner.fetch"):
+                packed_np = packed.cpu().numpy()
+            det = self.detect.unpack(packed_np, scale)
             frame0 = len(present)
             for i in range(n_valid):
                 kept = det.keep[i]
@@ -213,22 +217,25 @@ class Pipeline:
             # pass 1, per detected frame: the tracker is sequential in frame order
             nonlocal drained
             packed, n_valid, _, scale = pending[drained]
-            det = self.detect.unpack(packed.cpu().numpy(), scale)
-            for r in range(det.boxes.shape[0]):
-                if r * stride >= n_valid:
-                    break
-                kept = det.keep[r]
-                frame_dets = np.concatenate(
-                    [det.boxes[r][kept], det.scores[r][kept][:, None]], axis=1)
-                tbox = None
-                for det_row, tid in zip(frame_dets, tracker(frame_dets)):
-                    if tid != 1:
-                        continue
-                    _, ok = image_ops.clamp_boxes_valid(det_row[None], w_native, h_native)
-                    if ok[0]:
-                        tbox = det_row[:4].astype(np.float64)
-                    break  # tracker ids are unique
-                det_boxes_nat.append(tbox)
+            with trace.span("runner.fetch"):
+                packed_np = packed.cpu().numpy()
+            with trace.span("runner.track"):
+                det = self.detect.unpack(packed_np, scale)
+                for r in range(det.boxes.shape[0]):
+                    if r * stride >= n_valid:
+                        break
+                    kept = det.keep[r]
+                    frame_dets = np.concatenate(
+                        [det.boxes[r][kept], det.scores[r][kept][:, None]], axis=1)
+                    tbox = None
+                    for det_row, tid in zip(frame_dets, tracker(frame_dets)):
+                        if tid != 1:
+                            continue
+                        _, ok = image_ops.clamp_boxes_valid(det_row[None], w_native, h_native)
+                        if ok[0]:
+                            tbox = det_row[:4].astype(np.float64)
+                        break  # tracker ids are unique
+                    det_boxes_nat.append(tbox)
             drained += 1
 
         def flush_chunk() -> None:
@@ -237,40 +244,41 @@ class Pipeline:
                 return
             while drained < len(pending):
                 drain_one()
-            frames_dev = torch.cat([f for _, _, f, _ in pending])
-            scale = pending[0][3]
-            bsz = pending[0][2].shape[0]
-            lb_h, lb_w = frames_dev.shape[1], frames_dev.shape[2]
-            # pass 2, per frame, in float64 and in the JAX package's order of
-            # operations (the int cast below truncates: equal, not close): its
-            # own detection, or between two detections their interpolation
-            frame_ids = np.concatenate(
-                [np.arange(n) + bi * bsz for bi, (_, n, _, _) in enumerate(pending)])
-            # every batch holds a valid frame, so a detection exists at or
-            # before each frame: d indexes it, d1 the next one if there is one
-            nd = len(det_boxes_nat)
-            ok = np.array([b is not None for b in det_boxes_nat], bool)
-            bx = np.stack([b if b is not None else np.zeros(4) for b in det_boxes_nat])
-            d = frame_ids // stride
-            frac = (frame_ids % stride) / stride
-            d1 = np.minimum(d + 1, nd - 1)
-            use1 = (frac > 0) & (d + 1 < nd) & ok[d1]
-            b1 = np.where(use1[:, None], bx[d1], bx[d])
-            box_f = (1 - frac[:, None]) * bx[d] + frac[:, None] * b1
-            # the reference's int cast (truncation) + clamp
-            bi_, box_ok = image_ops.clamp_boxes_valid(box_f, w_native, h_native)
-            present = ok[d] & box_ok
-            # clamp in native coordinates, then map into the letterboxed frame
-            b = np.round(bi_.astype(np.float64) * scale).astype(np.int32)
-            b[:, 0] = np.minimum(b[:, 0], lb_w - 2)
-            b[:, 1] = np.minimum(b[:, 1], lb_h - 2)
-            b[:, 2] = np.maximum(b[:, 2], b[:, 0] + 1)
-            b[:, 3] = np.maximum(b[:, 3], b[:, 1] + 1)
-            global_base = len(present_all)
-            present_all.extend(present.tolist())
-            boxes_nat_all.append(np.where(present[:, None], bi_.astype(np.int32), -1))
-            present_idx = frame_ids[present].astype(np.int32)
-            boxes_lb = b[present]
+            with trace.span("runner.chunk"):
+                frames_dev = torch.cat([f for _, _, f, _ in pending])
+                scale = pending[0][3]
+                bsz = pending[0][2].shape[0]
+                lb_h, lb_w = frames_dev.shape[1], frames_dev.shape[2]
+                # pass 2, per frame, in float64 and in the JAX package's order of
+                # operations (the int cast below truncates: equal, not close): its
+                # own detection, or between two detections their interpolation
+                frame_ids = np.concatenate(
+                    [np.arange(n) + bi * bsz for bi, (_, n, _, _) in enumerate(pending)])
+                # every batch holds a valid frame, so a detection exists at or
+                # before each frame: d indexes it, d1 the next one if there is one
+                nd = len(det_boxes_nat)
+                ok = np.array([b is not None for b in det_boxes_nat], bool)
+                bx = np.stack([b if b is not None else np.zeros(4) for b in det_boxes_nat])
+                d = frame_ids // stride
+                frac = (frame_ids % stride) / stride
+                d1 = np.minimum(d + 1, nd - 1)
+                use1 = (frac > 0) & (d + 1 < nd) & ok[d1]
+                b1 = np.where(use1[:, None], bx[d1], bx[d])
+                box_f = (1 - frac[:, None]) * bx[d] + frac[:, None] * b1
+                # the reference's int cast (truncation) + clamp
+                bi_, box_ok = image_ops.clamp_boxes_valid(box_f, w_native, h_native)
+                present = ok[d] & box_ok
+                # clamp in native coordinates, then map into the letterboxed frame
+                b = np.round(bi_.astype(np.float64) * scale).astype(np.int32)
+                b[:, 0] = np.minimum(b[:, 0], lb_w - 2)
+                b[:, 1] = np.minimum(b[:, 1], lb_h - 2)
+                b[:, 2] = np.maximum(b[:, 2], b[:, 0] + 1)
+                b[:, 3] = np.maximum(b[:, 3], b[:, 1] + 1)
+                global_base = len(present_all)
+                present_all.extend(present.tolist())
+                boxes_nat_all.append(np.where(present[:, None], bi_.astype(np.int32), -1))
+                present_idx = frame_ids[present].astype(np.int32)
+                boxes_lb = b[present]
             if crop_step:
                 gsel = present & ((global_base + frame_ids) % crop_step == 0)
                 if gsel.any():
@@ -307,7 +315,9 @@ class Pipeline:
         def prepared():
             for frames_np, n_valid in reader.batches(cfg.batch_size):
                 if can_prepare_ahead:
-                    yield (*self.detect.prepare_wire(frames_np), n_valid, frames_np.shape[0])
+                    with trace.span("runner.wire"):  # the prefetch thread's
+                        wire, scale = self.detect.prepare_wire(frames_np)
+                    yield wire, scale, n_valid, frames_np.shape[0]
                 else:
                     yield frames_np, None, n_valid, frames_np.shape[0]
 
@@ -342,39 +352,48 @@ class Pipeline:
                     ) -> tuple[Optional[np.ndarray], Optional[AudioWindows], float]:
         """Audio half of a clip, on a worker thread with its own CUDA stream
         (wav2vec2 overlaps detect/visual on the card)."""
-        t0 = time.perf_counter()
-        if wav is None:
-            try:
-                wav = media.extract_audio(path_video, self.cfg.audio.sample_rate)
-            except (RuntimeError, FileNotFoundError, subprocess.CalledProcessError) as e:
-                log.warning("audio unavailable for %s: %s", path_video, e)
-                if duration_frames <= 0:
-                    return None, None, time.perf_counter() - t0
-                wav = np.zeros(int(duration_frames / max(fps, 1) * self.cfg.audio.sample_rate),
-                               np.float32)
-        if self._audio_stream is not None:
-            self._audio_stream.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(self._audio_stream):
+        with trace.span("audio"):
+            t0 = time.perf_counter()
+            if wav is None:
+                try:
+                    wav = media.extract_audio(path_video, self.cfg.audio.sample_rate)
+                except (RuntimeError, FileNotFoundError, subprocess.CalledProcessError) as e:
+                    log.warning("audio unavailable for %s: %s", path_video, e)
+                    if duration_frames <= 0:
+                        return None, None, time.perf_counter() - t0
+                    wav = np.zeros(int(duration_frames / max(fps, 1)
+                                       * self.cfg.audio.sample_rate), np.float32)
+            if self._audio_stream is not None:
+                self._audio_stream.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(self._audio_stream):
+                    logits, windows = self.audio.run_from_wav(wav, fps)
+            else:
                 logits, windows = self.audio.run_from_wav(wav, fps)
-        else:
-            logits, windows = self.audio.run_from_wav(wav, fps)
+        trace.count("audio.windows", len(windows.spans))
         return logits, windows, time.perf_counter() - t0
 
     def run(self, video, path_save: str = "", wav: Optional[np.ndarray] = None) -> ClipResult:
         """``video``: a path (decoded with OpenCV) or a reader with the
         ``VideoReader`` interface (``media.ArrayReader``). Audio comes from
         ``wav`` (mono float32 at the configured rate) or the video's wav
-        sidecar."""
+        sidecar. While a profiler records, the clip's spans and counters are
+        recorded (``utils.trace``)."""
+        with trace.clip():
+            return self._run(video, path_save, wav)
+
+    def _run(self, video, path_save: str, wav: Optional[np.ndarray]) -> ClipResult:
         reader = media.VideoReader(video) if isinstance(video, str) else video
         meta = reader.meta
         name_video = os.path.basename(meta.path)
         name_video = name_video[: name_video.rfind(".")] if "." in name_video else name_video
+        trace.annotate("clip", video=name_video, frames=meta.total_frames, fps=meta.fps)
 
         timings: dict[str, float] = {}
         wall0 = time.perf_counter()
         executor = ThreadPoolExecutor(max_workers=1)
-        audio_future = executor.submit(self._audio_task, meta.path, wav, meta.fps,
-                                       meta.total_frames)
+        # the worker serves this clip: its spans carry the clip's id
+        audio_future = executor.submit(contextvars.copy_context().run, self._audio_task,
+                                       meta.path, wav, meta.fps, meta.total_frames)
         executor.shutdown(wait=False)  # the queued task still runs
 
         t0 = time.perf_counter()
@@ -413,7 +432,8 @@ class Pipeline:
             timings["heatmaps"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        audio_logits, audio_windows, audio_thread_sec = audio_future.result()
+        with trace.span("runner.audio_wait"):
+            audio_logits, audio_windows, audio_thread_sec = audio_future.result()
         if audio_logits is None:  # the silent track needed the frame count
             silent = np.zeros(
                 int(total_frames / max(meta.fps, 1) * self.cfg.audio.sample_rate), np.float32)
@@ -422,10 +442,11 @@ class Pipeline:
         timings["audio_concurrent"] = audio_thread_sec
 
         t0 = time.perf_counter()
-        audio_frame_logits = compound_mod.align_audio_to_frames(
-            audio_logits, audio_windows.frame_ids, audio_windows.window_of_row, total_frames)
-        result = compound_mod.decide(stat_probs, dyn_logits, audio_frame_logits, name_video,
-                                     self.cfg.fusion, device=self.device)
+        with trace.span("fusion"):
+            audio_frame_logits = compound_mod.align_audio_to_frames(
+                audio_logits, audio_windows.frame_ids, audio_windows.window_of_row, total_frames)
+            result = compound_mod.decide(stat_probs, dyn_logits, audio_frame_logits, name_video,
+                                         self.cfg.fusion, device=self.device)
         timings["fusion"] = time.perf_counter() - t0
         timings["wall"] = time.perf_counter() - wall0
 
@@ -439,7 +460,7 @@ class Pipeline:
             face_boxes=face_boxes[:total_frames] if face_boxes is not None else None,
         )
         if path_save:
-            with self._save_lock:
+            with trace.span("runner.save"), self._save_lock:
                 self.save_outputs(clip, path_save)
         return clip
 

@@ -46,6 +46,7 @@ import torch
 from avcer_tpu_torch.models import layers
 from avcer_tpu_torch.ops.image import crop_and_resize, vggface_normalize
 from avcer_tpu_torch.parallel.mesh import split_rows
+from avcer_tpu_torch.utils import trace
 from avcer_tpu_torch.utils.gradcam import gradcam_masks
 
 
@@ -214,14 +215,21 @@ class VisualStage:
         if p == 0:
             return (np.zeros((0, self.num_classes), np.float32),
                     np.zeros((0, 512), np.float32))
-        self.ensure_calibrated_from_frames(frames_dev, present_idx, boxes)
-        bs = self.batch_size
-        fill = (-p) % bs
-        idx_all = torch.from_numpy(np.pad(present_idx.astype(np.int64), (0, fill), "edge"))
-        boxes_all = torch.from_numpy(np.pad(boxes.astype(np.int64), ((0, fill), (0, 0)), "edge"))
-        idx_all, boxes_all = idx_all.to(self.device), boxes_all.to(self.device)
-        packed = torch.cat([self.static_batch(frames_dev, idx_all[s:s + bs], boxes_all[s:s + bs])
-                            for s in range(0, p, bs)])[:p].cpu().numpy()
+        with trace.span("visual.static"):
+            trace.count("visual.crops", p)
+            self.ensure_calibrated_from_frames(frames_dev, present_idx, boxes)
+            bs = self.batch_size
+            fill = (-p) % bs
+            idx_all = torch.from_numpy(np.pad(present_idx.astype(np.int64), (0, fill), "edge"))
+            boxes_all = torch.from_numpy(np.pad(boxes.astype(np.int64), ((0, fill), (0, 0)),
+                                                "edge"))
+            with trace.span("visual.upload"):
+                idx_all, boxes_all = idx_all.to(self.device), boxes_all.to(self.device)
+            out = torch.cat([self.static_batch(frames_dev, idx_all[s:s + bs],
+                                               boxes_all[s:s + bs])
+                             for s in range(0, p, bs)])[:p]
+            with trace.span("visual.fetch"):
+                packed = out.cpu().numpy()
         return packed[:, :self.num_classes], packed[:, self.num_classes:]
 
     def static_batch(self, frames_dev: torch.Tensor, idx: torch.Tensor,
@@ -280,9 +288,11 @@ class VisualStage:
         """Step-frame features -> [S, C] raw logits from the LSTM."""
         if plan.step_frames.size == 0:
             return np.zeros((0, self.num_classes), np.float32)
-        windows = feats[plan.step_frames][plan.window_idx]  # [S, 10, 512]
-        x = torch.from_numpy(np.ascontiguousarray(windows, np.float32)).to(self.device)
-        return self.lstm_model(x).float().cpu().numpy()
+        with trace.span("visual.dynamic"):
+            trace.count("visual.lstm_windows", plan.step_frames.size)
+            windows = feats[plan.step_frames][plan.window_idx]  # [S, 10, 512]
+            x = torch.from_numpy(np.ascontiguousarray(windows, np.float32)).to(self.device)
+            return self.lstm_model(x).float().cpu().numpy()
 
     @staticmethod
     def expand_to_frames(stat_probs: np.ndarray, dyn_logits: np.ndarray,

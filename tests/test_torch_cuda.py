@@ -913,3 +913,48 @@ def test_detect_stage_data_parallel_on_the_card(cuda_device):
     np.testing.assert_array_equal(got.keep, want.keep)
     np.testing.assert_allclose(got.scores, want.scores, atol=1e-4)
     np.testing.assert_allclose(got.boxes, want.boxes, atol=5e-2, rtol=1e-5)
+
+
+def test_cli_profile_dir_writes_spans_json(cuda_device, tmp_path):
+    """``cli.run --serving_profile parity --fused --profile_dir DIR`` on a
+    generated clip (noise frames, a noise wav sidecar) writes
+    ``DIR/spans.json``: the clip's spans on the serving thread with the
+    card's idle time under them, and over the clip launches of K1-K4 and of
+    the I420 rebuild, none zero."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import cv2
+
+    from avcer_tpu_torch.pipeline import media
+
+    rng = np.random.default_rng(0)
+    video = str(tmp_path / "clip.avi")
+    vw = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"MJPG"), 25, (640, 360))
+    for _ in range(100):
+        vw.write(rng.integers(0, 255, (360, 640, 3), np.uint8))
+    vw.release()
+    media.write_wav(str(tmp_path / "clip.wav"),
+                    (rng.normal(size=4 * 16000) * 0.1).astype(np.float32), 16000)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run(
+        [sys.executable, "-m", "avcer_tpu_torch.cli.run", "--path_video", video,
+         "--path_save", str(tmp_path / "out"), "--serving_profile", "parity", "--fused",
+         "--profile_dir", str(tmp_path / "profile"), "--weights_dir", str(tmp_path / "none"),
+         "--device", "cuda"], cwd=root, capture_output=True, text=True, timeout=1800)
+    assert run.returncode == 0, run.stderr[-4000:]
+    report = json.loads((tmp_path / "profile" / "spans.json").read_text())
+    (clip,) = report["clips"]
+    launches = clip["launches"]
+    assert all(launches[k] > 0 for k in ("nms_mask", "mha", "fused_chain", "fused_ssh_heads",
+                                         "i420_to_bgr")), launches
+    assert clip["counts"]["detect.frames"] == 128 and report["device_intervals"] > 0
+    spans = clip["spans"]
+    assert {"detect.upload", "detect.rebuild", "detect.network", "detect.decode",
+            "runner.fetch", "k3", "k4"} <= set(spans)
+    assert spans["runner.wire"]["thread"] != "serving" and spans["audio"]["idle_s"] is None
+    assert 0 < clip["busy_s"] < clip["wall_s"]
+    idle = sum(s["idle_s"] for s in spans.values() if s["thread"] == "serving")
+    assert idle == pytest.approx(clip["idle_s"], rel=1e-6)
