@@ -38,6 +38,12 @@ their int8 weights packed once per fold for the kernels' product
 Calibration forwards (``layers.calibrating``) and a model in ``training`` always
 run the unfused modules.
 The space-to-depth stem is not ported yet.
+
+Every call of the two kernels goes through ``kernel``: by this module's
+attribute, looked up at each call (callers may rebind these module
+attributes), and through ``piecewise.call``, so that the detect stage's
+piecewise graphs (``models.piecewise``) make each call eagerly between two
+captured pieces.
 """
 
 from __future__ import annotations
@@ -48,10 +54,18 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from avcer_tpu_torch.models import piecewise
 from avcer_tpu_torch.models.layers import (BatchNorm, FoldCache, QConv, compute_dtype, fold_bn,
                                            fold_bn_q)
-from avcer_tpu_torch.ops.cuda.fused_resnet_kernel import fused_chain, pack_chain_q
-from avcer_tpu_torch.ops.cuda.fused_ssh_kernel import activate, fused_ssh_heads
+# fused_chain and fused_ssh_heads are called by name (``kernel``)
+from avcer_tpu_torch.ops.cuda.fused_resnet_kernel import fused_chain, pack_chain_q  # noqa: F401
+from avcer_tpu_torch.ops.cuda.fused_ssh_kernel import activate, fused_ssh_heads  # noqa: F401
+
+
+def kernel(name: str, *args, **kwargs):
+    """``fused_chain`` or ``fused_ssh_heads`` of this module, called through
+    ``piecewise.call``."""
+    return piecewise.call(lambda: globals()[name], args, kwargs)
 
 
 def nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -144,8 +158,8 @@ def fused_section(cache: FoldCache, h: torch.Tensor, layer: nn.Sequential, li: i
         return folded, act_s, None if act_s is None else pack_chain_q(folded)
 
     folded, act_s, packed = cache.folded((li, tuple(chunk), dtype, conv1.weight.device), fold)
-    return fused_chain(nhwc(h.to(dtype)), folded, kinds, act_s=act_s,
-                       packed=packed).permute(0, 3, 1, 2)
+    return kernel("fused_chain", nhwc(h.to(dtype)), folded, kinds, act_s=act_s,
+                  packed=packed).permute(0, 3, 1, 2)
 
 
 class ResNet50Body(FoldCache):
@@ -389,14 +403,15 @@ class RetinaFace(FoldCache):
                 # the kernel's order of scales: lateral, merge, the SSH convs
                 act_s = None if scales is None else torch.cat(
                     [sx for sx in scales if sx is not None])
-                res = fused_ssh_heads(x, convs, heads, leaky, fpn_lat=lat, fpn_merge=merge,
-                                      up=up, emit_feature=i > 0, act_s=act_s, packed=packed)
+                res = kernel("fused_ssh_heads", x, convs, heads, leaky, fpn_lat=lat,
+                             fpn_merge=merge, up=up, emit_feature=i > 0, act_s=act_s,
+                             packed=packed)
                 if i > 0:
                     feat_prev = res[3]
             else:
-                res = fused_ssh_heads(x, convs, heads, leaky,
-                                      act_s=None if scales is None else scales[2],
-                                      packed=None if packed is None else packed[-5:])
+                res = kernel("fused_ssh_heads", x, convs, heads, leaky,
+                             act_s=None if scales is None else scales[2],
+                             packed=None if packed is None else packed[-5:])
             b = x.shape[0]
             per_scale[i] = (res[0].reshape(b, -1, 4), res[1].reshape(b, -1, 2),
                             res[2].reshape(b, -1, 10))

@@ -23,11 +23,11 @@ there by default).
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
 from avcer_tpu_torch import _build
+from avcer_tpu_torch.utils import trace
 
 MAX_T = 1024
 MAX_D = 128
@@ -105,12 +105,11 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         rc = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"attention kernel {kernel} launch failed: CUDA error {rc}")
-    with _COUNT_LOCK:  # the data-parallel trainer's replicas launch from their own threads
-        mha.launches += 1
-        mha.launches_by_kernel[kernel] += 1
+    # the data-parallel trainer's replicas launch from their own threads:
+    # the count takes a lock
+    trace.launched(mha, launches_by_kernel=kernel)
     return out
 
 
 mha.launches = 0
 mha.launches_by_kernel = {"tc": 0, "exact": 0}
-_COUNT_LOCK = threading.Lock()

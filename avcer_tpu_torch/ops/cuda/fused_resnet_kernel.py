@@ -261,12 +261,15 @@ def _check_chain_weights(name: str, x: torch.Tensor, per_block, blocks, quant: b
 
 def fused_chain(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequence[str],
                 band: int = 32, act_s: Optional[torch.Tensor] = None,
-                packed: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                packed: Optional[Sequence[torch.Tensor]] = None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A chain of bottlenecks ``[B, H, W, Cin] -> [B, Ho, Wo, Cout]``; with
     ``act_s`` in the int8 mode. ``band`` is the TPU kernel's VMEM tiling and
     does not change the result: the CUDA kernel ignores it. ``packed``:
     ``pack_chain_q(folded)``, made once by a caller that keeps its
-    folds (else the int8 mode packs on every CUDA call).
+    folds (else the int8 mode packs on every CUDA call). ``out``: a tensor
+    like the result to write it into (a replay of piecewise graphs hands the
+    one its graphs read).
     ``fused_chain.launches`` counts kernel launches; ``fused_chain.occupancy``
     holds what the card reported for each launch configuration (see
     ``chain_occupancy``). While a profiler records, each call is the span
@@ -276,10 +279,11 @@ def fused_chain(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: Sequenc
         if sp:
             sp.note(shape=tuple(x.shape), dtype=str(x.dtype), int8=act_s is not None)
         if x.device.type == "cpu":
-            return fused_chain_plain(x, folded, blocks, band=band, act_s=act_s)
+            res = fused_chain_plain(x, folded, blocks, band=band, act_s=act_s)
+            return res if out is None else out.copy_(res)
         if x.device.type != "cuda":
             raise ValueError(f"fused_chain: unsupported device {x.device}")
-        return _fused_chain_cuda(x, folded, blocks, act_s, packed=packed)
+        return _fused_chain_cuda(x, folded, blocks, act_s, packed=packed, out=out)
 
 
 def card_occupancy(lib: str, name: str, cache: dict, device: torch.device, dtype: torch.dtype,
@@ -318,12 +322,14 @@ def chain_occupancy(device: torch.device, dtype: torch.dtype, quant: bool,
 
 def _fused_chain_cuda(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: tuple,
                       act_s: Optional[torch.Tensor], cluster: Optional[int] = None,
-                      packed: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                      packed: Optional[Sequence[torch.Tensor]] = None,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The launch behind ``fused_chain`` for a CUDA tensor; ``cluster``
     forces the cluster size instead of the plan's (the card tests compare
     sizes with it). A cluster the card refuses raises: nothing retries with
     another size. The int8 mode launches on ``packed`` (``pack_chain_q`` of
-    ``folded``, packed here when not given)."""
+    ``folded``, packed here when not given). ``out``: the result's tensor,
+    made here when not given."""
     _check_blocks(blocks, act_s, len(folded))
     if x.dim() != 4 or x.dtype not in DTYPE_CODE or not x.is_contiguous():
         raise ValueError(
@@ -348,7 +354,12 @@ def _fused_chain_cuda(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: t
     plan = chain_plan(b, h, w, cout, max(planes), blocks, x.element_size(),
                       props.multi_processor_count, q_cin=cins[0] if quant else 0,
                       cluster=cluster)
-    out = torch.empty((b, plan["ho"], plan["wo"], cout), dtype=x.dtype, device=x.device)
+    shape = (b, plan["ho"], plan["wo"], cout)
+    if out is None:
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    elif (tuple(out.shape) != shape or out.dtype != x.dtype or out.device != x.device
+          or not out.is_contiguous()):
+        raise ValueError(f"fused_chain: out must be contiguous {shape} {x.dtype} on {x.device}")
     if b == 0:
         return out
     chain_occupancy(x.device, x.dtype, quant, plan["cluster"])
@@ -370,7 +381,7 @@ def _fused_chain_cuda(x: torch.Tensor, folded: Sequence[torch.Tensor], blocks: t
                 DTYPE_CODE[x.dtype], *((act_s.data_ptr(),) if quant else ()), stream)
     if rc != 0:
         raise RuntimeError(f"fused_chain kernel launch failed: CUDA error {rc}")
-    fused_chain.launches += 1
+    trace.launched(fused_chain)
     return out
 
 
@@ -587,7 +598,7 @@ def _fused_chain_flat_cuda(x: torch.Tensor, folded: Sequence[torch.Tensor], bloc
                 DTYPE_CODE[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"fused_chain_flat kernel launch failed: CUDA error {rc}")
-    fused_chain_flat.launches += 1
+    trace.launched(fused_chain_flat)
     return out
 
 

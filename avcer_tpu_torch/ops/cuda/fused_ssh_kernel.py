@@ -75,12 +75,23 @@ def kernel_conv_weights(conv_weights: Sequence[torch.Tensor],
     return out
 
 
+#: the leaky slopes by (slope, dtype, device), each made once: a new one at
+#: every call is a host-to-device copy, which waits for the stream and which
+#: a graph's capture refuses
+_SLOPES: dict = {}
+
+
 def activate(y: torch.Tensor, leaky: float) -> torch.Tensor:
     """ReLU, or leaky ReLU with the slope rounded to ``y``'s dtype and the
     product taken in it: the kernel's rule and the JAX package's."""
     if leaky == 0.0:
         return F.relu(y)
-    return torch.where(y >= 0, y, y * torch.tensor(leaky, dtype=y.dtype, device=y.device))
+    key = (leaky, y.dtype, y.device)
+    slope = _SLOPES.get(key)
+    if slope is None:
+        with torch.inference_mode(False):  # usable where autograd records too
+            slope = _SLOPES[key] = torch.tensor(leaky, dtype=y.dtype, device=y.device)
+    return torch.where(y >= 0, y, y * slope)
 
 
 def fused_ssh_heads_plain(
@@ -191,13 +202,16 @@ def fused_ssh_heads(
     fpn_merge: Optional[Sequence[torch.Tensor]] = None, up: Optional[torch.Tensor] = None,
     emit_feature: bool = False, band: int = 32, act_s=None,
     packed: Optional[Sequence[torch.Tensor]] = None,
+    out: Optional[Sequence[torch.Tensor]] = None,
 ) -> tuple[torch.Tensor, ...]:
     """One FPN scale: optional lateral + top-down add + merge, the SSH
     module, the three heads; with ``act_s`` the convs in int8. ``band`` is the
     TPU kernel's VMEM tiling and is ignored by the CUDA kernel. ``packed``:
     ``pack_chain_q`` of the int8 lateral, merge and SSH folds the call has,
     made once by a caller that keeps its folds (else the int8 option packs on
-    every CUDA call). ``fused_ssh_heads.launches`` counts kernel launches,
+    every CUDA call). ``out``: tensors like the results to write them into
+    (a replay of piecewise graphs hands the ones its graphs read).
+    ``fused_ssh_heads.launches`` counts kernel launches,
     ``fused_ssh_heads.launches_by_leaky`` the same launches by their slope,
     and ``fused_ssh_heads.occupancy`` holds what the card reported for each
     launch configuration (see ``ssh_occupancy``). While a profiler records,
@@ -206,12 +220,13 @@ def fused_ssh_heads(
         if sp:
             sp.note(shape=tuple(x.shape), dtype=str(x.dtype), int8=act_s is not None)
         if x.device.type == "cpu":
-            return fused_ssh_heads_plain(x, conv_folded, head_folded, leaky, fpn_lat,
-                                         fpn_merge, up, emit_feature, band, act_s)
+            res = fused_ssh_heads_plain(x, conv_folded, head_folded, leaky, fpn_lat,
+                                        fpn_merge, up, emit_feature, band, act_s)
+            return res if out is None else tuple(o.copy_(r) for o, r in zip(out, res))
         if x.device.type != "cuda":
             raise ValueError(f"fused_ssh_heads: unsupported device {x.device}")
         return _fused_ssh_cuda(x, conv_folded, head_folded, leaky, fpn_lat, fpn_merge, up,
-                               emit_feature, act_s, packed=packed)
+                               emit_feature, act_s, packed=packed, out=out)
 
 
 def _fused_ssh_cuda(x: torch.Tensor, conv_folded: Sequence[torch.Tensor],
@@ -220,12 +235,13 @@ def _fused_ssh_cuda(x: torch.Tensor, conv_folded: Sequence[torch.Tensor],
                     fpn_merge: Optional[Sequence[torch.Tensor]] = None,
                     up: Optional[torch.Tensor] = None, emit_feature: bool = False, act_s=None,
                     cluster: Optional[int] = None,
-                    packed: Optional[Sequence[torch.Tensor]] = None) -> tuple[torch.Tensor, ...]:
+                    packed: Optional[Sequence[torch.Tensor]] = None,
+                    out: Optional[Sequence[torch.Tensor]] = None) -> tuple[torch.Tensor, ...]:
     """The launch behind ``fused_ssh_heads`` for a CUDA tensor; ``cluster``
     forces the cluster size instead of the plan's (the card tests compare
     sizes with it). A cluster the card refuses raises: nothing retries with
     another size. The int8 option launches on ``packed`` (packed here when
-    not given)."""
+    not given). ``out``: the results' tensors, made here when not given."""
     _check_args(conv_folded, head_folded, fpn_lat, fpn_merge, act_s)
     if x.dim() != 4 or x.dtype not in DTYPE_CODE or not x.is_contiguous():
         raise ValueError(
@@ -269,9 +285,16 @@ def _fused_ssh_cuda(x: torch.Tensor, conv_folded: Sequence[torch.Tensor],
                 f"fused_ssh_heads: up must be contiguous [{b}, {h}, {w}, {c}] on {x.device}, "
                 f"got {tuple(up.shape)}")
     head_n = [hw.shape[1] for hw in head_folded[0::2]]
-    outs = [torch.empty((b, h, w, n), dtype=x.dtype, device=x.device) for n in head_n]
-    if emit_feature:
-        outs.append(torch.empty((b, h, w, c), dtype=x.dtype, device=x.device))
+    shapes = [(b, h, w, n) for n in head_n] + ([(b, h, w, c)] if emit_feature else [])
+    if out is None:
+        outs = [torch.empty(shape, dtype=x.dtype, device=x.device) for shape in shapes]
+    else:
+        outs = list(out)
+        if [tuple(o.shape) for o in outs] != shapes or not all(
+                o.dtype == x.dtype and o.device == x.device and o.is_contiguous()
+                for o in outs):
+            raise ValueError(f"fused_ssh_heads: out must be contiguous {shapes} "
+                             f"{x.dtype} on {x.device}")
     if b == 0:
         return tuple(outs)
     plan = card_plan(x, c, fpn_merge is not None, quant, cluster)
@@ -300,9 +323,7 @@ def _fused_ssh_cuda(x: torch.Tensor, conv_folded: Sequence[torch.Tensor],
                 stream)
     if rc != 0:
         raise RuntimeError(f"fused_ssh_heads kernel launch failed: CUDA error {rc}")
-    fused_ssh_heads.launches += 1
-    by_leaky = fused_ssh_heads.launches_by_leaky
-    by_leaky[float(leaky)] = by_leaky.get(float(leaky), 0) + 1
+    trace.launched(fused_ssh_heads, launches_by_leaky=float(leaky))
     return tuple(outs)
 
 

@@ -16,6 +16,7 @@ import torch
 
 from avcer_tpu_torch import _build
 from avcer_tpu_torch.ops.image import i420_to_bgr_plain
+from avcer_tpu_torch.utils import trace
 
 
 @functools.cache
@@ -54,7 +55,7 @@ def i420_to_bgr(wire: torch.Tensor, h: int, w: int) -> torch.Tensor:
                 torch.cuda.current_stream(wire.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"i420_to_bgr kernel launch failed: CUDA error {rc}")
-    i420_to_bgr.launches += 1
+    trace.launched(i420_to_bgr)
     return out
 
 

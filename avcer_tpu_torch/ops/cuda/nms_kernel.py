@@ -16,6 +16,7 @@ import torch
 
 from avcer_tpu_torch import _build
 from avcer_tpu_torch.ops.nms import nms_mask as nms_mask_plain
+from avcer_tpu_torch.utils import trace
 
 MAX_K = 1024
 
@@ -74,8 +75,7 @@ def nms_mask(
             rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"nms kernel launch failed: CUDA error {rc}")
-    nms_mask.launches += 1
-    nms_mask.launches_by_mode[bool(plus_one)] += 1
+    trace.launched(nms_mask, launches_by_mode=bool(plus_one))
     return keep
 
 

@@ -5,6 +5,8 @@ box clamp rule and the letterbox geometry. Frames are NHWC uint8 BGR.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -75,12 +77,16 @@ def vggface_normalize(crops_bgr: torch.Tensor) -> torch.Tensor:
     return crops_bgr.float() - mean
 
 
-def retinaface_normalize(frames_bgr: torch.Tensor,
-                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+def retinaface_normalize(frames_bgr: torch.Tensor, dtype: torch.dtype = torch.float32,
+                         mean: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Detector input: BGR minus (104, 117, 123); exact in bf16 too, since
-    every value in [-123, 151] is an integer bf16 holds."""
-    mean = torch.tensor(registry.RETINAFACE_BGR_MEAN, dtype=dtype,
-                        device=frames_bgr.device)
+    every value in [-123, 151] is an integer bf16 holds. ``mean``: those
+    three values in ``dtype`` on the frames' device, kept by the caller
+    (made here otherwise: a host-to-device copy that waits for the
+    stream)."""
+    if mean is None:
+        mean = torch.tensor(registry.RETINAFACE_BGR_MEAN, dtype=dtype,
+                            device=frames_bgr.device)
     return frames_bgr.to(dtype) - mean
 
 
@@ -109,12 +115,14 @@ def resize_bilinear_uint8(frames: torch.Tensor, nh: int, nw: int) -> torch.Tenso
 # the rebuild is the CUDA kernel ``ops.cuda.image_kernel.i420_to_bgr``.
 
 
-def bgr_batch_to_i420(frames: np.ndarray) -> np.ndarray:
-    """[B, H, W, 3] uint8 BGR -> [B, H*3//2, W] uint8 I420 (host, cv2)."""
+def bgr_batch_to_i420(frames: np.ndarray, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """[B, H, W, 3] uint8 BGR -> [B, H*3//2, W] uint8 I420 (host, cv2),
+    written into ``out`` where given."""
     import cv2
 
     b, h, w = frames.shape[:3]
-    out = np.empty((b, h * 3 // 2, w), np.uint8)
+    if out is None:
+        out = np.empty((b, h * 3 // 2, w), np.uint8)
     for i in range(b):
         out[i] = cv2.cvtColor(frames[i], cv2.COLOR_BGR2YUV_I420)
     return out

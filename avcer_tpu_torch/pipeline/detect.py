@@ -38,6 +38,28 @@ through the whole forward (network, decode, top-K, NMS: K1 at
 ``[B / N, 64, 4]``) on its device, and gathers the results onto the first
 device. The builder turns the fused switches off under a mesh, as the JAX
 package does. Calibrated scales go to every replica.
+
+Enqueuing a batch waits for nothing on the card. On the card
+``prepare_wire`` returns the wire as a pinned host tensor (the I420 wire
+written straight into it), which goes up with ``non_blocking``: PyTorch's
+pinned allocator reuses a buffer once the copy's event has passed. The
+normalisation mean, the anchors and the decode's scales are kept on the
+device per (h, w, device). ``HostCopy`` starts a result's copy back into
+pinned memory and waits on that copy's event alone.
+
+Piecewise graphs (``models.piecewise``): the network and the decode of a
+batch, on the card, run as captured CUDA graphs between the model's eager
+K3 / K4 calls (``retinaface.kernel``), one schedule per key (the model, the
+frames' shape and device): a model without those calls is one piece. A key's
+first batch on each thread runs eagerly (the warm-up, under the graphs'
+lock), the thread's second is captured (never while a profiler records),
+later ones replay. The stage stays eager on a CPU
+tensor, under a mesh, for a model in ``training`` or ``calibrating``, and
+for a key whose capture raised (logged once). The int8 scales and the folds
+that hold them change at each calibration forward and ``merge_act_scales``:
+every schedule is dropped then, and captured again. The clip counters
+``detect.graph_replays``, ``detect.graph_captures`` and ``detect.graph_eager``
+count the batches of each route.
 """
 
 from __future__ import annotations
@@ -46,14 +68,15 @@ import copy
 import logging
 import threading
 from dataclasses import dataclass
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from avcer_tpu_torch.core import registry
 from avcer_tpu_torch.core.config import DetectorConfig
-from avcer_tpu_torch.models import layers
+from avcer_tpu_torch.models import layers, piecewise
 from avcer_tpu_torch.ops import boxes as box_ops
 from avcer_tpu_torch.ops import nms as nms_ops
 from avcer_tpu_torch.ops.cuda.image_kernel import i420_to_bgr
@@ -109,6 +132,12 @@ class DetectStage:
             self.replicas = [(dev, model if dev == self.device else copy.deepcopy(model).to(dev))
                              for dev in (mesh.row(d)[0] for d in range(mesh.local_data))]
         self._priors: dict[tuple, torch.Tensor] = {}
+        #: (mean, anchors, box scale, landmark scale) on the device by (h, w, device)
+        self._consts: dict[tuple, tuple] = {}
+        self._graphs = piecewise.Graphs()
+        #: bumped where the int8 scales change; the schedules are of one epoch
+        self._epoch = 0
+        self._graphs_epoch = 0
         self.quant = cfg.quant == "int8"
         if self.quant != bool(getattr(model, "quant", False)):
             raise ValueError(f"quant={cfg.quant!r} does not fit the model it was given")
@@ -128,6 +157,7 @@ class DetectStage:
         with layers.calibrating(self.model):
             self.model(retinaface_normalize(frames))
         self.calibration_forwards += 1
+        self._epoch += 1
         self._sync_replicas()
 
     def _sync_replicas(self) -> None:
@@ -150,6 +180,7 @@ class DetectStage:
         if not cur:
             return
         layers.load_act_scales(self.model, layers.merge_act_scales_trees(cur, scales))
+        self._epoch += 1
         self._sync_replicas()
         self._real_calibrated = True
 
@@ -227,25 +258,38 @@ class DetectStage:
             return torch.from_numpy(np.ascontiguousarray(prepped)).to(self.device), scale
         return self.letterbox_device(frames)
 
-    def prepare_wire(self, frames: np.ndarray) -> tuple[np.ndarray, float]:
+    def prepare_wire(self, frames: np.ndarray) -> tuple:
         """The host half of ``dispatch``, safe in a prefetch thread (cv2 and
         numpy release the GIL): with ``"i420"`` the letterboxed frames in
         I420, [B, H*3//2, W] uint8; with ``"bgr"`` the native frames as they
-        are (the device letterboxes them). Returns (wire, scale)."""
+        are (the device letterboxes them). Returns (wire, scale): the wire is
+        a pinned host tensor for a stage on the card, else the array."""
+        card = self.device.type == "cuda"
         if self.cfg.transfer_format == "i420":
             prepped, scale = self.letterbox_host(frames)
-            return bgr_batch_to_i420(prepped), scale
+            if not card:
+                return bgr_batch_to_i420(prepped), scale
+            b, h, w = prepped.shape[:3]
+            wire = torch.empty((b, h * 3 // 2, w), dtype=torch.uint8, pin_memory=True)
+            bgr_batch_to_i420(prepped, out=wire.numpy())
+            return wire, scale
         h, w = frames.shape[1:3]
         scale = letterbox_params(h, w, self.cfg.long_side)[2] if self.cfg.long_side > 0 else 1.0
-        return frames, scale
+        if not card:
+            return frames, scale
+        return torch.from_numpy(np.ascontiguousarray(frames)).pin_memory(), scale
 
-    def _upload(self, frames: np.ndarray) -> torch.Tensor:
-        """The host -> device copy of a wire or of native frames."""
+    def _upload(self, frames) -> torch.Tensor:
+        """The host -> device copy of a wire from ``prepare_wire`` (a pinned
+        tensor on the card: it waits for nothing) or of native frames (an
+        array)."""
         with trace.span("detect.upload"):
             trace.count("detect.upload_bytes", frames.nbytes)
+            if isinstance(frames, torch.Tensor):
+                return frames.to(self.device, non_blocking=True)
             return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
 
-    def upload_wire(self, wire: np.ndarray) -> torch.Tensor:
+    def upload_wire(self, wire) -> torch.Tensor:
         """The wire on the device as letterboxed BGR frames [B, H, W, 3]
         uint8: the I420 upload rebuilt by ``i420_to_bgr``, or the native
         frames uploaded and letterboxed."""
@@ -261,6 +305,18 @@ class DetectStage:
             self._priors[(h, w, device)] = torch.from_numpy(
                 self.prior_boxes((h, w)).copy()).to(device)
         return self._priors[(h, w, device)]
+
+    def _consts_for(self, h: int, w: int, device: torch.device) -> tuple:
+        """(normalisation mean, anchors, box scale [w, h, w, h], landmark
+        scale [w, h] * 5) on ``device`` for frames of h x w, made once."""
+        key = (h, w, device)
+        if key not in self._consts:
+            self._consts[key] = (
+                torch.tensor(registry.RETINAFACE_BGR_MEAN, dtype=torch.float32, device=device),
+                self._priors_for(h, w, device),
+                torch.tensor([w, h, w, h], dtype=torch.float32, device=device),
+                torch.tensor([w, h] * 5, dtype=torch.float32, device=device))
+        return self._consts[key]
 
     @torch.inference_mode()
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
@@ -278,26 +334,91 @@ class DetectStage:
         return torch.cat([self._forward_shard(model, shard.to(dev)).to(self.device)
                           for (dev, model), shard in zip(self.replicas, shards)])
 
+    def _network(self, model: torch.nn.Module, frames: torch.Tensor) -> tuple:
+        mean = self._consts_for(frames.shape[1], frames.shape[2], frames.device)[0]
+        return model(retinaface_normalize(frames, mean=mean))
+
+    def _decode(self, frames: torch.Tensor, loc: torch.Tensor, conf: torch.Tensor,
+                landms: torch.Tensor) -> torch.Tensor:
+        """Scales, decode, top-K, NMS, gather and pack of the network's
+        outputs for ``frames``."""
+        _, priors, scale, lscale = self._consts_for(frames.shape[1], frames.shape[2],
+                                                    frames.device)
+        boxes = box_ops.decode_boxes(loc.float(), priors) * scale
+        landms = box_ops.decode_landmarks(landms.float(), priors) * lscale
+        k = min(self.cfg.nms_candidates, 64)
+        cand_boxes, cand_scores, valid, idx = nms_ops.topk_candidates(
+            boxes, conf[..., 1], k, self.cfg.threshold)
+        keep = nms_mask(cand_boxes.contiguous(), valid.contiguous(), self.cfg.nms_thresh)
+        cand_landms = torch.gather(landms, 1, idx[..., None].expand(-1, -1, 10))
+        return torch.cat([cand_boxes, cand_scores[..., None],
+                          keep.float()[..., None], cand_landms], dim=-1)
+
+    def _network_decode(self, model: torch.nn.Module, frames: torch.Tensor) -> torch.Tensor:
+        """What the piecewise graphs capture: network and decode."""
+        return self._decode(frames, *self._network(model, frames))
+
+    def eager_reason(self, model: torch.nn.Module, device: torch.device) -> Optional[str]:
+        """Why a batch on ``device`` runs ``model`` eagerly, or None where
+        its piecewise graphs serve it."""
+        if device.type != "cuda":
+            return "not on the card"
+        if self.mesh is not None:
+            return "a mesh"
+        if model.training:
+            return "training"
+        if getattr(model, "calibrating", False):
+            return "calibrating"
+        return None
+
+    def _graph_key(self, model: torch.nn.Module, frames: torch.Tensor) -> Optional[tuple]:
+        """The schedule's key of a batch (the model, which fixes the backbone
+        and the fused switches, and the frames' shape, type and device), or
+        None where ``eager_reason`` gives one."""
+        if self.eager_reason(model, frames.device) is not None:
+            return None
+        return id(model), tuple(frames.shape), frames.dtype, frames.device
+
     def _forward_shard(self, model: torch.nn.Module, frames: torch.Tensor) -> torch.Tensor:
-        h, w, dev = frames.shape[1], frames.shape[2], frames.device
+        key = self._graph_key(model, frames)
+        if key is not None:
+            with self._graphs.lock:
+                if self._graphs_epoch != self._epoch:
+                    self._graphs.clear()
+                    self._graphs_epoch = self._epoch
+                route, sched = self._graphs.route(key)
+                if route == "capture":
+                    try:
+                        sched = self._graphs.capture(
+                            key, lambda x: self._network_decode(model, x), frames)
+                    except Exception:  # noqa: BLE001 - logged, the key stays eager
+                        log.warning("detect: capturing the graphs of batch %s failed; that "
+                                    "batch shape runs eagerly", tuple(frames.shape),
+                                    exc_info=True)
+                    else:
+                        trace.count("detect.graph_captures")
+                        trace.count("detect.frames", frames.shape[0])
+                        return sched.first
+                elif route == "replay":
+                    with trace.span("detect.network"):
+                        sched.replay_head(frames)
+                    with trace.span("detect.decode"):
+                        trace.count("detect.frames", frames.shape[0])
+                        trace.count("detect.graph_replays")
+                        return sched.replay_tail()
+                elif route == "warm-up":
+                    return self._forward_eager(model, frames)
+        return self._forward_eager(model, frames)
+
+    def _forward_eager(self, model: torch.nn.Module, frames: torch.Tensor) -> torch.Tensor:
+        trace.count("detect.graph_eager")
         with trace.span("detect.network"):
-            loc, conf, landms = model(retinaface_normalize(frames))
+            out = self._network(model, frames)
         with trace.span("detect.decode"):
             trace.count("detect.frames", frames.shape[0])
-            priors = self._priors_for(h, w, dev)
-            scale = torch.tensor([w, h, w, h], dtype=torch.float32, device=dev)
-            boxes = box_ops.decode_boxes(loc.float(), priors) * scale
-            lscale = torch.tensor([w, h] * 5, dtype=torch.float32, device=dev)
-            landms = box_ops.decode_landmarks(landms.float(), priors) * lscale
-            k = min(self.cfg.nms_candidates, 64)
-            cand_boxes, cand_scores, valid, idx = nms_ops.topk_candidates(
-                boxes, conf[..., 1], k, self.cfg.threshold)
-            keep = nms_mask(cand_boxes.contiguous(), valid.contiguous(), self.cfg.nms_thresh)
-            cand_landms = torch.gather(landms, 1, idx[..., None].expand(-1, -1, 10))
-            return torch.cat([cand_boxes, cand_scores[..., None],
-                              keep.float()[..., None], cand_landms], dim=-1)
+            return self._decode(frames, *out)
 
-    def dispatch_wire(self, wire: np.ndarray, scale: float
+    def dispatch_wire(self, wire, scale: float
                       ) -> tuple[torch.Tensor, float, torch.Tensor]:
         """The device half of ``dispatch`` for a wire from ``prepare_wire``:
         upload, rebuild or letterbox, the int8 calibration watch on those
@@ -323,3 +444,25 @@ class DetectStage:
             keep=packed_np[..., 5] > 0.5,
             landmarks=packed_np[..., 6:16] * inv,
         )
+
+
+class HostCopy:
+    """A device tensor's copy to the host, started at once: on the card into
+    pinned memory with ``non_blocking`` and an event after it, so that
+    ``numpy`` waits for that copy alone, not for the whole stream."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(t.device))
+        else:
+            self.host = t
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+            return self.host.numpy()
+        return self.host.cpu().numpy()

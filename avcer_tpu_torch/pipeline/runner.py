@@ -27,7 +27,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,7 +39,7 @@ from avcer_tpu_torch.fusion import compound as compound_mod
 from avcer_tpu_torch.ops import image as image_ops
 from avcer_tpu_torch.pipeline import media
 from avcer_tpu_torch.pipeline.audio_stage import AudioStage, AudioWindows
-from avcer_tpu_torch.pipeline.detect import DetectStage
+from avcer_tpu_torch.pipeline.detect import DetectStage, HostCopy
 from avcer_tpu_torch.pipeline.visual import (TemporalPlan, VisualStage, build_temporal_plan,
                                              cnn_compute_sel, subset_forward_fill)
 from avcer_tpu_torch.utils import trace
@@ -128,11 +128,11 @@ class Pipeline:
         base = name[: name.rfind(".")] if "." in name else name
         present: list[bool] = []
         crops: list[np.ndarray] = []
-        pending: list[tuple[np.ndarray, int, torch.Tensor, float]] = []
+        pending: list[tuple[np.ndarray, int, HostCopy, float]] = []
 
-        def drain(frames_np: np.ndarray, n_valid: int, packed: torch.Tensor, scale: float):
+        def drain(frames_np: np.ndarray, n_valid: int, packed: HostCopy, scale: float):
             with trace.span("runner.fetch"):
-                packed_np = packed.cpu().numpy()
+                packed_np = packed.numpy()
             det = self.detect.unpack(packed_np, scale)
             frame0 = len(present)
             for i in range(n_valid):
@@ -158,7 +158,7 @@ class Pipeline:
 
         for frames_np, n_valid in media.prefetch_iter(reader.batches(self.cfg.detector.batch_size)):
             packed, scale, _ = self.detect.dispatch(frames_np)
-            pending.append((frames_np, n_valid, packed, scale))
+            pending.append((frames_np, n_valid, HostCopy(packed), scale))
             if len(pending) > 2:  # keep 2 batches in flight
                 drain(*pending.pop(0))
         while pending:
@@ -201,7 +201,7 @@ class Pipeline:
         present_all: list[bool] = []
         boxes_nat_all: list[np.ndarray] = []
         stat_list, feats_list = [], []
-        pending: list[tuple[Any, int, torch.Tensor, float]] = []
+        pending: list[tuple[HostCopy, int, torch.Tensor, float]] = []
         det_boxes_nat: list[Optional[np.ndarray]] = []
         step_crops_list: list[np.ndarray] = []
         drained = 0
@@ -217,8 +217,8 @@ class Pipeline:
             # pass 1, per detected frame: the tracker is sequential in frame order
             nonlocal drained
             packed, n_valid, _, scale = pending[drained]
-            with trace.span("runner.fetch"):
-                packed_np = packed.cpu().numpy()
+            with trace.span("runner.fetch"):  # this batch's copy alone
+                packed_np = packed.numpy()
             with trace.span("runner.track"):
                 det = self.detect.unpack(packed_np, scale)
                 for r in range(det.boxes.shape[0]):
@@ -327,7 +327,8 @@ class Pipeline:
                 packed, scale, frames_dev = self.detect.dispatch_wire(wire, scale)
             else:
                 packed, scale, frames_dev = self.detect.dispatch(wire)
-            pending.append((packed, n_valid, frames_dev, scale))
+            # the result's copy to the host starts behind the batch's work
+            pending.append((HostCopy(packed), n_valid, frames_dev, scale))
             frames_in_pending += nbatch
             while len(pending) - drained > 2:  # keep 2 batches in flight
                 drain_one()

@@ -14,9 +14,14 @@ profiler's trace as well. Spans of set-up (``setup``: kernel libraries,
 folds, packs, occupancy queries, ``build_pipeline``) are recorded whether or
 not a profiler records; they run a few times a process.
 
-``clip`` opens a clip's record: its counters (``count``) and the launches
-of the kernel wrappers over the clip (the difference of their ``.launches``
-attributes; clips served at once by ``Pipeline.run_many`` see each other's).
+``clip`` opens a clip's record: its counters (``count``; among them
+``detect.frames``, ``detect.upload_bytes``, and ``detect.graph_replays``,
+``detect.graph_captures`` and ``detect.graph_eager``: the detect batches
+that replayed their piecewise graphs, captured them, or ran eagerly) and
+the launches of the kernel wrappers over the clip (the difference of their
+``.launches`` attributes, which ``launched`` counts, a replayed graph's
+launches included; clips served at once by ``Pipeline.run_many`` see each
+other's).
 The runner hands the clip to its worker threads in a copied
 ``contextvars`` context.
 
@@ -134,6 +139,11 @@ class Span:
         return f"Span({self.name!r}, {self.seconds * 1e3:.3f} ms, clip={self.clip})"
 
 
+def profiling() -> bool:
+    """Whether a profiler records in this process."""
+    return bool(_profiler._is_profiler_enabled)
+
+
 def span(name: str, **attrs):
     """A span named ``name`` around the body while a profiler records, else
     ``NULL`` (falsy: ``if sp: sp.note(...)`` computes attributes only when
@@ -173,6 +183,37 @@ def count(name: str, n: int = 1) -> None:
     if clip is not None:
         with _lock:
             clip.counts[name] = clip.counts.get(name, 0) + n
+
+
+def _launch(fn, by: dict) -> None:
+    with _lock:
+        fn.launches += 1
+        for attr, key in by.items():
+            counts = getattr(fn, attr)
+            counts[key] = counts.get(key, 0) + 1
+
+
+def launched(fn, **by) -> None:
+    """Count one launch of the kernel wrapper ``fn``: ``fn.launches`` and,
+    for each ``attr=key``, the entry ``key`` of the dict ``fn.<attr>``.
+    While this thread captures a graph (``models.piecewise``) the launch is
+    also noted, to be counted again at each replay of that graph."""
+    _launch(fn, by)
+    log = getattr(_local, "launch_log", None)
+    if log is not None:
+        log.append((fn, by))
+
+
+def note_launches(log: Optional[list]) -> None:
+    """Append this thread's launches (``launched``) to ``log`` from now on;
+    None stops."""
+    _local.launch_log = log
+
+
+def relaunched(log: Sequence[tuple]) -> None:
+    """Count again the launches ``note_launches`` noted: a replayed graph's."""
+    for fn, by in log:
+        _launch(fn, by)
 
 
 def launches() -> dict[str, int]:

@@ -196,6 +196,7 @@ from avcer_tpu_torch.pipeline.builder import build_pipeline  # noqa: E402
 from avcer_tpu_torch.core import registry  # noqa: E402
 from avcer_tpu_torch.pipeline.media import ArrayReader, write_wav  # noqa: E402
 from avcer_tpu_torch.pipeline.visual import cnn_compute_sel  # noqa: E402
+from avcer_tpu_torch.utils import trace  # noqa: E402
 
 CLIP_SECONDS, FPS, WIDTH, HEIGHT = 8, 25, 640, 360
 NMS_SHAPE = (32, 64)  # detector batch, candidates per frame
@@ -564,12 +565,14 @@ def hold_on_path(name: str, args: tuple, kw: dict):
     activations are not of order 1 as the kernels phase's are, and a bf16 ulp
     of an intermediate value scales with it."""
     wrapper, plain = WRAPPERS[name], PATH_SITES[name][1]
+    kw = dict(kw)
+    out = kw.pop("out", None)  # a replayed call's: the wrapper writes there
     quant = kw.get("act_s") is not None
     entry_name = name + ("_c64" if name == "fused_ssh_heads" and args[1][0].shape[2] == 64
                          else "") + ("_int8" if quant else "")
     if name == "mha":
         entry_name += "_" + attention_kernel.kernel_for(args[0].dtype, *args[0].shape[2:])
-    got = wrapper(*args, **kw)
+    got = wrapper(*args, **kw) if out is None else wrapper(*args, **kw, out=out)
     if name in EXACT:
         err, tol = float((got != plain(*args, **kw)).sum()), None
         ok = err == 0
@@ -585,7 +588,9 @@ def hold_on_path(name: str, args: tuple, kw: dict):
         largest = max(float(w.abs().max()) for _, w in pairs)
         ok = all(bool(((g - w).abs() <= tol["atol"] * max(1.0, float(w.abs().max()))
                        + tol["rtol"] * w.abs()).all()) for g, w in pairs)
-    torch.cuda.synchronize()
+    # this thread's stream only: a device-wide wait fails, and ends the
+    # capture, while the detect stage captures its graphs on another thread
+    torch.cuda.current_stream().synchronize()
     modes = [a for a in args if not has_tensor(a)] + [
         f"{k}={v}" for k, v in kw.items() if v is not None and not has_tensor(v)]
     log(f"  held on the path: {entry_name} {[list(a.shape) for a in args if torch.is_tensor(a)]} "
@@ -604,13 +609,19 @@ def holding_new_calls(seen: dict | None = None):
     """For the length of a warm-up run: every kernel call whose shapes, types
     and modes no main path has shown yet goes through ``hold_on_path``. The
     timed runs call the wrappers directly. ``seen``: the calls held already,
-    ``HELD`` by default (a fresh dict holds every distinct call of the run)."""
+    ``HELD`` by default (a fresh dict holds every distinct call of the run).
+    The detect stage's piecewise graphs: a call made while this thread
+    captures a graph (K1 inside one) goes to the wrapper unheld, since a
+    hold synchronises, which a capture refuses; the key's eager warm-up
+    batch held the same call before. A replayed K3 / K4 call brings
+    ``out=``, which is not part of its signature."""
     seen = HELD if seen is None else seen
 
     def shim(name):
         def call(*args, **kw):
-            key = (name, signature(args), signature(tuple(sorted(kw.items()))))
-            if key in seen:
+            key = (name, signature(args), signature(tuple(sorted(
+                (k, v) for k, v in kw.items() if k != "out"))))
+            if key in seen or torch.cuda.is_current_stream_capturing():
                 return WRAPPERS[name](*args, **kw)
             entry_name, err, got = hold_on_path(name, args, kw)
             seen[key] = (entry_name, err)
@@ -1786,8 +1797,10 @@ def profiled_run(card: str, pipe, frames: np.ndarray, wav: np.ndarray, label: st
     time and share of the busy time are reported, K4's (``ssh_kernel``) as
     often as a timed run launched it, likewise; the I420 rebuild's kernel
     (``i420_to_bgr_kernel``) as often as a timed run launched it, with its
-    device time; the run must pack no int8 weights. ``launches``: a timed
-    run's."""
+    device time; the run must pack no int8 weights. Every detect batch of
+    the run must replay its piecewise graphs (captured in the warm-up run),
+    as the timed runs do: the clip's ``detect.graph_*`` counters. ``launches``:
+    a timed run's."""
     nms_launches, chain_launches = launches["nms_mask"], launches["fused_chain"]
     path = os.path.join(ROOT, "build", "smoke_traces", label.replace(" ", "_").strip("-_"))
     torch.cuda.synchronize()
@@ -1799,6 +1812,12 @@ def profiled_run(card: str, pipe, frames: np.ndarray, wav: np.ndarray, label: st
     run_wall = time.perf_counter() - t0
     if fused_resnet_kernel.pack_chain_q.calls != packs:
         raise AssertionError(f"{label}: the profiled run packed int8 weights again")
+    routes = {k: n for k, n in trace.clips()[-1].counts.items() if k.startswith("detect.graph_")}
+    log(f"{label} under the profiler: detect batches by route {routes} ({nms_launches} detect "
+        "batches a timed run)")
+    if routes != {"detect.graph_replays": nms_launches}:
+        raise AssertionError(f"{label}: detect batches by route {routes}, expected "
+                             f"{nms_launches} replays of the piecewise graphs")
     with open(os.path.join(path, cli.TRACE_FILE)) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
@@ -2963,7 +2982,9 @@ def extract_features_run(card: str, root: str, audio: dict) -> dict:
 def detector_runs(card: str) -> dict:
     """train_synthetic_detector (mobilenet0.25, 256, batch 4, 20 steps) and
     evaluate_bucket_recall at native resolution and the 320 bucket (8
-    scenes each, 640 x 360), every K1 call held."""
+    scenes each, 640 x 360): once on the detect stage's eager route with
+    every K1 call held (a replayed graph calls no wrapper), once as served
+    (the piecewise graphs), with the same recall."""
     from avcer_tpu_torch.train import detection
 
     t0 = time.perf_counter()
@@ -2971,15 +2992,24 @@ def detector_runs(card: str) -> dict:
                                                     device=DEVICE)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
+    def evaluate():
+        return detection.evaluate_bucket_recall(sd, scene_hw=(HEIGHT, WIDTH), buckets=[0, 320],
+                                                size_bins=[32, 64, 128], n_scenes=8,
+                                                device=DEVICE)
+
     held = Always()
     reset_counts()
     t0 = time.perf_counter()
-    with holding_new_calls(held):
-        res = detection.evaluate_bucket_recall(sd, scene_hw=(HEIGHT, WIDTH), buckets=[0, 320],
-                                               size_bins=[32, 64, 128], n_scenes=8,
-                                               device=DEVICE)
+    eager_reason = detect_module.DetectStage.eager_reason
+    detect_module.DetectStage.eager_reason = lambda self, model, device: "every K1 call held"
+    try:
+        with holding_new_calls(held):
+            res = evaluate()
+    finally:
+        detect_module.DetectStage.eager_reason = eager_reason
     eval_s = time.perf_counter() - t0
     launches = counts()
+    graphed = evaluate()
     log(f"train_synthetic_detector: 20 steps in {train_s:.2f} s, loss {losses[0]:.3f} -> "
         f"{losses[-1]:.3f}; evaluate_bucket_recall {eval_s:.2f} s: {res}; launches {launches}, "
         f"{len(held.calls)} K1 calls held, on {card}")
@@ -2988,6 +3018,7 @@ def detector_runs(card: str) -> dict:
         "K1 launches 16 (2 buckets x 8 scenes, batches of one)": launches["nms_mask"] == 16,
         "every K1 call held": len(held.calls) == 16,
         "recall in [0, 1]": all(0 <= r["recall"] <= 1 for b in res.values() for r in b.values()),
+        "the same recall and IoU served on the piecewise graphs": graphed == res,
     })
     return {"launches": launches["nms_mask"], "losses": losses, "recall": res,
             "train_s": train_s, "eval_s": eval_s}

@@ -958,3 +958,200 @@ def test_cli_profile_dir_writes_spans_json(cuda_device, tmp_path):
     assert 0 < clip["busy_s"] < clip["wall_s"]
     idle = sum(s["idle_s"] for s in spans.values() if s["thread"] == "serving")
     assert idle == pytest.approx(clip["idle_s"], rel=1e-6)
+
+
+# -- the detect stage's piecewise graphs (models.piecewise) ------------------
+
+GRAPH_PRESETS = {"parity_fused": ["--serving_profile", "parity", "--fused"],
+                 "parity": ["--serving_profile", "parity"],
+                 "int8_fused": ["--serving_profile", "int8", "--fused"],
+                 "max_fused": ["--serving_profile", "max", "--fused"]}
+
+
+def _detect_stage(argv, device):
+    """A preset's detect stage as `build_pipeline` makes it, on seeded weights."""
+    from avcer_tpu_torch.cli import run as cli
+    from avcer_tpu_torch.models import layers
+    from avcer_tpu_torch.models.retinaface import RetinaFace
+    from avcer_tpu_torch.pipeline.detect import DetectStage
+
+    cfg = cli.config_from_args(cli.parse_args(argv)).detector
+    model = RetinaFace(backbone=cfg.backbone, fused_layer1=cfg.fused_layer1,
+                       fused_tails=cfg.fused_tails, fused_entries=cfg.fused_entries,
+                       fused_ssh=cfg.fused_ssh, fused_fpn=cfg.fused_fpn,
+                       quant=cfg.quant == "int8")
+    layers.seeded_init_(model, torch.Generator().manual_seed(0)).eval().requires_grad_(False)
+    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
+    return DetectStage(cfg, layers.cast_compute(model, dtype).to(device), device=device)
+
+
+def _clip_batches(stage, n, seed):
+    """``n`` batches of different noise frames at 640 x 360, as wires."""
+    rng = np.random.default_rng(seed)
+    b = stage.cfg.batch_size
+    return [stage.prepare_wire(rng.integers(0, 255, (b, 360, 640, 3), np.uint8))
+            for _ in range(n)]
+
+
+def _served(stage, wires, eager=False):
+    """SHA-256 of each batch's packed detections (``dispatch_wire``, then
+    ``HostCopy`` as the runner fetches, all batches in flight before the
+    first fetch) and the launch counters' advance over them; ``eager``
+    forces the eager route."""
+    import hashlib
+
+    from avcer_tpu_torch.pipeline.detect import HostCopy
+    from avcer_tpu_torch.utils import trace
+
+    reason = stage.eager_reason
+    if eager:
+        stage.eager_reason = lambda model, device: "forced"
+    try:
+        before = trace.launches()
+        copies = [HostCopy(stage.dispatch_wire(w, s)[0]) for w, s in wires]
+        hashes = [hashlib.sha256(c.numpy().tobytes()).hexdigest() for c in copies]
+        after = trace.launches()
+    finally:
+        stage.eager_reason = reason
+    return hashes, {k: after[k] - before[k] for k in before}
+
+
+@pytest.fixture
+def graph_routes(monkeypatch):
+    """The detect batches by route (``detect.graph_*``) as the stage counts
+    them, profiler or not."""
+    import collections
+
+    from avcer_tpu_torch.utils import trace
+
+    routes = collections.Counter()
+    count = trace.count
+
+    def spy(name, n=1):
+        if name.startswith("detect.graph_"):
+            routes[name[len("detect.graph_"):]] += n
+        count(name, n)
+
+    monkeypatch.setattr(trace, "count", spy)
+    return routes
+
+
+@pytest.mark.parametrize("preset", list(GRAPH_PRESETS))
+def test_detect_graphs_equal_eager(cuda_device, graph_routes, preset):
+    """Warm-up, capture and four replays of a preset's detect stage against
+    the same batches forced eager: equal SHA-256 of every batch's packed
+    detections, fetched with every batch in flight, and the kernel launch
+    counters advanced alike on both routes (a replay counts K1 inside its
+    graph). int8: then a calibration forward on louder frames drops the
+    schedule; the next batches warm up, capture once more and replay, equal
+    to eager again."""
+    stage = _detect_stage(GRAPH_PRESETS[preset], cuda_device)
+    wires = _clip_batches(stage, 5, seed=7)
+    assert all(isinstance(w, torch.Tensor) and w.is_pinned() for w, _ in wires)
+    with torch.inference_mode():
+        stage.dispatch_wire(*wires[0])  # int8: the first real batch refines the scales
+        graphed, graphed_launches = _served(stage, wires)
+        assert graph_routes == {"replays": 4, "captures": 1, "eager": 1}
+        eager, eager_launches = _served(stage, wires, eager=True)
+    assert graphed == eager
+    assert graphed_launches == eager_launches and graphed_launches["fused_chain"] == (
+        5 * 5 if "fused" in preset and preset != "max_fused" else 0)
+    if stage.quant:
+        with torch.inference_mode():
+            stage._calibrate_device(torch.full_like(stage.upload_wire(wires[0][0])[:2], 255))
+            graph_routes.clear()
+            graphed, _ = _served(stage, wires[:4])
+            assert graph_routes == {"replays": 2, "captures": 1, "eager": 1}
+            eager, _ = _served(stage, wires[:4], eager=True)
+        assert graphed == eager
+
+
+def test_detect_graph_capture_beside_another_stream(cuda_device, graph_routes):
+    """A capture (``thread_local``) while another thread launches on its own
+    stream and waits on it, as the audio worker does: captured, and equal to
+    eager."""
+    import threading
+
+    stage = _detect_stage(GRAPH_PRESETS["parity_fused"], cuda_device)
+    wires = _clip_batches(stage, 3, seed=9)
+    stop = threading.Event()
+    launched = []
+
+    def other():
+        side = torch.cuda.Stream(cuda_device)
+        a = torch.randn(1024, 1024, device=cuda_device)
+        with torch.cuda.stream(side):
+            while not stop.is_set():
+                launched.append(float((a @ a).sum().cpu()))
+
+    worker = threading.Thread(target=other)
+    worker.start()
+    try:
+        with torch.inference_mode():
+            graphed, _ = _served(stage, wires)
+    finally:
+        stop.set()
+        worker.join()
+    assert graph_routes["captures"] == 1 and launched
+    with torch.inference_mode():
+        eager, _ = _served(stage, wires, eager=True)
+    assert graphed == eager
+
+
+def test_detect_graph_warm_up_before_another_threads_capture(cuda_device, graph_routes):
+    """Two threads serving one key at once, as ``run_many`` does: each
+    thread's first batch is its warm-up (its own cuDNN and cuBLAS handles,
+    which a capture cannot create; the stage's device constants), one
+    thread captures, the other replays, and every batch equals eager."""
+    import threading
+
+    stage = _detect_stage(GRAPH_PRESETS["parity_fused"], cuda_device)
+    wires = _clip_batches(stage, 4, seed=11)
+    got = {}
+    start = threading.Barrier(2)
+
+    def serve(i):
+        start.wait()
+        with torch.inference_mode():
+            got[i], _ = _served(stage, wires[2 * i:2 * i + 2])
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert graph_routes == {"eager": 2, "captures": 1, "replays": 1}
+    with torch.inference_mode():
+        want, _ = _served(stage, wires, eager=True)
+    assert got[0] + got[1] == want
+
+
+def test_detect_graph_capture_failure_stays_eager(cuda_device, monkeypatch, caplog,
+                                                  graph_routes):
+    """A capture that raises (here an operation that waits for the stream,
+    which a capture refuses) leaves its key eager, logged once, with the
+    eager route's results."""
+    import logging
+
+    from avcer_tpu_torch.models import piecewise
+
+    stage = _detect_stage(GRAPH_PRESETS["parity"], cuda_device)
+    wires = _clip_batches(stage, 3, seed=10)
+    with torch.inference_mode():
+        want, _ = _served(stage, wires, eager=True)
+    decode = stage._decode
+
+    def waiting(frames, *out):
+        if piecewise._local.__dict__.get("capture") is not None:
+            torch.cuda.current_stream(frames.device).synchronize()
+        return decode(frames, *out)
+
+    monkeypatch.setattr(stage, "_decode", waiting)
+    graph_routes.clear()
+    with caplog.at_level(logging.WARNING, logger="avcer_tpu_torch"), torch.inference_mode():
+        got, _ = _served(stage, wires)
+        got2, _ = _served(stage, wires)
+    assert got == want and got2 == want
+    assert graph_routes == {"eager": 6}
+    assert sum("capturing the graphs" in r.getMessage() for r in caplog.records) == 1
+    assert list(stage._graphs._state.values()) == ["failed"]
