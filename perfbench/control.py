@@ -171,7 +171,7 @@ def readings(cell: "harness.Cell", seed: int, device, control, tmp: str,
         program.free(run.program)
         ref_w = weights.to_device(run.weights_host, device)
         # the format in every position an int8 configuration quantises
-        low = Reference(ref_w, dict(serving, quant=True), cell.w2v,
+        low = Reference(ref_w, dict(serving, quant=True), cell.families,
                         quant=fake_quant(control["reference_format"]))
         served = [reference_served(low, c, serving) for c in clips]
     else:
@@ -180,7 +180,7 @@ def readings(cell: "harness.Cell", seed: int, device, control, tmp: str,
     if control is not None:
         for s, c in zip(served, clips):
             s.result.compound = bf16_fusion(s.result, c)
-    ref = Reference(weights.to_device(run.weights_host, device), serving, cell.w2v)
+    ref = Reference(weights.to_device(run.weights_host, device), serving, cell.families)
     per_clip = [check.compare(s, c, ref, serving) for s, c in zip(served, clips)]
     return check.worst(per_clip)
 

@@ -1,11 +1,13 @@
 """One run of one cell: set-up, the measured window, the traced clips, the
 check against the reference, and the result line.
 
-Everything that belongs to one configuration, one traffic mix, one
-per-layer metric or one cell's limits is a file of its own, found by the
-name ``BENCHMARK.json`` gives it: ``configs/<config>.json`` (through the
-configuration's ``file``), ``traffic/<traffic>.json``,
-``metrics/<metric>.py`` and ``limits/<workload>.json``.
+Everything that belongs to one configuration, one model family, one
+traffic mix, one per-layer metric or one cell's limits is a file of its own,
+found by the name ``BENCHMARK.json`` or a configuration gives it:
+``configs/<config>.json`` (through the configuration's ``file``),
+``reference/families/<module>.py`` (through the configuration's ``models``
+block), ``traffic/<traffic>.json``, ``metrics/<metric>.py`` and
+``limits/<workload>.json``.
 
 The window is a closed loop of one client: clip after clip, each served as
 ``cli.run --path_video clip`` serves it (``Pipeline.run`` with the outputs
@@ -24,7 +26,7 @@ import sys
 import tempfile
 import time
 import traceback
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -43,7 +45,7 @@ class Cell:
     limits: dict
     end_to_end: list
     per_layer: list  # (metric entry, reader module)
-    w2v: dict = field(default_factory=dict)
+    families: dict  # {role: models.Family} of the configuration's models block
 
 
 def load_json(path: str) -> dict:
@@ -78,7 +80,8 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
     per_layer = [(m, metric_reader(root, m["name"])) for m in bench["per_layer"]
                  if (name in m["workloads"] if "workloads" in m else m["moves"] in moved)]
     return Cell(name=name, chips=w["chips"], config=config, mix=mix, limits=limits,
-                end_to_end=e2e, per_layer=per_layer, w2v=dict(M.W2V2))
+                end_to_end=e2e, per_layer=per_layer,
+                families=M.load_families(config["models"], root))
 
 
 def forbidden_modules() -> list:
@@ -143,7 +146,11 @@ class GcPauses:
 
 class Run:
     """The state of one run, step by step (``main`` drives it; tests drive
-    the steps on the CPU with a small cell)."""
+    the steps on the CPU with a small cell). A timed run builds the program
+    from its argv alone, and the strict load of each family's weights holds
+    its shapes to the configuration's ``models`` block; ``wav2vec2_config``
+    (the program's audio encoder) and ``config_replace`` serve the tests'
+    shrunk programs only."""
 
     def __init__(self, cell: Cell, seed: int, device, out_dir: str, wav2vec2_config=None,
                  config_replace=None):
@@ -165,11 +172,11 @@ class Run:
         if config_replace is not None:
             cfg = config_replace(cfg)
             self.serving = program.serving_of(cfg)
-        w = weights.make(seed, self.serving, self.traffic, device, cell.w2v)
+        w = weights.make(seed, self.serving, self.traffic, device, cell.families)
         self.weights_host = weights.to_host(w)
         del w
         self.program = program.Program(program.build(cfg, self.weights_host, device,
-                                                     wav2vec2_config))
+                                                     cell.families, wav2vec2_config))
         self.records: list[dict] = []
         self.failed = 0
         self.instruments = None
@@ -248,7 +255,7 @@ class Run:
         picked = check.sample(self.records, self.cell.mix["check_clips"], self.seed)
         program.free(self.program)
         ref = Reference(weights.to_device(self.weights_host, self.device), self.serving,
-                        self.cell.w2v)
+                        self.cell.families)
         per_clip = [check.compare(r["served"], r["clip"], ref, self.serving) for r in picked]
         numbers = check.worst(per_clip)
         return numbers, check.verdict(numbers, self.cell.limits) and self.failed == 0
@@ -271,7 +278,7 @@ class Observation:
         for r in done:
             c = r["clip"]
             for kind, n in work.clip_work(run.serving, hw, c.frames.shape[0], c.fps,
-                                          len(c.wav), run.cell.w2v).items():
+                                          len(c.wav), run.cell.families).items():
                 self.ops[kind] = self.ops.get(kind, 0.0) + n
         self.timings = [r["served"].result.timings for r in done]
 
@@ -333,6 +340,7 @@ def main(argv=None, t_start: float | None = None) -> int:
                 value = reader.read(obs)
                 if value is not None:
                     metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+            print(f"launches by span: {json.dumps(run.profile.launches())}", file=sys.stderr)
             device_info_["busy_s"] = run.profile.busy_s
             device_info_["window_s"] = run.profile.window_s
             breakdown = run.profile.breakdown()

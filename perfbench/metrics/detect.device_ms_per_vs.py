@@ -1,7 +1,8 @@
 """Device milliseconds a video-second of the operations launched inside
 ``DetectStage.dispatch_wire`` (span ``detect.dispatch``: the upload, the I420
 rebuild, the network with K3 and K4, decoding, top-64 and NMS), over the
-profiled clips."""
+profiled clips; the kernels of a CUDA graph the detector replays count with
+the graph's launch (``spans.LAUNCHES``)."""
 
 LAYER = "detect"
 UNIT = "ms/video-s"

@@ -17,10 +17,6 @@ import numpy as np
 
 from perfbench.face import ScriptedFace
 
-#: the program's class of each family's model
-FAMILY_OF = {"RetinaFace": "retinaface", "EmotionResNet50": "emotion_resnet50",
-             "TemporalLSTM": "temporal_lstm", "ExprModel": "expr_model"}
-
 
 def pipeline_config(config: dict, weights_dir: str):
     """The ``PipelineConfig`` the CLI builds from the configuration's argv
@@ -33,14 +29,26 @@ def pipeline_config(config: dict, weights_dir: str):
     return dataclasses.replace(cfg, **config.get("overrides", {}))
 
 
-def build(cfg, weights: dict, device, wav2vec2_config=None):
-    """``builder.build_pipeline`` with every family's weights taken from
-    ``weights`` ({family: state dict}, loaded strictly where the builder
-    would initialise from its own seed)."""
+def build(cfg, weights: dict, device, families: dict, wav2vec2_config=None):
+    """``builder.build_pipeline`` with every model's weights taken from
+    ``weights`` ({role: state dict}): the role whose family (``families``,
+    {role: ``models.Family``}) names the model's class, loaded strictly where
+    the builder would initialise from its own seed."""
     from avcer_tpu_torch.pipeline import builder
 
+    role_of = {}
+    for role, fam in families.items():
+        if fam.program_class in role_of:
+            raise ValueError(f"families {role_of[fam.program_class]!r} and {role!r} both "
+                             f"name the program's class {fam.program_class!r}")
+        role_of[fam.program_class] = role
+
     def load(model, generator):
-        model.load_state_dict(weights[FAMILY_OF[type(model).__name__]], strict=True)
+        name = type(model).__name__
+        if name not in role_of:
+            raise ValueError(f"no model family names the program's class {name!r}: "
+                             f"{sorted(role_of)}")
+        model.load_state_dict(weights[role_of[name]], strict=True)
         return model
 
     seeded = builder.seeded_init_

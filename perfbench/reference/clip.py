@@ -1,6 +1,7 @@
 """The reference's answer for one clip: every layer the benchmark checks,
 worked out from the clip's frames, its face boxes, its wav and the weights
-alone, in float32, in blocks that fit beside nothing else on the device.
+alone, by the model families the configuration names for the pipeline's
+roles, in float32, in blocks that fit beside nothing else on the device.
 
 ``quant`` (``models.Ctx``) puts a lower precision in the int8 positions: the
 benchmark's control. This module imports nothing of the program it checks.
@@ -29,23 +30,30 @@ def exact_float32():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
-class Reference:
-    """``weights``: {family: {name: float32 tensor on the device}};
-    ``serving``: the configuration's serving switches (``backbone``,
-    ``long_side``, ``det_stride``, ``cnn_stride``, ``shared_extractor``,
-    ``quant``: whether its stages are int8, which says where ``quant``
-    applies)."""
+#: the pipeline's roles, each computed by the model family a configuration names
+ROLES = ("detector", "static", "dynamic", "audio")
 
-    def __init__(self, weights: dict, serving: dict, w2v: dict = M.W2V2,
+
+class Reference:
+    """``weights``: {role: {name: float32 tensor on the device}};
+    ``serving``: the configuration's serving switches (``long_side``,
+    ``det_stride``, ``cnn_stride``, ``shared_extractor``, ``quant``: whether
+    its stages are int8, which says where ``quant`` applies); ``families``:
+    {role: ``models.Family``} of every role in ``ROLES``."""
+
+    def __init__(self, weights: dict, serving: dict, families: dict,
                  quant: Optional[Callable] = None, block: int = 32):
+        missing = set(ROLES) - set(families)
+        if missing:
+            raise ValueError(f"the configuration's models name no family for {sorted(missing)}")
         self.w = weights
         self.s = serving
-        self.w2v = w2v
+        self.f = families
         self.quant = quant
         self.block = block
 
-    def ctx(self, family: str) -> M.Ctx:
-        return M.Ctx(self.w[family], quant=self.quant)
+    def ctx(self, role: str) -> M.Ctx:
+        return M.Ctx(self.w[role], quant=self.quant)
 
     # -- layers ------------------------------------------------------------
 
@@ -55,8 +63,8 @@ class Reference:
         decode from [B, A, 14], the anchors [A, 4] (cx, cy, w, h) in bucket
         pixels)."""
         mean = torch.tensor(P.RETINAFACE_MEAN, device=wire.device)
-        loc, conf, landms = M.retinaface(self.ctx("retinaface"), wire.float() - mean,
-                                         self.s["backbone"], quant=self.s["quant"])
+        loc, conf, landms = self.f["detector"].forward(self.ctx("detector"), wire.float() - mean,
+                                                       self.s["quant"])
         h, w = wire.shape[1:3]
         pri = P.priors(h, w, wire.device)
         boxes, pts = P.decode(loc, landms, pri, h, w)
@@ -65,47 +73,51 @@ class Reference:
 
     def cnn(self, crops: torch.Tensor):
         mean = torch.tensor(P.VGGFACE2_MEAN, device=crops.device)
-        logits, feats = M.emotion_resnet(self.ctx("emotion_resnet50"), crops.float() - mean,
-                                         quant=self.s["quant"])
+        logits, feats = self.f["static"].forward(self.ctx("static"), crops.float() - mean,
+                                                 self.s["quant"])
         return torch.softmax(logits, -1), feats
 
     def audio(self, wav: np.ndarray, fps: float, n_frames: int, batch: int = 16):
-        """(window logits [W, 8], per-frame logits [T, 8])."""
+        """(window logits [W, classes], per-frame logits [T, classes])."""
         dev = self.device
-        ctx = self.ctx("expr_model")
+        ctx = self.ctx("audio")
+        fam = self.f["audio"]
+        a, shape = fam.module, fam.shape
         q = self.s["quant"]
         spans = P.audio_windows(len(wav))
         window = 64000
         x = torch.from_numpy(np.asarray(wav, np.float32)).to(dev)
-        logits = torch.zeros(len(spans), self.w2v["num_classes"], device=dev)
+        rows: list = [None] * len(spans)
         full = [i for i, (s, e) in enumerate(spans) if e - s >= window]
         exact = list(range(len(spans))) if not self.s["shared_extractor"] else [
             i for i in range(len(spans)) if i not in set(full)]
         for k in range(0, len(exact), batch):
             idx = exact[k:k + batch]
             win = P.normalise(P.cut_windows(x, [spans[i] for i in idx], window))
-            logits[idx] = M.expr_model(ctx, win, self.w2v, q)
+            for i, r in zip(idx, fam.forward(ctx, win, q)):
+                rows[i] = r
         if self.s["shared_extractor"] and full:
             # the clip normalised once; each full window reads its slice of
             # the clip's conv features
             padded = torch.cat([P.normalise(x), x.new_zeros(window + 1)])
-            feats = M.wav2vec2_features(ctx, padded[None], self.w2v, q)[0]
-            stride = int(np.prod(self.w2v["conv_stride"]))
-            nf = feats_per_window(window, self.w2v)
+            feats = a.features(ctx, padded[None], shape, q)[0]
+            stride = a.hop(shape)
+            nf = a.frames_per_window(window, shape)
             for k in range(0, len(full), batch):
                 idx = full[k:k + batch]
                 starts = torch.tensor([spans[i][0] // stride for i in idx], device=dev)
                 f_idx = (starts[:, None] + torch.arange(nf, device=dev)[None]).clamp(
                     0, feats.shape[0] - 1)
-                h = M.wav2vec2_encode(ctx, feats[f_idx], self.w2v, q)
-                logits[idx] = M.expr_head(ctx, h, self.w2v)
-        out = logits.cpu().numpy()
+                h = a.encode(ctx, feats[f_idx], shape, q)
+                for i, r in zip(idx, a.head(ctx, h, shape)):
+                    rows[i] = r
+        out = torch.stack(rows).cpu().numpy()
         frames, wins = P.window_rows(spans, 16000, fps)
         return out, P.frame_audio(out, frames, wins, n_frames)
 
     @property
     def device(self):
-        return next(iter(self.w["retinaface"].values())).device
+        return next(iter(self.w["detector"].values())).device
 
     # -- a clip ------------------------------------------------------------
 
@@ -155,7 +167,7 @@ class Reference:
         dyn_s = np.zeros((0, 7), np.float32)
         if len(steps):
             x = torch.from_numpy(feat_p[steps][wins]).to(dev)
-            dyn_s = M.temporal_lstm(self.ctx("temporal_lstm"), x).cpu().numpy()
+            dyn_s = self.f["dynamic"].forward(self.ctx("dynamic"), x).cpu().numpy()
         stat = P.expand(stat_p, stat_src, 7)
         dyn = P.expand(dyn_s, dyn_src, 7)
         audio_w, audio_f = self.audio(wav, fps, t_total)
@@ -164,9 +176,3 @@ class Reference:
                     dyn=dyn, audio_windows=audio_w, audio_frames=audio_f, fused=fused,
                     av_prob=P.compound(fused))
 
-
-def feats_per_window(window: int, w2v: dict) -> int:
-    n = window
-    for k, s in zip(w2v["conv_kernel"], w2v["conv_stride"]):
-        n = (n - k) // s + 1
-    return n

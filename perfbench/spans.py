@@ -19,8 +19,10 @@ Sites (span name: where):
 - ``clip``: each profiled clip, the benchmark's call of ``Pipeline.run``.
 
 A device operation belongs to the span in which the host launched it: its
-launch (the CUDA runtime call with the same correlation id) lies inside the
-span, and it ran on another stream than the audio thread's.
+launch (the CUDA runtime or driver call with the same correlation id) lies
+inside the span, and it ran on another stream than the audio thread's. The
+kernels a CUDA graph replays carry the correlation id of the graph's launch
+(``cudaGraphLaunch``), so they belong to the span that launched the graph.
 """
 
 from __future__ import annotations
@@ -33,8 +35,10 @@ from collections import defaultdict
 from perfbench import work
 
 PREFIX = "perfbench:"
-#: the runtime calls that start device work (names may carry a version suffix)
-LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")
+#: the runtime and driver calls that start device work (names may carry a
+#: version suffix); a graph's launch starts every kernel the graph replays
+LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset",
+            "cudaGraphLaunch", "cuGraphLaunch")
 
 
 class Instruments:
@@ -157,7 +161,7 @@ class Profile:
 
         self.video_s = video_s
         self.calls = calls
-        runtime: dict[int, int] = {}
+        runtime: dict[int, tuple] = {}
         device: list = []
         ranges: list = []
         events = prof.profiler.kineto_results.events()
@@ -175,14 +179,13 @@ class Profile:
             elif name.startswith(PREFIX):
                 ranges.append(span_of(e) + (name[len(PREFIX):],))
             elif name.startswith(LAUNCHES):
-                runtime[e.correlation_id()] = span_of(e)[0]
+                runtime[e.correlation_id()] = (span_of(e)[0], name)
         if not device:
             raise RuntimeError("the profiler's events hold no device operation")
         marker = [r for r in ranges if r[2] == "audio_stream"]
-        launched = {}
+        launched, caller = {}, {}
         for d in device:
-            t = runtime.get(d[4])
-            launched[id(d)] = t
+            launched[id(d)], caller[id(d)] = runtime.get(d[4], (None, None))
         audio = {d[3] for d in device if marker and launched[id(d)] is not None
                  and marker[0][0] <= launched[id(d)] <= marker[0][1]}
         self.device = device
@@ -195,11 +198,13 @@ class Profile:
         self.busy_s = work.busy_union(inside)
         self.gaps = work.idle_gaps(inside, self.start, self.stop)
         #: launch times and device seconds of the main streams' operations
-        main = sorted((launched[id(d)], d[1] - d[0]) for d in device
+        main = sorted((launched[id(d)], d[1] - d[0], caller[id(d)]) for d in device
                       if launched[id(d)] is not None and d[3] not in audio)
-        self._launch = [t for t, _ in main]
+        self._launch = [t for t, _, _ in main]
+        self._caller = [c for _, _, c in main]
+        self._dur = [dur for _, dur, _ in main]
         self._cum = [0.0]
-        for _, dur in main:
+        for dur in self._dur:
             self._cum.append(self._cum[-1] + dur)
         self._starts = [r[0] for r in self.ranges]
 
@@ -219,6 +224,21 @@ class Profile:
                 j = bisect.bisect_right(self._launch, e)
                 total += self._cum[j] - self._cum[i]
         return total
+
+    def launches(self) -> dict:
+        """{span name (``#i`` left out): {launching call (version suffix left
+        out): [operations, device seconds]}} of the main streams' operations
+        launched inside each span, nested spans' included."""
+        out: dict = defaultdict(dict)
+        for s, e, name in self.ranges:
+            calls = out[name.split("#")[0]]
+            i = bisect.bisect_left(self._launch, s)
+            j = bisect.bisect_right(self._launch, e)
+            for k in range(i, j):
+                call = self._caller[k].split("_v")[0]
+                n, t = calls.get(call, (0, 0.0))
+                calls[call] = [n + 1, t + self._dur[k]]
+        return dict(out)
 
     def innermost(self, t: float, skip_clip: bool = False):
         """The innermost span open at ``t`` (spans nest a few deep: the last

@@ -3,15 +3,21 @@ new configuration, traffic mix, per-layer metric and cell by name alone."""
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
 import shutil
 
+import numpy as np
 import pytest
 
-from perfbench import harness, program
+from perfbench import harness, program, weights, work
+from perfbench.reference import pipeline as P
+from perfbench.reference.clip import Reference
+from perfbench.tests import tiny
 from perfbench.tests.tiny import ROOT
+from perfbench.traffic import Traffic
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -92,23 +98,41 @@ def test_config_maps_through_the_cli(name):
 
 
 def test_each_cell_loads_its_files():
+    """Every reader moves the end-to-end metric its own entry names; every
+    role of the pipeline has a family."""
+    from perfbench.reference.clip import ROLES
+
     for w in bench()["workloads"]:
         cell = harness.load_cell(w["name"])
         assert cell.end_to_end and cell.per_layer and cell.limits
-        for _, reader in cell.per_layer:
-            assert reader.MOVES == "video_s_per_s" and callable(reader.read)
+        for m, reader in cell.per_layer:
+            assert reader.MOVES == m["moves"] and callable(reader.read)
+        assert set(cell.families) == set(ROLES)
+
+
+def digests(root) -> dict:
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(root.rglob("*")) if p.is_file()}
 
 
 def test_new_files_are_found_by_name(tmp_path):
-    """A new configuration, traffic mix, metric, limits and cell: new files
-    and new entries, no edit to a file that is there."""
+    """A new configuration whose audio family is a new architecture (here
+    the wav2vec2 family's file under a new name, at two layers), a new
+    traffic mix, metric, limits and cell: new files and new entries, and no
+    file that was there changes while the cell loads, its weights are made,
+    the reference serves its audio and its work is counted."""
     root = tmp_path / "checkout"
     shutil.copytree(os.path.join(ROOT, "perfbench"), root / "perfbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     b = bench()
     pb = root / "perfbench"
-    (pb / "configs" / "new_config.json").write_text(
-        (pb / "configs" / "parity_fused.json").read_text())
+    before = digests(pb)  # BENCHMARK.json takes new entries
+    config = json.loads((pb / "configs" / "parity_fused.json").read_text())
+    config["models"]["audio"] = {"module": "new_audio", "shape": dict(
+        config["models"]["audio"]["shape"], **dict(tiny.SMALL_AUDIO, num_layers=2))}
+    (pb / "configs" / "new_config.json").write_text(json.dumps(config))
+    (pb / "reference" / "families" / "new_audio.py").write_text(
+        (pb / "reference" / "families" / "wav2vec2_expr_v3.py").read_text())
     mix = json.loads((pb / "traffic" / "long_clips.json").read_text())
     mix["clip_seconds"] = [8]
     (pb / "traffic" / "new_mix.json").write_text(json.dumps(mix))
@@ -134,6 +158,26 @@ def test_new_files_are_found_by_name(tmp_path):
     assert "new.metric" not in {m["name"] for m, _ in harness.load_cell(
         "parity_fused.long_clips", str(root)).per_layer}
 
+    audio = cell.families["audio"]
+    assert audio.name == "new_audio" and audio.module.__file__ == str(
+        pb / "reference" / "families" / "new_audio.py")
+    seed = 2 ** 31 + 23
+    serving = dict(cell.config["serving"], long_side=96)
+    w = weights.make(seed, serving, Traffic(tiny.MIX, seed), "cpu", cell.families)
+    layers = {k.split(".")[3] for k in w["audio"] if k.startswith("wav2vec2.encoder.layers.")}
+    assert layers == {"0", "1"}
+    clip = Traffic(tiny.MIX, seed).clip(0)
+    windows, frames = Reference(w, serving, cell.families).audio(clip.wav, clip.fps,
+                                                                 clip.frames.shape[0])
+    assert windows.shape == (len(P.audio_windows(len(clip.wav))), 8)
+    assert np.isfinite(windows).all() and frames.shape == (clip.frames.shape[0], 8)
+    ops = work.clip_work(cell.config["serving"], (360, 640), 250, 25.0, 160000, cell.families)
+    twelve = work.clip_work(cell.config["serving"], (360, 640), 250, 25.0, 160000,
+                            harness.load_cell("parity_fused.long_clips", str(root)).families)
+    assert 0 < ops["bf16"] < twelve["bf16"]
+    after = digests(pb)
+    assert {k: after[k] for k in before} == before
+
 
 @pytest.mark.parametrize("name", ["parity_fused", "max_fused"])
 def test_a_configuration_is_the_clis_deployment(name):
@@ -142,7 +186,7 @@ def test_a_configuration_is_the_clis_deployment(name):
     the benchmark serves the deployment the CLI builds."""
     with open(os.path.join(ROOT, "perfbench", "configs", name + ".json")) as f:
         config = json.load(f)
-    assert set(config) <= {"name", "argv", "overrides", "serving", "control", "source",
-                           "sources", "reduced", "assumed"}
+    assert set(config) <= {"name", "argv", "overrides", "serving", "models", "control",
+                           "source", "sources", "reduced", "assumed"}
     assert set(config["overrides"]) <= {"save_plot"}
     assert set(config["control"]) - {"why"} in ({"argv"}, {"reference_format"})

@@ -15,10 +15,12 @@ from perfbench.tests import tiny
 from perfbench.traffic import Traffic
 
 
-@pytest.mark.parametrize("argv,backbone", [
-    (["--serving_profile", "parity", "--fused"], "resnet50"),
-    (["--serving_profile", "fast", "--fused"], "mobilenet0.25")])
-def test_models_agree_with_the_port(argv, backbone, tmp_path):
+@pytest.mark.parametrize("argv,name", [
+    (["--serving_profile", "parity", "--fused"], "parity_fused"),
+    (["--serving_profile", "fast", "--fused"], "max_fused")])
+def test_models_agree_with_the_port(argv, name, tmp_path):
+    """Each family of the configuration (``max_fused``'s for its mobilenet
+    detector) against the model of the class it names."""
     torch.manual_seed(0)
     cfg = program.pipeline_config(dict(argv=argv + ["--long_side", "96"]), str(tmp_path))
     f32 = dict(dtype="float32", quant="none")
@@ -27,8 +29,9 @@ def test_models_agree_with_the_port(argv, backbone, tmp_path):
         visual=dataclasses.replace(cfg.visual, batch_size=4, **f32),
         audio=dataclasses.replace(cfg.audio, shared_extractor=False, **f32))
     traffic = Traffic(tiny.MIX, 2 ** 31 + 1)
-    w = weights.make(2 ** 31 + 1, program.serving_of(cfg), traffic, "cpu", tiny.W2V)
-    pipe = program.build(cfg, weights.to_host(w), "cpu", tiny.wav2vec2_config())
+    fam = tiny.families(tiny.config(name))
+    w = weights.make(2 ** 31 + 1, program.serving_of(cfg), traffic, "cpu", fam)
+    pipe = program.build(cfg, weights.to_host(w), "cpu", fam, tiny.wav2vec2_config())
 
     def close(got, want, tol=1e-4):
         for g, r in zip(got, want):
@@ -36,13 +39,13 @@ def test_models_agree_with_the_port(argv, backbone, tmp_path):
 
     with torch.no_grad():
         x = torch.randn(2, 64, 96, 3) * 50
-        close(pipe.detect.model(x), M.retinaface(M.Ctx(w["retinaface"]), x, backbone))
+        close(pipe.detect.model(x), fam["detector"].forward(M.Ctx(w["detector"]), x))
         c = torch.randn(2, 224, 224, 3) * 50
-        close(pipe.visual.static_model(c), M.emotion_resnet(M.Ctx(w["emotion_resnet50"]), c))
+        close(pipe.visual.static_model(c), fam["static"].forward(M.Ctx(w["static"]), c))
         s = torch.randn(3, 10, 512)
-        close([pipe.visual.lstm_model(s)], [M.temporal_lstm(M.Ctx(w["temporal_lstm"]), s)])
+        close([pipe.visual.lstm_model(s)], [fam["dynamic"].forward(M.Ctx(w["dynamic"]), s)])
         a = torch.randn(2, 64000)
-        close([pipe.audio.model(a)], [M.expr_model(M.Ctx(w["expr_model"]), a, tiny.W2V)])
+        close([pipe.audio.model(a)], [fam["audio"].forward(M.Ctx(w["audio"]), a)])
 
 
 @pytest.mark.parametrize("name,workload", [("parity_fused", "parity_fused.long_clips"),

@@ -131,11 +131,14 @@ def test_model_work_counts():
     published widths."""
     serving = dict(backbone="resnet50", long_side=640, det_stride=1, cnn_stride=1,
                    shared_extractor=False, quant=False)
+    import json
+
     from perfbench.reference import models as M
 
-    ops = work.clip_work(serving, (360, 640), 25, 25, 16000, M.W2V2)
-    unit = work.unit_work(tuple(sorted(serving.items())),
-                          tuple(sorted(M.W2V2.items())), (360, 640))
+    with open(os.path.join(ROOT, "perfbench", "configs", "parity_fused.json")) as f:
+        families = M.load_families(json.load(f)["models"], ROOT)
+    ops = work.clip_work(serving, (360, 640), 25, 25, 16000, families)
+    unit = work.unit_work(tuple(sorted(serving.items())), tuple(families.items()), (360, 640))
     windows = len(P.audio_windows(16000))
     want = (25 * unit["frame"]["bf16"] + 25 * unit["crop"]["bf16"]
             + 5 * unit["lstm"]["bf16"] + windows * unit["window"]["bf16"])
@@ -169,8 +172,11 @@ def test_the_run_loads_no_jax_and_the_reference_nothing_of_the_program():
         "[h.metric_reader(h.ROOT, p.split('/')[-1][:-3]) for p in "
         "glob.glob('perfbench/metrics/*.py')]")
     assert "avcer_tpu_torch" in run and not run & set(FORBIDDEN)
-    ref = _loaded("import perfbench.reference.clip, perfbench.reference.models, "
-                  "perfbench.reference.pipeline")
+    ref = _loaded("import json, perfbench.reference.clip, perfbench.reference.pipeline\n"
+                  "import perfbench.reference.models as M\n"
+                  "for c in ('parity_fused', 'max_fused'):\n"
+                  "    M.load_families(json.load(open(f'perfbench/configs/{c}.json'))['models'], "
+                  "'.')")
     assert not ref & (set(FORBIDDEN) | {"avcer_tpu_torch"})
 
 

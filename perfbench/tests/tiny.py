@@ -1,5 +1,6 @@
 """A cell small enough for the CPU: the configuration's own argv at a small
-bucket, small batches, a two-layer-narrow wav2vec2, 96 x 64 frames."""
+bucket, small batches, a one-layer narrow wav2vec2 (the configuration's
+audio family at a shrunk shape), 96 x 64 frames."""
 
 from __future__ import annotations
 
@@ -11,8 +12,10 @@ from perfbench import harness
 from perfbench.reference import models as M
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-W2V = dict(M.W2V2, hidden_size=256, num_layers=1, num_heads=4, intermediate_size=512,
-           conv_dim=(64,) * 7, num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+#: the audio family's shape shrunk (each key one the program's Wav2Vec2Config takes)
+SMALL_AUDIO = dict(hidden_size=256, num_layers=1, num_heads=4, intermediate_size=512,
+                   conv_dim=[64] * 7, num_conv_pos_embeddings=16,
+                   num_conv_pos_embedding_groups=4)
 MIX = dict(clip_seconds=[2, 3], width=96, height=64, fps=25, faces=1, face_px=40,
            face_speed_px=[9, 4], audio=dict(sample_rate=16000, noise_std=0.1),
            loop=dict(kind="closed", clients=1), trace_clips=1, check_clips=2)
@@ -21,9 +24,8 @@ MIX = dict(clip_seconds=[2, 3], width=96, height=64, fps=25, faces=1, face_px=40
 def wav2vec2_config():
     from avcer_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 
-    keys = ("hidden_size", "num_layers", "num_heads", "intermediate_size", "conv_dim",
-            "num_conv_pos_embeddings", "num_conv_pos_embedding_groups")
-    return Wav2Vec2Config(**{k: W2V[k] for k in keys})
+    return Wav2Vec2Config(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in SMALL_AUDIO.items()})
 
 
 def config(name: str) -> dict:
@@ -35,14 +37,24 @@ def config(name: str) -> dict:
     return c
 
 
+def families(config: dict, root: str = ROOT) -> dict:
+    """{role: models.Family} of ``config``'s models block, the audio family
+    at ``SMALL_AUDIO``."""
+    block = dict(config["models"])
+    block["audio"] = dict(block["audio"], shape=dict(block["audio"]["shape"], **SMALL_AUDIO))
+    return M.load_families(block, root)
+
+
 def limits(workload: str) -> dict:
     with open(os.path.join(ROOT, "perfbench", "limits", workload + ".json")) as f:
         return json.load(f)["limits"]
 
 
 def cell(name: str, workload: str) -> harness.Cell:
-    return harness.Cell(name=workload, chips=1, config=config(name), mix=dict(MIX),
-                        limits=limits(workload), end_to_end=[], per_layer=[], w2v=dict(W2V))
+    c = config(name)
+    return harness.Cell(name=workload, chips=1, config=c, mix=dict(MIX),
+                        limits=limits(workload), end_to_end=[], per_layer=[],
+                        families=families(c))
 
 
 def small(float32: bool):

@@ -17,6 +17,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from perfbench.reference import models as M
+
 #: NVIDIA H100 SXM data sheet: dense bf16 and int8 on the tensor cores, f32
 #: on the CUDA cores, HBM3 bandwidth (at the 700 W power limit)
 PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -112,13 +114,23 @@ def idle_gaps(intervals, start: float, stop: float) -> list:
 # model work, from the reference's own forward passes on ``meta`` tensors
 # ---------------------------------------------------------------------------
 
+class MetaCtx(M.Ctx):
+    """A ``models.Ctx`` that hands out zeros on ``meta``: nothing is read or
+    computed."""
+
+    def __init__(self, quant=None):
+        super().__init__(weights={}, quant=quant)
+
+    def p(self, name, shape, kind, like):
+        dtype = torch.long if kind == "count" else torch.float32
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+
 def _counted(fn, int8: bool) -> dict:
     """{type: operations} of ``fn(ctx)``: the products and convolutions
     PyTorch's flop counter sees, those at the int8 positions (when the stage
     is int8) counted apart."""
     from torch.utils.flop_counter import FlopCounterMode
-
-    from perfbench.reference import models as M
 
     quantised = [0.0]
 
@@ -127,12 +139,7 @@ def _counted(fn, int8: bool) -> dict:
         quantised[0] += 2.0 * y.numel() * w[0].numel()
         return y
 
-    class MetaCtx(M.Ctx):
-        def p(self, name, shape, kind, like):
-            dtype = torch.long if kind == "count" else torch.float32
-            return torch.zeros(shape, dtype=dtype, device="meta")
-
-    ctx = MetaCtx(weights={}, quant=hook if int8 else None)
+    ctx = MetaCtx(hook if int8 else None)
     with FlopCounterMode(display=False) as counter:
         fn(ctx)
     total = float(counter.get_total_flops())
@@ -143,53 +150,54 @@ def _counted(fn, int8: bool) -> dict:
 
 
 @lru_cache(maxsize=None)
-def unit_work(serving_items: tuple, w2v_items: tuple, hw: tuple) -> dict:
+def unit_work(serving_items: tuple, families: tuple, hw: tuple) -> dict:
     """Operations of one detected frame, one crop, one LSTM window, one
     exact audio window, and (shared extractor) the encoder and head of one
-    window after its features."""
-    from perfbench.reference import models as M
+    window after its features. ``families``: the (role, ``models.Family``)
+    pairs of the configuration."""
     from perfbench.reference import pipeline as P
-    from perfbench.reference.clip import feats_per_window
 
-    s, w2v = dict(serving_items), dict(w2v_items)
+    s, f = dict(serving_items), dict(families)
     q = s["quant"]
     meta = torch.device("meta")
     nh, nw, _ = P.letterbox_size(hw[0], hw[1], s["long_side"])
-    nf = feats_per_window(64000, w2v)
+    crop = torch.zeros(1, 224, 224, 3, device=meta)
+    window = torch.zeros(1, 64000, device=meta)
+    # the shapes the next stage reads, on ``meta`` outside the counter
+    _, feats = f["static"].forward(MetaCtx(), crop)
+    audio = f["audio"]
+    conv = audio.module.features(MetaCtx(), window, audio.shape)
     return {
-        "frame": _counted(lambda c: M.retinaface(c, torch.zeros(1, nh, nw, 3, device=meta),
-                                                 s["backbone"], q), q),
-        "crop": _counted(lambda c: M.emotion_resnet(c, torch.zeros(1, 224, 224, 3, device=meta),
-                                                    q), q),
-        "lstm": _counted(lambda c: M.temporal_lstm(c, torch.zeros(1, 10, 512, device=meta)),
-                         False),
-        "window": _counted(lambda c: M.expr_model(c, torch.zeros(1, 64000, device=meta), w2v,
-                                                  q), q),
-        "window_after_features": _counted(lambda c: M.expr_head(c, M.wav2vec2_encode(
-            c, torch.zeros(1, nf, w2v["conv_dim"][-1], device=meta), w2v, q), w2v), q),
+        "frame": _counted(lambda c: f["detector"].forward(
+            c, torch.zeros(1, nh, nw, 3, device=meta), q), q),
+        "crop": _counted(lambda c: f["static"].forward(c, crop, q), q),
+        "lstm": _counted(lambda c: f["dynamic"].forward(
+            c, torch.zeros(1, 10, feats.shape[-1], device=meta)), False),
+        "window": _counted(lambda c: audio.forward(c, window, q), q),
+        "window_after_features": _counted(lambda c: audio.module.head(c, audio.module.encode(
+            c, torch.zeros_like(conv), audio.shape, q), audio.shape), q),
     }
 
 
 @lru_cache(maxsize=None)
-def extractor_work(samples: int, int8: bool, w2v_items: tuple) -> dict:
-    from perfbench.reference import models as M
-
-    w2v = dict(w2v_items)
-    return _counted(lambda c: M.wav2vec2_features(c, torch.zeros(1, samples, device="meta"),
-                                                  w2v, int8), int8)
+def extractor_work(samples: int, int8: bool, audio) -> dict:
+    """Operations of the audio family's feature extractor over ``samples``."""
+    return _counted(lambda c: audio.module.features(
+        c, torch.zeros(1, samples, device="meta"), audio.shape, int8), int8)
 
 
 def clip_work(serving: dict, hw: tuple, n_frames: int, fps: float, n_samples: int,
-              w2v: dict) -> dict:
+              families: dict) -> dict:
     """{type: operations} the configuration needs for a clip of ``n_frames``
-    frames of ``hw`` (native height, width) in which the face is present throughout: the detector on every
-    ``det_stride``-th frame, the CNN on the frames it computes, the LSTM on
-    each step frame's window, the audio model on each window (with the shared
-    extractor: the extractor once over the clip, the rest per full window)."""
+    frames of ``hw`` (native height, width) in which the face is present
+    throughout: the detector on every ``det_stride``-th frame, the CNN on the
+    frames it computes, the LSTM on each step frame's window, the audio model
+    on each window (with the shared extractor: the extractor once over the
+    clip, the rest per full window). ``families``: {role:
+    ``models.Family``}."""
     from perfbench.reference import pipeline as P
 
-    w2v_items = tuple((k, v) for k, v in sorted(w2v.items()))
-    unit = unit_work(tuple(sorted(serving.items())), w2v_items, tuple(hw))
+    unit = unit_work(tuple(sorted(serving.items())), tuple(families.items()), tuple(hw))
     present = np.ones(n_frames, bool)
     step = P.dynamic_step(fps)
     counts = {"frame": -(-n_frames // serving["det_stride"]),
@@ -197,7 +205,7 @@ def clip_work(serving: dict, hw: tuple, n_frames: int, fps: float, n_samples: in
               "lstm": len(P.temporal_plan(present, step)[0])}
     spans = P.audio_windows(n_samples)
     full = sum(e - s >= 64000 for s, e in spans)
-    parts = [extractor_work(n_samples + 64001, serving["quant"], w2v_items)] if (
+    parts = [extractor_work(n_samples + 64001, serving["quant"], families["audio"])] if (
         serving["shared_extractor"] and full) else []
     if serving["shared_extractor"]:
         counts["window_after_features"] = full
