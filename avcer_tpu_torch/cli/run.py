@@ -31,8 +31,11 @@ the card's idle time in each span of the serving thread), its counters and
 launches, and the process's set-up spans (``utils.trace``). The JAX CLI's
 other flags are served as there: ``--audio_head v1|v2|v3``
 (default v3 with ``--audio_classes 8``, v2 with 7; the 7-class audio CSV
-goes to ``audio_<padding>_<step>/``), ``--save_face_crops`` (the host-crop
-path, detect stride 1 only: every tracklet's crops as jpgs under
+goes to ``audio_<padding>_<step>/``), the port's own ``--audio_encoder
+wav2vec2-large-robust-12|wavlm-large`` beside it (WavLM-Large,
+``models.wavlm``, under the head in wav2vec2's place; default wav2vec2, the
+JAX package's; no quantised profile serves WavLM), ``--save_face_crops``
+(the host-crop path, detect stride 1 only: every tracklet's crops as jpgs under
 ``<save>/<clip>/``) and ``--heatmaps static|dynamic`` (Grad-CAM overlays of
 the step frames under ``<save>/<clip>/heatmaps_<mode>/``). Release
 checkpoints in ``--weights_dir`` are loaded (``core.checkpoint``), and the
@@ -70,6 +73,8 @@ PROFILES = ("parity", "balanced", "int8", "int8_s2", "int8_448", "int8_448_s2", 
 
 
 def parse_args(argv=None) -> argparse.Namespace:
+    from avcer_tpu_torch.models.audio_heads import ENCODERS
+
     p = argparse.ArgumentParser(description="avcer-tpu PyTorch/CUDA run")
     p.add_argument("--path_video", type=str, default="video/")
     p.add_argument("--path_save", type=str, default="report/")
@@ -109,6 +114,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--audio_classes", type=int, choices=[7, 8], default=8)
     p.add_argument("--audio_head", choices=["v1", "v2", "v3"], default=None,
                    help="default: v3 for 8 classes, v2 for 7 (the reference's pairing)")
+    p.add_argument("--audio_encoder", choices=list(ENCODERS), default=AudioConfig.encoder,
+                   help="the encoder under the audio head: wav2vec2-large-robust-12 (default) "
+                        "or wavlm-large (no int8 profile serves it)")
     p.add_argument("--profile_dir", type=str, default="",
                    help="write a torch.profiler Chrome trace of the run here, and spans.json")
     p.add_argument("--calibrate", action="store_true",
@@ -149,7 +157,7 @@ def profiled(path: str, device="cuda"):
 
 def config_from_args(a: argparse.Namespace) -> PipelineConfig:
     """The JAX package's ``pipeline_config_from_args`` mapping, field for
-    field."""
+    field, and the port's ``--audio_encoder``."""
     profile = a.serving_profile
     quant = "none" if profile in ("parity", "balanced") else "int8"
     mobilenet = profile in ("fast", "turbo", "max")
@@ -174,7 +182,8 @@ def config_from_args(a: argparse.Namespace) -> PipelineConfig:
         # windows unless --exact_audio
         audio=AudioConfig(padding=a.audio_padding, step_sec=a.audio_step, quant=quant,
                           shared_extractor=quant == "int8" and not a.exact_audio,
-                          head=a.audio_head, num_classes=a.audio_classes),
+                          head=a.audio_head, num_classes=a.audio_classes,
+                          encoder=a.audio_encoder),
         fusion=FusionConfig(use_published_weights=not a.no_published_weights,
                             ce_weights_type=a.ce_weights_type, ce_mask=not a.no_ce_mask),
         mesh=MeshConfig(data=a.data_parallel),

@@ -2,7 +2,9 @@
 dataclasses in avcer_tpu/core/config.py, field for field with the same
 defaults (tests/test_torch_ops.py pins them), so that one side's values can
 be handed to the other, the training configs ``OptimConfig`` and
-``TrainConfig`` included. The JAX package's ``pipeline_config_from_args`` is
+``TrainConfig`` included. The port's own fields (``AudioConfig.encoder``)
+come after the copied ones, and their defaults are what the JAX package
+serves. The JAX package's ``pipeline_config_from_args`` is
 not copied: the port's CLI builds its config itself
 (``avcer_tpu_torch.cli.run``). ``MeshConfig`` sets the device mesh of
 serving (``data``, ``pipeline.builder``) and of training (``data``, ``model``
@@ -161,6 +163,10 @@ class AudioConfig:
     #: normalization happens once per wav instead of per window
     #: (audio_stage._shared_features_impl); drift-gated in tests.
     shared_extractor: bool = False
+    #: The audio encoder under the ExprModel head, a name of
+    #: ``models.audio_heads.ENCODERS`` (the port's own field, not in the JAX
+    #: package: its default is the JAX package's wav2vec2).
+    encoder: str = "wav2vec2-large-robust-12"
 
 
 @dataclass(frozen=True)

@@ -1,4 +1,5 @@
-// Unmasked multi-head self-attention for the wav2vec2 encoder layers: two
+// Multi-head self-attention for the audio encoders' layers: unmasked for
+// wav2vec2, with WavLM's gated relative position bias on the tensor cores;
 // hand-written kernels behind one wrapper (ops/cuda/attention_kernel.py).
 //
 // Replaces the TPU kernel avcer_tpu/ops/pallas/attention_kernel.py
@@ -83,6 +84,17 @@
 //
 // Nothing but Q, K, V and the output touches device memory, as in the TPU
 // kernel.
+//
+// mha_tc_bias_kernel (the same body with a relative position bias, WavLM's
+// gated bias): the f32 logits, after the division by sqrt(d), gain
+// gate[bh, i] * table[h, buckets[j - i + T - 1]] (h = bh % heads). The block
+// first writes its head's bias of every relative position j - i into shared
+// memory (2 * 16 KT f32, from the [heads, nb] table and the [2T - 1] bucket
+// map; zero past |j - i| >= T), each thread reads its two rows' gates into
+// registers, and each logit adds one product of a register and a shared word:
+// the [B, H, T, T] bias is never formed. At T = 199 this reads 0.2 MB of
+// gates beside the 26 MB of Q, K, V and O. The unbiased kernel is the same
+// body with the bias compiled out.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -305,13 +317,25 @@ __host__ __device__ constexpr int min_t(int kt_bucket) {
   return kt_bucket <= 4 ? 1 : kt_bucket <= 8 ? 65 : kt_bucket <= 13 ? 129 : 209;
 }
 
+// WavLM's relative position bias: the [heads, nb] f32 table, the [2T - 1]
+// int32 bucket of each relative position j - i (at j - i + T - 1) and the
+// [bh, T] f32 gate of each query row.
+struct RelBias {
+  const float* table;
+  const int* buckets;
+  const float* gate;
+  int heads;
+  int nb;
+};
+
 // The head padded to KT 16-row tiles and DK 16-column parts (see the note
-// at the top).
-template <int KT, int DK>
-__global__ void __launch_bounds__(kTcThreads, (KT <= 13 && DK <= 4) ? 2 : 1)
-    mha_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int t,
-                  int d) {
+// at the top); with BIAS the relative position bias joins the logits.
+template <int KT, int DK, bool BIAS>
+__device__ __forceinline__ void mha_tc_body(const __nv_bfloat16* __restrict__ q,
+                                            const __nv_bfloat16* __restrict__ k,
+                                            const __nv_bfloat16* __restrict__ v,
+                                            __nv_bfloat16* __restrict__ o, int t, int d,
+                                            const RelBias& bias) {
   constexpr int kRows = KT * 16;
   constexpr int kLd = DK * 16 + kPad;  // shared row length in elements
   constexpr int kPieces = DK * 2;  // 16-byte pieces of a shared row
@@ -352,6 +376,16 @@ __global__ void __launch_bounds__(kTcThreads, (KT <= 13 && DK <= 4) ? 2 : 1)
   load_rows(vs, v, 0, kRows);
   load_rows(qs, q, kQFirst, kRows - kQFirst);
   cp_async_commit();
+  // the head's bias at relative position j - i in relb[j - i + kRows - 1];
+  // the first round's barrier publishes it
+  [[maybe_unused]] float* relb = reinterpret_cast<float*>(vs + kRows * kLd);
+  if constexpr (BIAS) {
+    const float* tab = bias.table + static_cast<size_t>(blockIdx.x % bias.heads) * bias.nb;
+    for (int i = tid; i < 2 * kRows; i += kTcThreads) {
+      const int rel = i - (kRows - 1);
+      relb[i] = (rel > -t && rel < t) ? tab[bias.buckets[rel + t - 1]] : 0.0f;
+    }
+  }
 
   const int g = lane / 4;
   const int tig = lane % 4;
@@ -416,6 +450,24 @@ __global__ void __launch_bounds__(kTcThreads, (KT <= 13 && DK <= 4) ? 2 : 1)
         for (int j = 0; j < 2 * KT; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[j][e] /= sqrt_d;
+      }
+      if constexpr (BIAS) {
+        // rows r and r + 8; key 8 j + 2 tig + c reads relb at
+        // 8 j + 2 tig + c - row + kRows - 1 (key columns at T and beyond are
+        // masked below)
+        const int r = tile * 16 + g;
+        const float* gate = bias.gate + static_cast<size_t>(blockIdx.x) * t;
+        const float g0 = r < t ? gate[r] : 0.0f;
+        const float g1 = r + 8 < t ? gate[r + 8] : 0.0f;
+        const float* b0 = relb + (kRows - 1) - r + tig * 2;
+        const float* b1 = b0 - 8;
+#pragma unroll
+        for (int j = 0; j < 2 * KT; ++j) {
+          s[j][0] += g0 * b0[j * 8];
+          s[j][1] += g0 * b0[j * 8 + 1];
+          s[j][2] += g1 * b1[j * 8];
+          s[j][3] += g1 * b1[j * 8 + 1];
+        }
       }
       float m0 = -INFINITY, m1 = -INFINITY;
 #pragma unroll
@@ -497,27 +549,63 @@ __global__ void __launch_bounds__(kTcThreads, (KT <= 13 && DK <= 4) ? 2 : 1)
 }
 
 template <int KT, int DK>
+__global__ void __launch_bounds__(kTcThreads, (KT <= 13 && DK <= 4) ? 2 : 1)
+    mha_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int t,
+                  int d) {
+  mha_tc_body<KT, DK, false>(q, k, v, o, t, d, RelBias{});
+}
+
+template <int KT, int DK>
+__global__ void __launch_bounds__(kTcThreads, (KT <= 13 && DK <= 4) ? 2 : 1)
+    mha_tc_bias_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int t,
+                       int d, RelBias bias) {
+  mha_tc_body<KT, DK, true>(q, k, v, o, t, d, bias);
+}
+
+template <int KT, int DK, bool BIAS>
 int launch_tc_bucket(const void* q, const void* k, const void* v, void* o, int bh, int t, int d,
-                     cudaStream_t stream) {
-  // Q, K and V of one head at the padded sizes
-  const size_t smem = static_cast<size_t>(3 * KT * 16) * (DK * 16 + kPad) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(mha_tc_kernel<KT, DK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mha_tc_kernel<KT, DK><<<bh, kTcThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), t, d);
+                     const RelBias& bias, cudaStream_t stream) {
+  // Q, K and V of one head at the padded sizes; with the bias its 2 * 16 KT
+  // relative positions in f32
+  const size_t smem = static_cast<size_t>(3 * KT * 16) * (DK * 16 + kPad) * sizeof(__nv_bfloat16) +
+                      (BIAS ? static_cast<size_t>(2 * KT * 16) * sizeof(float) : 0);
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(k);
+  const auto* vb = static_cast<const __nv_bfloat16*>(v);
+  auto* ob = static_cast<__nv_bfloat16*>(o);
+  cudaError_t err;
+  if constexpr (BIAS) {
+    err = cudaFuncSetAttribute(mha_tc_bias_kernel<KT, DK>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    mha_tc_bias_kernel<KT, DK><<<bh, kTcThreads, smem, stream>>>(qb, kb, vb, ob, t, d, bias);
+  } else {
+    err = cudaFuncSetAttribute(mha_tc_kernel<KT, DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    mha_tc_kernel<KT, DK><<<bh, kTcThreads, smem, stream>>>(qb, kb, vb, ob, t, d);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int KT>
+template <int KT, bool BIAS>
 int launch_tc_d(const void* q, const void* k, const void* v, void* o, int bh, int t, int d,
-                cudaStream_t stream) {
-  if (d <= 16) return launch_tc_bucket<KT, 1>(q, k, v, o, bh, t, d, stream);
-  if (d <= 32) return launch_tc_bucket<KT, 2>(q, k, v, o, bh, t, d, stream);
-  if (d <= 64) return launch_tc_bucket<KT, 4>(q, k, v, o, bh, t, d, stream);
-  return launch_tc_bucket<KT, 8>(q, k, v, o, bh, t, d, stream);
+                const RelBias& bias, cudaStream_t stream) {
+  if (d <= 16) return launch_tc_bucket<KT, 1, BIAS>(q, k, v, o, bh, t, d, bias, stream);
+  if (d <= 32) return launch_tc_bucket<KT, 2, BIAS>(q, k, v, o, bh, t, d, bias, stream);
+  if (d <= 64) return launch_tc_bucket<KT, 4, BIAS>(q, k, v, o, bh, t, d, bias, stream);
+  return launch_tc_bucket<KT, 8, BIAS>(q, k, v, o, bh, t, d, bias, stream);
+}
+
+template <bool BIAS>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int bh, int t, int d,
+              const RelBias& bias, cudaStream_t s) {
+  if (t < min_t(8)) return launch_tc_d<4, BIAS>(q, k, v, o, bh, t, d, bias, s);
+  if (t < min_t(13)) return launch_tc_d<8, BIAS>(q, k, v, o, bh, t, d, bias, s);
+  if (t < min_t(16)) return launch_tc_d<13, BIAS>(q, k, v, o, bh, t, d, bias, s);
+  return launch_tc_d<16, BIAS>(q, k, v, o, bh, t, d, bias, s);
 }
 
 }  // namespace
@@ -544,9 +632,19 @@ extern "C" int avcer_mha_tc(const void* q, const void* k, const void* v, void* o
   if (bh <= 0 || t <= 0) return 0;
   if (t > kTcMaxT || d <= 0 || d > kMaxD || d % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (t < min_t(8)) return launch_tc_d<4>(q, k, v, o, bh, t, d, s);
-  if (t < min_t(13)) return launch_tc_d<8>(q, k, v, o, bh, t, d, s);
-  if (t < min_t(16)) return launch_tc_d<13>(q, k, v, o, bh, t, d, s);
-  return launch_tc_d<16>(q, k, v, o, bh, t, d, s);
+  return launch_tc<false>(q, k, v, o, bh, t, d, RelBias{}, static_cast<cudaStream_t>(stream));
+}
+
+// As avcer_mha_tc, with the relative position bias: table [heads, nb] f32,
+// buckets [2t - 1] int32 in [0, nb), gate [bh, t] f32, bh a multiple of
+// heads. Launches mha_tc_bias_kernel.
+extern "C" int avcer_mha_tc_bias(const void* q, const void* k, const void* v, void* o, int bh,
+                                 int t, int d, const float* table, const int* buckets,
+                                 const float* gate, int heads, int nb, void* stream) {
+  if (bh <= 0 || t <= 0) return 0;
+  if (t > kTcMaxT || d <= 0 || d > kMaxD || d % 16 != 0 || heads <= 0 || bh % heads != 0 ||
+      nb <= 0 || table == nullptr || buckets == nullptr || gate == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tc<true>(q, k, v, o, bh, t, d, RelBias{table, buckets, gate, heads, nb},
+                         static_cast<cudaStream_t>(stream));
 }

@@ -9,6 +9,9 @@
 - time downsample: Conv1d k5 s3 d2 -> BN -> MaxPool1d(5) -> ReLU -> Conv1d k3
   -> BN -> mean over time -> ReLU.
 
+The encoder is wav2vec2 (``Wav2Vec2Config``) or WavLM (``WavLMConfig``,
+``models.wavlm``), held under the attribute ``wav2vec2`` either way.
+
 Parameter names follow ``TwinExprModel`` (``gru`` is the reference's
 ``nn.GRU``; ``time_downsample`` keeps the reference Sequential's indices 0, 1,
 4, 5), so release files load strictly. The GRU is the JAX package's
@@ -30,6 +33,10 @@ import torch.nn.functional as F
 from avcer_tpu_torch.models.attention import TransformerLayer
 from avcer_tpu_torch.models.layers import BatchNorm
 from avcer_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
+from avcer_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
+
+#: the encoder configuration of each name ``AudioConfig.encoder`` takes
+ENCODERS = {"wav2vec2-large-robust-12": Wav2Vec2Config, "wavlm-large": WavLMConfig}
 
 
 class _MaxPool(nn.Module):
@@ -49,7 +56,9 @@ class ExprModel(nn.Module):
                  wav2vec2_config: Wav2Vec2Config | None = None):
         super().__init__()
         self.variant = variant
-        self.wav2vec2 = Wav2Vec2Model(wav2vec2_config)
+        # the encoder attribute keeps its name whichever family it holds
+        self.wav2vec2 = (WavLMModel(wav2vec2_config) if isinstance(wav2vec2_config, WavLMConfig)
+                         else Wav2Vec2Model(wav2vec2_config))
         hidden = self.wav2vec2.config.hidden_size
         if variant == "v1":
             self.gru = nn.GRU(hidden, 256, num_layers=2, batch_first=True)

@@ -4,6 +4,10 @@ wav upload, through wav2vec2 + the ExprModel head (``AudioConfig.head`` V1,
 V2 or V3, with ``num_classes`` 7 or 8) in batches of
 ``AudioConfig.batch_size``; one logits fetch per clip.
 
+The encoder is the one ``AudioConfig.encoder`` names (wav2vec2 or WavLM,
+held as ``model.wav2vec2`` either way); its forward in ``forward_windows``
+is the span ``audio.encode`` (``utils.trace``).
+
 Windows map to frames (and overlaps average per frame) through index arrays
 that ``fusion.compound.align_audio_to_frames`` consumes.
 
@@ -29,7 +33,9 @@ import torch
 
 from avcer_tpu_torch.core.config import AudioConfig
 from avcer_tpu_torch.models import layers
+from avcer_tpu_torch.models.audio_heads import ENCODERS
 from avcer_tpu_torch.ops import audio as audio_ops
+from avcer_tpu_torch.utils import trace
 
 
 @dataclass
@@ -60,6 +66,8 @@ class AudioStage:
         if cfg.quant not in ("none", "int8") or (cfg.quant == "int8") != bool(
                 model.wav2vec2.config.quant):
             raise ValueError(f"quant={cfg.quant!r} does not fit the model it was given")
+        #: the ``ENCODERS`` name of the model's encoder
+        self.encoder = {c: n for n, c in ENCODERS.items()}[type(model.wav2vec2.config)]
         self.cfg = cfg
         self.model = model
         self.device = torch.device(device)
@@ -120,7 +128,19 @@ class AudioStage:
         stride_total = int(np.prod(c.conv_stride))
         f_idx = starts[:, None] // stride_total + torch.arange(fpw, device=feats.device)[None, :]
         f_idx = f_idx.clamp(0, feats.shape[0] - 1)
-        return self.model(feats[f_idx], w2v_mode="from_features")
+        return self.encode_and_head(feats[f_idx], "from_features")
+
+    def encode_and_head(self, x: torch.Tensor, mode: str = "full") -> torch.Tensor:
+        """``model(x, w2v_mode=mode)``, the encoder's forward inside the span
+        ``audio.encode`` (``encoder``, ``layers``, ``windows``, ``frames``: a
+        window's)."""
+        enc = self.model.wav2vec2
+        with trace.span("audio.encode") as sp:
+            if sp:
+                sp.note(encoder=self.encoder, layers=len(enc.encoder.layers),
+                        windows=x.shape[0], frames=enc.config.num_output_frames(self.window))
+            h = enc(x, mode=mode)
+        return self.model.head(h)
 
     def forward_windows(self, wav_dev: torch.Tensor, wav_len: int, starts: torch.Tensor,
                         feats: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -132,7 +152,7 @@ class AudioStage:
             return self.from_features(feats, starts).float()
         windows = audio_ops.extract_windows(wav_dev, wav_len, starts, self.window,
                                             self.cfg.padding)
-        return self.model(audio_ops.feature_extractor_normalize(windows)).float()
+        return self.encode_and_head(audio_ops.feature_extractor_normalize(windows)).float()
 
     @torch.inference_mode()
     def run_from_wav(self, wav: np.ndarray, fps: float) -> tuple[np.ndarray, AudioWindows]:

@@ -7,8 +7,10 @@ warning, as the JAX package does. Every load is strict: a key left unknown
 or missing raises.
 
 The audio family is ``expr_model_8cl`` or ``expr_model_7cl`` by the class
-count, built as ``AudioConfig.head`` says; the detector's is named after its
-backbone.
+count, built as ``AudioConfig.head`` says over the encoder ``AudioConfig.encoder``
+names (``models.audio_heads.ENCODERS``: wav2vec2 or WavLM, whose release
+checkpoint is not served: with no release file it is seeded, as every
+family); the detector's is named after its backbone.
 
 With ``quant == "int8"`` in a stage's config its model is built in the int8
 variant over the same state dict; the stage then seeds the activation scales
@@ -42,9 +44,9 @@ from typing import Any, Mapping, Optional
 
 import torch
 
-from avcer_tpu_torch.core.config import PipelineConfig
+from avcer_tpu_torch.core.config import AudioConfig, PipelineConfig
 from avcer_tpu_torch.core import checkpoint, convert
-from avcer_tpu_torch.models.audio_heads import ExprModel
+from avcer_tpu_torch.models.audio_heads import ENCODERS, ExprModel
 from avcer_tpu_torch.models.emotion_resnet import EmotionResNet50
 from avcer_tpu_torch.models.layers import cast_compute, load_act_scales, seeded_init_
 from avcer_tpu_torch.models.retinaface import RetinaFace
@@ -71,6 +73,10 @@ def build_pipeline(
     mesh_devices: Optional[list] = None,
 ) -> Pipeline:
     """Build the detect, visual and audio stages on ``device``.
+
+    ``wav2vec2_config``: the audio encoder's configuration (a
+    ``Wav2Vec2Config`` or ``models.wavlm.WavLMConfig``, as tests shrink it);
+    by default the one ``cfg.audio.encoder`` names, at its published widths.
 
     ``jax_variables``: optional ``{family: numpy variable tree}`` for the
     families "retinaface" (either backbone's tree, as ``cfg.detector.backbone``
@@ -103,7 +109,8 @@ def _build_pipeline(cfg: PipelineConfig, wav2vec2_config: Optional[Wav2Vec2Confi
                 cfg.detector, fused_layer1=False, fused_tails=False, fused_entries=False,
                 fused_ssh=False, fused_fpn=False),
             visual=dataclasses.replace(cfg.visual, fused=False, fused_entries=False))
-    w2v2 = wav2vec2_config or Wav2Vec2Config()
+    # the JAX package's AudioConfig, which tests hand in, names no encoder
+    w2v2 = wav2vec2_config or ENCODERS[getattr(cfg.audio, "encoder", AudioConfig.encoder)]()
     if cfg.audio.quant == "int8":
         w2v2 = dataclasses.replace(w2v2, quant=True)
     models = {

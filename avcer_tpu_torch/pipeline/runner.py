@@ -33,9 +33,10 @@ import numpy as np
 import torch
 
 from avcer_tpu_torch.core import registry
-from avcer_tpu_torch.core.config import PipelineConfig
+from avcer_tpu_torch.core.config import AudioConfig, PipelineConfig
 from avcer_tpu_torch.pipeline.tracker import IoUTracker
 from avcer_tpu_torch.fusion import compound as compound_mod
+from avcer_tpu_torch.models.audio_heads import ENCODERS
 from avcer_tpu_torch.ops import image as image_ops
 from avcer_tpu_torch.pipeline import media
 from avcer_tpu_torch.pipeline.audio_stage import AudioStage, AudioWindows
@@ -74,11 +75,17 @@ class ClipResult:
 def check_supported(cfg: PipelineConfig) -> None:
     """Raise for configuration that does not exist. Nothing is quietly
     ignored."""
+    encoder = getattr(cfg.audio, "encoder", AudioConfig.encoder)  # none in the JAX package's
     unsupported = {
         f"heatmaps={cfg.heatmaps!r} (only '', 'static' and 'dynamic' exist)":
             cfg.heatmaps not in ("", "static", "dynamic"),
         f"visual.quant={cfg.visual.quant!r} (only 'none' and 'int8' exist)":
             cfg.visual.quant not in ("none", "int8"),
+        f"audio.encoder={encoder!r} (only {', '.join(ENCODERS)} exist)":
+            encoder not in ENCODERS,
+        "audio.encoder='wavlm-large' with audio.quant='int8' (WavLM is served in bf16 or f32: "
+        "take an unquantised profile, parity or balanced)":
+            encoder == "wavlm-large" and cfg.audio.quant == "int8",
     }
     bad = [name for name, hit in unsupported.items() if hit]
     if bad:

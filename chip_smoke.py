@@ -18,7 +18,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    mobilenet0.25 detector for ``fast``, ``turbo`` and ``max``);
 4. kernels: each kernel against its plain PyTorch version at the first main
    paths' shapes (NMS keep masks equal; attention (the tensor-core kernel in
-   bf16, the exact kernel in f32), fused_chain and
+   bf16, the exact kernel in f32, and the tensor-core kernel's bias mode with
+   WavLM-Large's 320 buckets, timed beside the unbiased kernel and beside
+   scaled_dot_product_attention with the bias built as a mask), fused_chain and
    fused_ssh_heads, exact and in their int8 modes, the latter also at the
    mobilenet detector's 64 channels with leaky ReLU 0.1, and fused_chain_flat
    within the stated tolerances, f32 and bf16), with median times over 50
@@ -56,7 +58,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    the scales, which then stay frozen), then three timed runs (int8
    unfused: one), each with its
    outputs and the launch counts of the kernels checked (every attention
-   launch in the tensor-core kernel); the fused runs' compound decisions
+   launch in the tensor-core kernel); the fused path once more with
+   WavLM-Large under the audio head (``--fused --audio_encoder wavlm-large``:
+   24 K2 launches an audio batch, a warm-up, three timed runs and a profiled
+   run in which every K2 launch is ``mha_tc_bias_kernel``, with its device
+   time; ``--phase wavlm`` runs phases 1, 2, this path and the bias mode's
+   kernels entry alone); the fused runs' compound decisions
    against the unfused runs'; one more run of the unfused exact path and of
    the int8 fused path under the CLI's ``--profile_dir`` helper, for the
    device's busy and idle share of the wall (every NMS kernel in its trace
@@ -185,6 +192,8 @@ from avcer_tpu_torch.core.config import (AudioConfig, DetectorConfig,  # noqa: E
 from avcer_tpu_torch.models import layers  # noqa: E402
 from avcer_tpu_torch.models import retinaface as retinaface_module  # noqa: E402
 from avcer_tpu_torch.models import wav2vec2 as wav2vec2_module  # noqa: E402
+from avcer_tpu_torch.models import wavlm as wavlm_module  # noqa: E402
+from avcer_tpu_torch.models.audio_heads import ENCODERS  # noqa: E402
 from avcer_tpu_torch.models.retinaface import (RetinaFace, fold_pairs, nhwc,  # noqa: E402
                                                upsample_nearest_to)
 from avcer_tpu_torch.ops.cuda import (attention_kernel, fused_resnet_kernel,  # noqa: E402
@@ -218,7 +227,7 @@ WRAPPERS = {"nms_mask": nms_kernel.nms_mask, "mha": attention_kernel.mha,
 #: wrapper's plain version (no model calls fused_chain_flat)
 PATH_SITES = {"nms_mask": ((detect_module, detect_s3fd_module), nms_kernel.nms_mask_plain),
               "i420_to_bgr": ((detect_module,), image_kernel.i420_to_bgr_plain),
-              "mha": ((wav2vec2_module,), attention_kernel.mha_plain),
+              "mha": ((wav2vec2_module, wavlm_module), attention_kernel.mha_plain),
               "fused_chain": ((retinaface_module,), fused_resnet_kernel.fused_chain_plain),
               "fused_ssh_heads": ((retinaface_module,), fused_ssh_kernel.fused_ssh_heads_plain)}
 #: each main path's launches in its last timed run, by the path's label
@@ -456,6 +465,70 @@ def kernels_nms_attention(card: str) -> list[dict]:
     ]
 
 
+def kernels_mha_bias(card: str) -> dict:
+    """K2's bias mode (``mha_tc_bias_kernel``, WavLM-Large's gated relative
+    position bias) at the WavLM audio batch ``ATTN_SHAPE`` in bf16 with the
+    published 320 buckets over 800 frames: held against the plain version
+    with the same bias within the unbiased kernel's tolerance, and timed
+    beside the unbiased kernel, the plain version and, as the library
+    yardstick, ``scaled_dot_product_attention`` with the bias materialised as
+    a [B, H, T, T] bf16 mask (built in each call, as a caller would). The
+    bound counts Q, K, V, O, the gate, the table and the bucket map, and the
+    bias's multiply-add a logit in f32 beside the products in bf16."""
+    mha, plain = attention_kernel.mha, attention_kernel.mha_plain
+    b, h, t, d = ATTN_SHAPE
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.normal(size=ATTN_SHAPE).astype(np.float32))
+               .to(DEVICE, torch.bfloat16) for _ in range(3))
+    table = torch.from_numpy(rng.normal(scale=0.25, size=(h, 320)).astype(np.float32)).to(DEVICE)
+    gate = torch.from_numpy(rng.uniform(1, 3, size=(b * h, t)).astype(np.float32)).to(DEVICE)
+    bias = (table, wavlm_module.relative_buckets(t, 320, 800).to(DEVICE), gate)
+    ran = mha_kernels_of(lambda: mha(q, k, v, bias=bias))
+    got = mha(q, k, v, bias=bias).float()
+    want = plain(q.float(), k.float(), v.float(), bias)
+    err = float((got - want).abs().max())
+    moved = float((want - plain(q.float(), k.float(), v.float())).abs().max())
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=4e-3)
+    if ran != {"tc": 1}:
+        raise AssertionError(f"mha routed the bias to {ran}")
+    kernels = device_kernels(lambda: mha(q, k, v, bias=bias))
+    names = {e["name"] for e in kernels or ()}
+    if kernels is not None and not all("mha_tc_bias_kernel" in n for n in names):
+        raise AssertionError(f"mha with a bias ran {sorted(names)}")
+
+    def library():
+        mask = attention_kernel.relative_bias(bias, b, h, t).to(torch.bfloat16)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    lib_err = float((library().float() - want).abs().max())
+    # in turns: the bias mode, the unbiased kernel, the library call, plain
+    ms = median_ms(lambda: mha(q, k, v, bias=bias))
+    unbiased_ms = median_ms(lambda: mha(q, k, v))
+    lib_ms = median_ms(library)
+    plain_ms = median_ms(lambda: plain(q, k, v, bias))
+    dev = device_ms(lambda: mha(q, k, v, bias=bias))
+    unbiased_dev = device_ms(lambda: mha(q, k, v))
+    lib_dev = device_ms(library)
+    nbytes = 4 * tensor_bytes(q) + tensor_bytes(*bias)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (4.0 * b * h * t * t * d / PEAK_FLOPS["bf16"]
+             + 2.0 * b * h * t * t / PEAK_FLOPS["f32"]) * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    log(f"kernel mha_tc_bias {list(ATTN_SHAPE)} bf16, 320 buckets (tensor cores, bias from "
+        f"shared memory): max abs err {err:.3g} vs f32 plain with the bias (atol 1e-5, rtol "
+        f"4e-3; the bias moves the output by {moved:.3g}); {ms:.4f} ms vs unbiased "
+        f"{unbiased_ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention with a "
+        f"bf16 [B, H, T, T] mask built a call {lib_ms:.4f} ms (max abs err {lib_err:.3g}) (a "
+        f"call, median of 50); device time {ms_text(dev)} vs unbiased {ms_text(unbiased_dev)}, "
+        f"the library's mask and kernels {ms_text(lib_dev)} (profiler, 20 calls); bound "
+        f"{bound:.4f} ms ({by}) on {card}")
+    return entry("mha_tc_bias", "attention.cu", "none (WavLM's gated relative position bias)",
+                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                 library_ms=lib_ms, shape=list(ATTN_SHAPE), dtype="bf16", device_ms=dev,
+                 unbiased_device_ms=unbiased_dev, library_device_ms=lib_dev,
+                 bias_moves_output=moved)
+
+
 def nms_numbers(boxes: torch.Tensor, valid: torch.Tensor, keep: torch.Tensor,
                 thresh: float = 0.4, plus_one: bool = True) -> dict:
     """K1 at one shape and mode: a call and its device time, the plain
@@ -571,15 +644,16 @@ def hold_on_path(name: str, args: tuple, kw: dict):
     entry_name = name + ("_c64" if name == "fused_ssh_heads" and args[1][0].shape[2] == 64
                          else "") + ("_int8" if quant else "")
     if name == "mha":
-        entry_name += "_" + attention_kernel.kernel_for(args[0].dtype, *args[0].shape[2:])
+        entry_name += "_" + attention_kernel.kernel_for(args[0].dtype, *args[0].shape[2:]) + (
+            "_bias" if kw.get("bias") is not None else "")
     got = wrapper(*args, **kw) if out is None else wrapper(*args, **kw, out=out)
     if name in EXACT:
         err, tol = float((got != plain(*args, **kw)).sum()), None
         ok = err == 0
     else:
         with torch.autocast("cuda", enabled=False):  # a training path runs under autocast
-            if name == "mha":
-                want, tol = plain(*(a.float() for a in args)), dict(atol=1e-5, rtol=4e-3)
+            if name == "mha":  # WavLM's bias, f32 and int32, as it is
+                want, tol = plain(*(a.float() for a in args), **kw), dict(atol=1e-5, rtol=4e-3)
             else:
                 want, tol = plain(*args, **kw), INT8_TOL if quant else BF16_TOL
         pairs = [(g.float(), w.float()) for g, w in zip(
@@ -1162,6 +1236,27 @@ def smoke_config(dtype: str, fused: bool = False, int8: bool = False,
         weights_dir=os.path.join(ROOT, "build", "smoke_no_weights"),
         save_plot=False,
     )
+
+
+def wavlm_config() -> PipelineConfig:
+    """``smoke_config("bfloat16", fused=True)`` with WavLM-Large under the
+    audio head (``cli.run --fused --audio_encoder wavlm-large``)."""
+    cfg = smoke_config("bfloat16", True)
+    return dataclasses.replace(cfg, audio=dataclasses.replace(cfg.audio, encoder="wavlm-large"))
+
+
+def phase_wavlm(card: str, frames: np.ndarray, wav: np.ndarray, entry_: dict) -> None:
+    """The fused main path with WavLM-Large (``wavlm_config``): warm-up (each
+    new K2 call, the biased ones too, held against the plain version), three
+    timed runs with 24 K2 launches an audio batch, and a profiled run whose
+    K2 launches must all be biased (``profiled_run``). Sets ``entry_``'s
+    (the ``mha_tc_bias`` kernels entry's) launches to a timed run's."""
+    pipe = build(card, True, cfg=wavlm_config(), label="wavlm-large --fused")
+    _, launches = phase_main(card, pipe, True, frames, wav, label="wavlm-large fused main path",
+                             profile=True)
+    entry_["launches"] = launches["mha"]
+    del pipe
+    torch.cuda.empty_cache()
 
 
 def preset_config(profile: str, fused: bool = False) -> PipelineConfig:
@@ -1799,17 +1894,29 @@ def profiled_run(card: str, pipe, frames: np.ndarray, wav: np.ndarray, label: st
     (``i420_to_bgr_kernel``) as often as a timed run launched it, with its
     device time; the run must pack no int8 weights. Every detect batch of
     the run must replay its piecewise graphs (captured in the warm-up run),
-    as the timed runs do: the clip's ``detect.graph_*`` counters. ``launches``:
-    a timed run's."""
+    as the timed runs do: the clip's ``detect.graph_*`` counters. With
+    WavLM-Large the launch counts are zeroed just before the run: every K2
+    launch of the run (as many as in a timed run, 24 an audio batch) must be
+    biased, by the clip's ``k2.calls`` and ``k2.bias_calls`` counters and by
+    the trace's kernels (``mha_tc_bias_kernel`` each, no unbiased
+    ``mha_tc_kernel``), with their device time. ``launches``: a timed run's."""
     nms_launches, chain_launches = launches["nms_mask"], launches["fused_chain"]
     path = os.path.join(ROOT, "build", "smoke_traces", label.replace(" ", "_").strip("-_"))
+    wavlm = pipe.cfg.audio.encoder == "wavlm-large"
     torch.cuda.synchronize()
     packs = fused_resnet_kernel.pack_chain_q.calls
+    if wavlm:
+        reset_counts()
     t0 = time.perf_counter()
     with cli.profiled(path, DEVICE):
         pipe.run(ArrayReader(frames, FPS, "smoke.avi"), "", wav=wav)
         torch.cuda.synchronize()
     run_wall = time.perf_counter() - t0
+    k2_counts = {k: n for k, n in trace.clips()[-1].counts.items() if k.startswith("k2.")}
+    if wavlm and (counts()["mha"], k2_counts) != (
+            launches["mha"], {"k2.calls": launches["mha"], "k2.bias_calls": launches["mha"]}):
+        raise AssertionError(f"{label}: K2 launches {counts()['mha']} and counters {k2_counts} "
+                             f"under the profiler, {launches['mha']} biased a timed run")
     if fused_resnet_kernel.pack_chain_q.calls != packs:
         raise AssertionError(f"{label}: the profiled run packed int8 weights again")
     routes = {k: n for k, n in trace.clips()[-1].counts.items() if k.startswith("detect.graph_")}
@@ -1875,6 +1982,19 @@ def profiled_run(card: str, pipe, frames: np.ndarray, wav: np.ndarray, label: st
     if len(i420) != launches["i420_to_bgr"]:
         raise AssertionError(f"{label}: {len(i420)} i420_to_bgr_kernel launches in the trace, "
                              f"{launches['i420_to_bgr']} in a timed run")
+    if wavlm:
+        k2 = {kind: [float(e["dur"]) * 1e-3 for e in events if e["cat"] == "kernel"
+                     and re.search(rf"\bmha_{kind}_kernel\b", e["name"])]
+              for kind in ("tc", "tc_bias")}
+        biased = sum(k2["tc_bias"])
+        log(f"{label} under the profiler: counters {k2_counts}; mha_tc_bias_kernel "
+            f"{len(k2['tc_bias'])} launches ({launches['mha']} a timed run), {biased:.3f} ms of "
+            f"device time ({biased / max(len(k2['tc_bias']), 1):.4f} ms each) = "
+            f"{biased * 1e-3 / busy:.2%} of the busy time; mha_tc_kernel {len(k2['tc'])}")
+        if (len(k2["tc_bias"]), len(k2["tc"])) != (launches["mha"], 0):
+            raise AssertionError(f"{label}: {len(k2['tc_bias'])} mha_tc_bias_kernel and "
+                                 f"{len(k2['tc'])} mha_tc_kernel launches in the trace, "
+                                 f"{launches['mha']} biased in a timed run")
 
 
 def check_main_path(clip, n: int, launches: dict[str, int], cfg: PipelineConfig, cnn_calls: int,
@@ -1885,8 +2005,9 @@ def check_main_path(clip, n: int, launches: dict[str, int], cfg: PipelineConfig,
     (with the mobilenet detector each with leaky 0.1, else with 0) and, in the
     r50 body, 5 fused_chain calls (layer1, layer2, three chunks of layer3); per
     emotion-CNN forward, fused, 7 fused_chain calls (1 + 2 + 2 + 2 over the
-    four layers); 12 attention calls per audio batch, each in the tensor-core
-    kernel. With the quantised
+    four layers); one attention call per encoder layer per audio batch (12
+    for wav2vec2, 24 for WavLM-Large), each in the tensor-core kernel. With
+    the quantised
     profiles' shared extractor the full 4 s windows and the tail windows are
     batched apart, so the audio batches are counted for each group. The CNN is
     asked for every frame's crop, or with ``cnn_stride`` 0 for the step
@@ -1903,6 +2024,7 @@ def check_main_path(clip, n: int, launches: dict[str, int], cfg: PipelineConfig,
     else:
         audio_batches = -(-windows // AUDIO_BATCH)
     want_i420 = detect_batches if det.transfer_format == "i420" else 0
+    layers = ENCODERS[cfg.audio.encoder]().num_layers
     body_chains = 5 * detect_batches if det.fused_layer1 and det.backbone == "resnet50" else 0
     want_chain = body_chains + (7 * cnn_calls if fused_cnn else 0)
     want_ssh = 3 * detect_batches if det.fused_ssh else 0
@@ -1928,8 +2050,8 @@ def check_main_path(clip, n: int, launches: dict[str, int], cfg: PipelineConfig,
             launches["nms_mask"] == detect_batches,
         f"i420_to_bgr launches == {want_i420} (the {det.transfer_format} wire)":
             launches["i420_to_bgr"] == want_i420,
-        f"attention launches == 12 x {audio_batches} audio batches":
-            launches["mha"] == 12 * audio_batches,
+        f"attention launches == {layers} x {audio_batches} audio batches":
+            launches["mha"] == layers * audio_batches,
         "every attention launch went to the tensor-core kernel":
             (launches["mha_tc"], launches["mha_exact"]) == (launches["mha"], 0),
         f"fused_chain launches == {want_chain} ({body_chains} in the detector's body + "
@@ -3528,11 +3650,33 @@ def phase_parallel(card: str, frames: np.ndarray, wav: np.ndarray, ref_clip,
     return by_path
 
 
+def held_entries(kernels: list[dict]) -> None:
+    """Each kernels entry's calls held on the main paths (``HELD``) and their
+    largest error; an entry launched on a path but held at none raises."""
+    for k in kernels:
+        name, shape = k.get("held_as", (k["name"], None))
+        errs = [err for key, (held, err) in HELD.items() if held == name
+                and (shape is None or list(key[1][0][0]) == list(shape))]
+        k["path_calls_held"] = len(errs)
+        k["path_max_abs_err"] = max(errs, default=None)
+        if k["launches"] and not errs:
+            raise AssertionError(f"{k['name']}: launched on a main path, held at none of its calls")
+    log(f"{len(HELD)} distinct kernel calls of the main paths held against their plain versions: "
+        + ", ".join(f"{k['name']} {k['path_calls_held']}" for k in kernels))
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
     if sys.argv[1:] == ["--phase", "training"]:
         phase_training(card)
+        return 0
+    if sys.argv[1:] == ["--phase", "wavlm"]:
+        frames, wav = make_clip()
+        bias_entry = kernels_mha_bias(card)
+        phase_wavlm(card, frames, wav, bias_entry)
+        held_entries([bias_entry])
+        print(json.dumps({"kernels": [bias_entry]}))
         return 0
     if sys.argv[1:] == ["--phase", "parallel"]:
         frames, wav = make_clip()
@@ -3548,8 +3692,9 @@ def main() -> int:
     pipe, fused_pipe = build(card, False), build(card, True)
     int8_pipe, int8_fused_pipe = build(card, False, True), build(card, True, True)
     frames, wav = make_clip()
-    kernels = (phase_kernels(card, fused_pipe, int8_fused_pipe) + [kernels_i420(card, frames)]
-               + parallel_kernel_entries(card))
+    bias_entry = kernels_mha_bias(card)
+    kernels = (phase_kernels(card, fused_pipe, int8_fused_pipe) + [bias_entry]
+               + [kernels_i420(card, frames)] + parallel_kernel_entries(card))
     mobilenet_kernels = phase_kernels_mobilenet(card)
     int8_modules(card)
     ref = phase_reference(pipe, fused_pipe, frames, wav)
@@ -3558,6 +3703,7 @@ def main() -> int:
     phase_plain_route(pipe, frames, wav, clip, "parity")
     phase_wire_formats(card, pipe, frames, wav, clip)
     fused_clip, launches = phase_main(card, fused_pipe, True, frames, wav)
+    phase_wavlm(card, frames, wav, bias_entry)
     # one timed run: int8 unfused is launch-bound and holds no kernel of its own
     int8_clip, _ = phase_main(card, int8_pipe, False, frames, wav, int8=True, timed_runs=1)
     int8_fused_clip, int8_launches = phase_main(card, int8_fused_pipe, True, frames, wav,
@@ -3633,16 +3779,7 @@ def main() -> int:
     i420 = next(k for k in kernels if k["name"] == "i420_to_bgr")
     i420["launches_by_path"] = {label: n["i420_to_bgr"] for label, n in PATH_LAUNCHES.items()}
     i420["device_ms_a_launch_by_profiled_path"] = I420_TRACED
-    for k in kernels + mobilenet_kernels:
-        name, shape = k.get("held_as", (k["name"], None))
-        errs = [err for key, (held, err) in HELD.items() if held == name
-                and (shape is None or list(key[1][0][0]) == list(shape))]
-        k["path_calls_held"] = len(errs)
-        k["path_max_abs_err"] = max(errs, default=None)
-        if k["launches"] and not errs:
-            raise AssertionError(f"{k['name']}: launched on a main path, held at none of its calls")
-    log(f"{len(HELD)} distinct kernel calls of the main paths held against their plain versions: "
-        + ", ".join(f"{k['name']} {k['path_calls_held']}" for k in kernels + mobilenet_kernels))
+    held_entries(kernels + mobilenet_kernels)
     print(json.dumps({"kernels": kernels + mobilenet_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1155,3 +1155,115 @@ def test_detect_graph_capture_failure_stays_eager(cuda_device, monkeypatch, capl
     assert graph_routes == {"eager": 6}
     assert sum("capturing the graphs" in r.getMessage() for r in caplog.records) == 1
     assert list(stage._graphs._state.values()) == ["failed"]
+
+
+def bias_case(b: int, h: int, t: int, seed: int = 4) -> tuple:
+    """A WavLM bias at [b, h, t]: the table drawn as the benchmark draws it
+    (sigma 0.25), the published bucket map, gates in WavLM's range (1, 3)."""
+    from avcer_tpu_torch.models.wavlm import relative_buckets
+
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.normal(scale=0.25, size=(h, 320)).astype(np.float32))
+    gate = torch.from_numpy(rng.uniform(1, 3, size=(b * h, t)).astype(np.float32))
+    return tuple(x.cuda() for x in (table, relative_buckets(t, 320, 800), gate))
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 199, 64), (2, 3, 1, 64), (2, 3, 17, 64),
+                                   (2, 3, 64, 64), (2, 3, 200, 64), (2, 3, 256, 64),
+                                   (2, 3, 199, 16), (2, 3, 199, 128)])
+def test_attention_kernel_bias_bf16(cuda_device, shape):
+    """K2's bias mode (``mha_tc_bias_kernel``) against the plain version with
+    the same bias, at the WavLM audio batch's shape and at the tensor-core
+    kernel's edges, within ``test_attention_kernel_bf16``'s bound; counted
+    as a tensor-core launch."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(cuda_device, torch.bfloat16) for _ in range(3))
+    bias = bias_case(shape[0], shape[1], shape[2])
+    before = dict(attention_kernel.mha.launches_by_kernel)
+    got = attention_kernel.mha(q, k, v, bias=bias)
+    torch.cuda.synchronize()
+    assert attention_kernel.mha.launches_by_kernel["tc"] == before["tc"] + 1
+    want = attention_kernel.mha_plain(q.float(), k.float(), v.float(), bias)
+    torch.testing.assert_close(got.float(), want, atol=1e-5, rtol=4e-3)
+    unbiased = attention_kernel.mha_plain(q.float(), k.float(), v.float())
+    assert shape[2] == 1 or (want - unbiased).abs().max() > 1e-2
+
+
+#: SHA-256 of the unbiased tensor-core kernel's output at [16, 16, 199, 64]
+#: bf16 from ``unbiased_digest``'s inputs, as the kernel gave it before the
+#: bias mode was added (NVIDIA H100 80GB HBM3)
+UNBIASED_DIGEST = "248ed7de25e34a2cee9f47d6b59f252d5404b1421ac6140cc40cdc5fa6f366c1"
+
+
+def unbiased_digest(device) -> str:
+    import hashlib
+
+    rng = np.random.default_rng(2024)
+    q, k, v = (torch.from_numpy(rng.normal(size=(16, 16, 199, 64)).astype(np.float32))
+               .to(device, torch.bfloat16) for _ in range(3))
+    out = attention_kernel.mha(q, k, v)
+    return hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+
+
+def test_attention_kernel_unbiased_bits_unchanged(cuda_device):
+    """Without a bias the tensor-core kernel gives the very bits it gave
+    before the bias mode was added."""
+    assert unbiased_digest(cuda_device) == UNBIASED_DIGEST
+
+
+def test_attention_kernel_refuses_a_bias_off_the_tensor_cores(cuda_device):
+    """A bias where the exact kernel would run (f32, T > 256, D not a
+    multiple of 16), or a bias of the wrong shape or type, raises: no route
+    falls back."""
+    for shape, dtype in (((2, 3, 64, 64), torch.float32), ((2, 3, 257, 64), torch.bfloat16),
+                         ((2, 3, 64, 24), torch.bfloat16)):
+        q = torch.zeros(shape, device=cuda_device, dtype=dtype)
+        with pytest.raises(ValueError, match="tensor-core"):
+            attention_kernel.mha(q, q, q, bias=bias_case(2, 3, shape[2]))
+    q = torch.zeros((2, 3, 64, 64), device=cuda_device, dtype=torch.bfloat16)
+    table, buckets, gate = bias_case(2, 3, 64)
+    for bad in ((table[:2], buckets, gate), (table, buckets[:-1], gate),
+                (table, buckets.long(), gate), (table, buckets, gate[:, :-1]),
+                (table, buckets, gate.bfloat16())):
+        with pytest.raises(ValueError, match="bias"):
+            attention_kernel.mha(q, q, q, bias=bad)
+
+
+def test_wavlm_layer_forms_no_bias_tensor(cuda_device):
+    """A WavLM-Large attention layer at the audio batch (16 windows of 199
+    frames, 16 heads, bf16) on the kernel route: one biased K2 launch, and
+    no allocation of the caching allocator as large as a [B H, T, T] bias in
+    bf16 (20.3 MB); the result within bf16 rounding of the same layer in f32
+    on the CPU."""
+    from avcer_tpu_torch.models.layers import cast_compute, seeded_init_
+    from avcer_tpu_torch.models.wavlm import WavLMAttention, WavLMConfig, relative_buckets
+
+    c = WavLMConfig()
+    layer = WavLMAttention(c, True).eval().requires_grad_(False)
+    seeded_init_(layer, torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        layer.rel_attn_embed.weight.normal_(0, 0.25)
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(16, 199, 1024))
+                         .astype(np.float32))
+    table = layer.rel_attn_embed.weight.t().contiguous()
+    buckets = relative_buckets(199, c.num_buckets, c.max_bucket_distance)
+    with torch.no_grad():
+        want = layer(x, table, buckets)
+    card = cast_compute(layer, torch.bfloat16).to(cuda_device)
+    args = (x.to(cuda_device, torch.bfloat16), table.to(cuda_device), buckets.to(cuda_device))
+    torch.cuda.synchronize()
+    before = attention_kernel.mha.launches
+    torch.cuda.memory._record_memory_history(max_entries=100000)
+    try:
+        with torch.no_grad():
+            got = card(*args)
+        torch.cuda.synchronize()
+        trace_ = torch.cuda.memory._snapshot()["device_traces"][cuda_device.index or 0]
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    assert attention_kernel.mha.launches == before + 1
+    allocs = [e["size"] for e in trace_ if e["action"] == "alloc"]
+    assert allocs and max(allocs) < 16 * 16 * 199 * 199 * 2, max(allocs)
+    err = float((got.float().cpu() - want).norm() / want.norm())
+    assert err < 0.02, err

@@ -276,28 +276,54 @@ def test_align_audio_and_decide_equal_jax(tmp_path):
 
 COPIED_CONFIGS = ["DetectorConfig", "VisualConfig", "AudioConfig", "FusionConfig", "MeshConfig",
                   "PipelineConfig", "OptimConfig", "TrainConfig"]
+#: the port's own fields, after the copied ones, with their defaults: what
+#: the JAX package serves
+PORT_FIELDS = {"AudioConfig": {"encoder": "wav2vec2-large-robust-12"}}
+
+
+def without_port_fields(tree):
+    """A config's ``_asdict`` tree less the port's own fields."""
+    if isinstance(tree, dict):
+        own = {k for fields in PORT_FIELDS.values() for k in fields}
+        return {k: without_port_fields(v) for k, v in tree.items() if k not in own}
+    return tree
 
 
 @pytest.mark.parametrize("name", COPIED_CONFIGS)
 def test_config_copy_equals_original(name):
     """Same field names, types and defaults, so that one side's values can be
-    handed to the other."""
+    handed to the other; the port's own fields come last, and their defaults
+    build the JAX package's model."""
     import dataclasses
+    import json
 
     from avcer_tpu.core import config as jax_config
     from avcer_tpu_torch.core import config as port_config
 
     want, got = getattr(jax_config, name), getattr(port_config, name)
-    assert [(f.name, f.type) for f in dataclasses.fields(got)] == \
+    own = PORT_FIELDS.get(name, {})
+    fields = [(f.name, f.type) for f in dataclasses.fields(got)]
+    assert fields[:len(fields) - len(own)] == \
         [(f.name, f.type) for f in dataclasses.fields(want)]
-    assert port_config._asdict(got()) == jax_config._asdict(want())
+    assert {n: getattr(got(), n) for n, _ in fields[len(fields) - len(own):]} == own
+    assert without_port_fields(port_config._asdict(got())) == jax_config._asdict(want())
     if name in ("PipelineConfig", "TrainConfig"):
-        assert got().to_json() == want().to_json()
+        assert without_port_fields(json.loads(got().to_json())) == json.loads(want().to_json())
+    if name == "AudioConfig":
+        from avcer_tpu.models.wav2vec2 import Wav2Vec2Config as JaxWav2Vec2Config
+        from avcer_tpu_torch.models.audio_heads import ENCODERS
+
+        built = dataclasses.asdict(ENCODERS[got().encoder]())
+        jax_built = dataclasses.asdict(JaxWav2Vec2Config())
+        assert {k: v for k, v in built.items() if k in jax_built} == \
+            {k: v for k, v in jax_built.items() if k in built}
+        assert set(jax_built) - set(built) == {"use_pallas_attention"}
     if name == "PipelineConfig":
         values = jax_config._asdict(want(save_plot=False, weights_dir="w"))
         rebuilt = got(**{k: getattr(port_config, type(getattr(want(), k)).__name__)(**v)
                          if isinstance(v, dict) else v for k, v in values.items()})
-        assert port_config._asdict(rebuilt) == values
+        assert without_port_fields(port_config._asdict(rebuilt)) == values
+        assert rebuilt.audio.encoder == PORT_FIELDS["AudioConfig"]["encoder"]
         with pytest.raises(ValueError):
             got(visual=port_config.VisualConfig(cnn_stride=-1))
 

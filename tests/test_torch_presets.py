@@ -54,6 +54,8 @@ def _assert_same_config(argv):
     got = dataclasses.asdict(cli.config_from_args(cli.parse_args(argv)))
     want = dataclasses.asdict(_jax_config(argv))
     assert got["detector"]["transfer_format"] == "i420"  # the JAX package's wire format
+    # the port's own field, which the JAX CLI lacks: by default the JAX package's encoder
+    assert got["audio"].pop("encoder") == "wav2vec2-large-robust-12"
     assert got == want
     return got
 

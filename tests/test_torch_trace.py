@@ -18,7 +18,10 @@ from torch.profiler import ProfilerActivity, profile
 from avcer_tpu_torch.core import registry
 from avcer_tpu_torch.core.config import (AudioConfig, DetectorConfig, PipelineConfig,
                                          VisualConfig)
+from avcer_tpu_torch.models.audio_heads import ExprModel
 from avcer_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+from avcer_tpu_torch.models.wavlm import WavLMConfig
+from avcer_tpu_torch.pipeline.audio_stage import AudioStage
 from avcer_tpu_torch.pipeline import media
 from avcer_tpu_torch.pipeline.visual import build_temporal_plan
 from avcer_tpu_torch.utils import trace
@@ -189,12 +192,13 @@ def traced_run(tmp_path_factory):
 
 def test_pipeline_run_gives_the_serving_threads_spans(traced_run):
     """The clip's spans: the serving thread's at every site of the device
-    path, the wire on the prefetch thread, the audio half on its worker."""
+    path, the wire on the prefetch thread, the audio half on its worker
+    (the encoder's forward and its K2 calls inside it)."""
     clip, spans = traced_run["clip"], traced_run["spans"]
     serving = {s.name for s in spans if s.thread == clip.thread}
     assert serving - {"setup.fold", "setup.pack"} == SERVING
     others = {s.name for s in spans if s.thread != clip.thread}
-    assert others == {"runner.wire", "audio"}
+    assert others == {"runner.wire", "audio", "audio.encode", "k2"}
     assert clip.attrs == {"video": "clip", "frames": N_FRAMES, "fps": FPS}
     ids = {s.id for s in spans}
     assert all(s.parent in ids for s in spans if s.name != "clip" and s.thread == clip.thread)
@@ -290,3 +294,42 @@ def test_report_joins_a_clip_with_device_intervals():
     assert fetch["idle_s"] == pytest.approx(fetch["self_s"])
     assert row["busy_s"] == pytest.approx(up.seconds)
     assert row["idle_s"] == pytest.approx(c.seconds - up.seconds)
+
+
+#: a WavLM small enough for the CPU, with the published extractor's strides
+#: (199 frames a 4 s window) and buckets
+TINY_WAVLM = dict(TINY_W2V2, num_layers=3, num_buckets=320, max_bucket_distance=800)
+
+
+def test_wavlm_through_the_audio_stage_records_its_spans_and_counts():
+    """Under a CPU profiler, a tiny WavLM forward through ``AudioStage``
+    records ``audio.encode`` once a batch (with its attributes) and ``k2``
+    once a layer of each batch, every call biased, and nothing else; the
+    counters ``k2.calls`` and ``k2.bias_calls`` count layers x batches. The
+    same forward without a profiler records nothing."""
+    cfg = WavLMConfig(**TINY_WAVLM)
+    model = ExprModel("v3", 8, cfg).eval().requires_grad_(False)
+    stage = AudioStage(model, AudioConfig(batch_size=2, dtype="float32", encoder="wavlm-large"),
+                       device="cpu")
+    wav = (np.random.default_rng(2).normal(size=int(1.2 * 16000)) * 0.1).astype(np.float32)
+    before = len(trace.spans()), len(trace.clips())
+    logits, windows = stage.run_from_wav(wav, FPS)
+    assert (len(trace.spans()), len(trace.clips())) == before
+    batches = -(-len(windows.spans) // 2)
+    with cpu_profile():
+        with trace.clip() as c:
+            traced, _ = stage.run_from_wav(wav, FPS)
+    np.testing.assert_array_equal(traced, logits)
+    spans = [s for s in trace.spans() if s.clip == c.id and s.name != "clip"]
+    assert {s.name for s in spans} == {"audio.encode", "k2"}
+    encode = [s for s in spans if s.name == "audio.encode"]
+    sizes = [min(2, len(windows.spans) - i) for i in range(0, len(windows.spans), 2)]
+    assert len(encode) == batches == len(sizes) > 1
+    assert [s.attrs for s in encode] == [
+        dict(encoder="wavlm-large", layers=3, windows=n, frames=199) for n in sizes]
+    k2 = [s for s in spans if s.name == "k2"]
+    assert len(k2) == 3 * batches
+    assert all(s.attrs["bias"] is True and s.attrs["t"] == 199 and s.attrs["d"] == 16
+               and s.attrs["heads"] == 4 and s.attrs["nb"] == 320 for s in k2)
+    assert {s.parent for s in k2} <= {s.id for s in encode}
+    assert c.counts == {"k2.calls": 3 * batches, "k2.bias_calls": 3 * batches}
